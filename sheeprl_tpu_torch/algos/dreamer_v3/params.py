@@ -1,0 +1,110 @@
+"""Carry a DreamerV3 parameter tree of the reference package into the port.
+
+``params_from_jax`` takes the reference's ``params`` (nested dicts of numpy arrays, as
+``jax.device_get`` gives the fourth value of its ``build_agent``) and returns the
+port's ``state_dict`` for each of ``world_model``, ``actor``, ``critic`` and
+``target_critic``. It needs no JAX: the tree is plain numpy.
+
+Names map by rule (``_torch_key``): the Flax child ``Dense_<i>`` is ``dense.<i>``,
+``LayerNorm_<i>`` is ``norms.<i>``, ``Conv_<i>`` is ``convs.<i>``, ``ConvTranspose_<i>`` is
+``deconvs.<i>``, ``MLP_0`` is ``mlp``, ``head_<k>`` is ``heads.<k>``, the GRU cell's
+``Dense_0`` is ``linear``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is
+dropped. Layouts convert as well:
+
+* Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
+* Conv kernel HWIO -> ``Conv2d.weight`` OIHW;
+* ConvTranspose kernel ``[kh, kw, in, out]`` -> ``ConvTranspose2d.weight``
+  ``[in, out, kh, kw]``, flipped in both spatial axes: Flax's transposed conv
+  (``transpose_kernel=False``) correlates the stride-dilated input with the kernel as
+  it stands, while torch's flips it.
+
+Every leaf must map to exactly one entry of the module's ``state_dict`` with the same
+shape, and every entry must be filled: a leaf left over or an entry missing raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_RULES = (
+    (re.compile(r"(^|/)layers_0/"), r"\1"),
+    (re.compile(r"(^|/)MLP_0/"), r"\1mlp/"),
+    (re.compile(r"(^|/)rnn/Dense_0/"), r"\1rnn/linear/"),
+    (re.compile(r"(^|/)Dense_(\d+)/"), r"\1dense/\2/"),
+    (re.compile(r"(^|/)LayerNorm_(\d+)/"), r"\1norms/\2/"),
+    (re.compile(r"(^|/)ConvTranspose_(\d+)/"), r"\1deconvs/\2/"),
+    (re.compile(r"(^|/)Conv_(\d+)/"), r"\1convs/\2/"),
+    (re.compile(r"(^|/)head_([^/]+)/"), r"\1heads/\2/"),
+)
+_LEAVES = {"kernel": "weight", "scale": "weight"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _torch_key(path: str) -> str:
+    parent, _, leaf = path.rpartition("/")
+    parent = f"{parent}/" if parent else ""
+    for pattern, repl in _RULES:
+        parent = pattern.sub(repl, parent)
+    return (parent + _LEAVES.get(leaf, leaf)).replace("/", ".")
+
+
+def _convert(path: str, value: np.ndarray) -> np.ndarray:
+    if not path.endswith("/kernel"):
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:
+        parent = path.split("/")[-2]
+        if parent.startswith("Conv_"):
+            return value.transpose(3, 2, 0, 1)
+        return value[::-1, ::-1].transpose(2, 3, 0, 1)
+    raise ValueError(f"{path}: unexpected kernel rank {value.ndim}")
+
+
+def module_state_from_jax(tree: Mapping[str, Any], module: nn.Module, name: str = "module") -> Dict[str, torch.Tensor]:
+    """One Flax parameter tree (nested dicts of arrays) -> ``module``'s ``state_dict``.
+    Raises on a leaf with no entry, an entry with no leaf, or a shape that differs."""
+    target = module.state_dict()
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree).items():
+        key = _torch_key(path)
+        if key not in target:
+            raise KeyError(f"{name}: leaf {path!r} maps to {key!r}, which the port's module does not have")
+        if key in state:
+            raise KeyError(f"{name}: two leaves map to {key!r}")
+        arr = np.ascontiguousarray(_convert(path, value))
+        if tuple(arr.shape) != tuple(target[key].shape):
+            raise ValueError(f"{name}: {path!r} -> {key!r} has shape {arr.shape}, expected {tuple(target[key].shape)}")
+        state[key] = torch.from_numpy(arr.astype(np.float32, copy=True)).to(target[key].dtype)
+    missing = sorted(set(target) - set(state))
+    if missing:
+        raise KeyError(f"{name}: no reference leaf for {missing}")
+    return state
+
+
+def params_from_jax(params: Mapping[str, Any], modules: Mapping[str, nn.Module]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``params``: ``{name: {"params": tree}}`` for each name in ``modules``. Returns
+    ``{name: state_dict}`` ready for ``modules[name].load_state_dict``."""
+    if set(params) != set(modules):
+        raise KeyError(f"parameter trees {sorted(params)} do not match modules {sorted(modules)}")
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, module in modules.items():
+        tree = params[name]
+        tree = tree["params"] if set(tree) == {"params"} else tree
+        out[name] = module_state_from_jax(tree, module, name)
+    return out

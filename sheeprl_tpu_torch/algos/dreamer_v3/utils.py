@@ -1,0 +1,74 @@
+"""DreamerV3 helpers (counterpart of ``sheeprl_tpu/algos/dreamer_v3/utils.py``):
+observation transfer, the greedy test rollout and the env-action conversion. The
+moments and the training helpers come with the training slice."""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.envs import spaces
+
+
+class TestResult(NamedTuple):
+    reward: float  # cumulative reward of the episode
+    steps: int  # player steps taken
+    seconds: float  # wall time of the episode's player and env steps
+
+
+def prepare_obs(
+    obs: Dict[str, np.ndarray], cnn_keys: Sequence[str], mlp_keys: Sequence[str], num_envs: int, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """numpy env obs -> ``[num_envs, ...]`` tensors on ``device``; images stay uint8
+    channel-first (the encoder normalises), vectors are flattened float32. ``mask*``
+    entries ride along as bools for a masked actor."""
+    out: Dict[str, torch.Tensor] = {}
+    for k in cnn_keys:
+        v = np.asarray(obs[k])
+        out[k] = torch.as_tensor(v.reshape(num_envs, -1, *v.shape[-2:])).to(device, non_blocking=True)
+    for k in mlp_keys:
+        out[k] = torch.as_tensor(np.asarray(obs[k], dtype=np.float32).reshape(num_envs, -1)).to(device, non_blocking=True)
+    for k in obs:
+        if k.startswith("mask"):
+            out[k] = torch.as_tensor(np.asarray(obs[k], dtype=bool).reshape(num_envs, -1)).to(device)
+    return out
+
+
+@torch.inference_mode()
+def test(player_step, player_state_init, ctx, cfg, log_dir: str, greedy: bool = True, test_name: str = "test") -> TestResult:
+    """One single-env episode with the greedy actor (the posterior is still sampled,
+    from ``ctx.rng()``)."""
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    env = make_env(cfg, cfg.seed, 0, log_dir, test_name)()
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    generator = ctx.rng()
+    obs, _ = env.reset(seed=cfg.seed)
+    state = player_state_init(1)
+    is_first = torch.ones((1, 1), device=ctx.device)
+    done, cum_reward, steps = False, 0.0, 0
+    start = time.perf_counter()
+    while not done:
+        obs_t = prepare_obs({k: np.asarray(v)[None] for k, v in obs.items()}, cnn_keys, mlp_keys, 1, ctx.device)
+        actions, _, state = player_step(state, obs_t, is_first, generator, greedy=greedy)
+        is_first = torch.zeros((1, 1), device=ctx.device)
+        obs, reward, terminated, truncated, _ = env.step(_to_env_action(actions, env.action_space))
+        done = bool(terminated or truncated)
+        cum_reward += float(reward)
+        steps += 1
+    seconds = time.perf_counter() - start
+    env.close()
+    return TestResult(cum_reward, steps, seconds)
+
+
+def _to_env_action(actions: Sequence[torch.Tensor], action_space) -> Any:
+    acts = [a[0].float().cpu().numpy() for a in actions]
+    if isinstance(action_space, spaces.Box):
+        return acts[0].reshape(action_space.shape)
+    if isinstance(action_space, spaces.Discrete):
+        return int(acts[0].argmax(-1))
+    return np.stack([a.argmax(-1) for a in acts])

@@ -1,0 +1,121 @@
+"""Reusable ``torch.nn`` building blocks (counterpart of ``sheeprl_tpu/models/blocks.py``).
+
+* ``MLP``: dense stack with optional per-layer LayerNorm.
+* ``LayerNorm``: LayerNorm over the last axis with Flax's statistics (see below).
+* ``LayerNormGRUCell``: GRU with LayerNorm on the fused ``[x, h]`` projection and
+  Hafner's ``update - 1`` bias; its gate step is the ``layernorm_gru`` kernel on CUDA.
+
+Parameters are float32. Child names follow the reference's parameter tree
+(``dense.<i>`` for ``Dense_<i>``, ``norms.<i>`` for ``LayerNorm_<i>``), so that
+``algos/dreamer_v3/params.py`` can carry a reference checkpoint across by rule.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sheeprl_tpu_torch.ops.gru import layernorm_gru
+
+
+def _activation(act: str | Callable | None) -> Optional[Callable]:
+    if act is None or callable(act):
+        return act
+    table = {
+        "relu": F.relu,
+        "tanh": torch.tanh,
+        "silu": F.silu,
+        "swish": F.silu,
+        "elu": F.elu,
+        # flax.linen.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "leaky_relu": F.leaky_relu,
+        "identity": None,
+        "none": None,
+    }
+    return table[str(act).lower()]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed as ``flax.linen.LayerNorm`` computes it.
+
+    Flax (0.12, ``use_fast_variance=True``) takes the variance as ``E[x^2] - E[x]^2``,
+    clipped at 0, in float32, then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    The port keeps that order so carried weights give the reference's outputs; the
+    GRU cell's own LayerNorm is the two-pass form (``ops/gru.py``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(
+        self,
+        input_dim: int,
+        hidden_sizes: Sequence[int] = (),
+        output_dim: Optional[int] = None,
+        activation: str | Callable = "tanh",
+        layer_norm: bool = False,
+        norm_eps: float = 1e-5,
+    ):
+        super().__init__()
+        self.act = _activation(activation)
+        sizes = [input_dim, *hidden_sizes]
+        self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.norms = nn.ModuleList(LayerNorm(s, norm_eps) for s in hidden_sizes) if layer_norm else None
+        if output_dim is not None:
+            self.dense.append(nn.Linear(sizes[-1], output_dim))
+        self.n_hidden = len(hidden_sizes)
+        self.output_dim = output_dim if output_dim is not None else sizes[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.dense):
+            x = layer(x)
+            if i < self.n_hidden:
+                if self.norms is not None:
+                    x = self.norms[i](x)
+                if self.act is not None:
+                    x = self.act(x)
+        return x
+
+
+class LayerNormGRUCell(nn.Module):
+    """GRU cell with LayerNorm on the fused projection (reference ``blocks.py:157-203``).
+
+    One bias-free ``Linear`` maps ``concat([x, h])`` to ``3H`` laid out as
+    ``[reset, cand, update]``; ``ln_scale``/``ln_bias`` (``[3H]``) are the LayerNorm's
+    parameters. The gate step is ``ops.gru.layernorm_gru``: the CUDA kernel for CUDA
+    tensors, the plain version on the CPU. Returns the new state."""
+
+    def __init__(self, input_size: int, hidden_size: int, norm_eps: float = 1e-3):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.norm_eps = norm_eps
+        self.linear = nn.Linear(input_size + hidden_size, 3 * hidden_size, bias=False)
+        self.ln_scale = nn.Parameter(torch.ones(3 * hidden_size))
+        self.ln_bias = nn.Parameter(torch.zeros(3 * hidden_size))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hidden = self.hidden_size
+        fused = self.linear(torch.cat([x, h], -1))
+        out = layernorm_gru(
+            fused.reshape(-1, 3 * hidden).contiguous(),
+            h.reshape(-1, hidden).to(fused.dtype).contiguous(),
+            self.ln_scale,
+            self.ln_bias,
+            self.norm_eps,
+        )
+        return out.reshape(*h.shape[:-1], hidden)

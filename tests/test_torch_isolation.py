@@ -1,0 +1,86 @@
+"""The PyTorch port stands alone: importing it loads no JAX, no Flax and nothing of the
+JAX package ``sheeprl_tpu``; nor gymnasium, which the card's host does not have (the
+port carries its own subset of gymnasium's API, ``envs/core.py``).
+
+The test session itself has JAX loaded (``tests/conftest.py``), so the import check runs
+in a fresh interpreter. Note the prefix trap: ``sheeprl_tpu_torch`` starts with
+``sheeprl_tpu``, so a module of the JAX package is ``sheeprl_tpu`` or
+``sheeprl_tpu.<...>``.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "sheeprl_tpu_torch"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "chex", "sheeprl_tpu", "gymnasium"}
+
+SLICE_MODULES = [
+    "sheeprl_tpu_torch",
+    "sheeprl_tpu_torch.cli",
+    "sheeprl_tpu_torch.eval",
+    "sheeprl_tpu_torch.algos",
+    "sheeprl_tpu_torch.algos.dreamer_v3.agent",
+    "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v3.params",
+    "sheeprl_tpu_torch.algos.dreamer_v3.utils",
+    "sheeprl_tpu_torch.checkpoint.manager",
+    "sheeprl_tpu_torch.config.core",
+    "sheeprl_tpu_torch.distributions",
+    "sheeprl_tpu_torch.envs.core",
+    "sheeprl_tpu_torch.envs.dummy",
+    "sheeprl_tpu_torch.envs.spaces",
+    "sheeprl_tpu_torch.envs.wrappers",
+    "sheeprl_tpu_torch.models.blocks",
+    "sheeprl_tpu_torch.ops.gru",
+    "sheeprl_tpu_torch.ops._build",
+    "sheeprl_tpu_torch.parallel.context",
+    "sheeprl_tpu_torch.utils.env",
+    "sheeprl_tpu_torch.utils.imports",
+    "sheeprl_tpu_torch.utils.logger",
+    "sheeprl_tpu_torch.utils.registry",
+    "sheeprl_tpu_torch.utils.utils",
+]
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in FORBIDDEN_ROOTS
+
+
+def test_importing_the_slice_loads_no_jax_nor_gymnasium_in_a_fresh_interpreter():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN_ROOTS)!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}:{line}: {mod}" for f in files for line, mod in _imports(f) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_prefix_rule_tells_the_packages_apart():
+    assert _forbidden("sheeprl_tpu") and _forbidden("sheeprl_tpu.ops.gru") and _forbidden("jax.numpy") and _forbidden("gymnasium.spaces")
+    assert not _forbidden("sheeprl_tpu_torch") and not _forbidden("sheeprl_tpu_torch.ops.gru")
