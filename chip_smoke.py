@@ -6,21 +6,33 @@
 Phases, in order; any failure raises, so the script exits non-zero and prints no
 result line:
 
-1. build: compile every CUDA kernel of the slice from ``sheeprl_tpu_torch/csrc`` with
+1. build: compile every CUDA kernel of the port from ``sheeprl_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``; print the build seconds and the card's name and power limit;
 2. kernels: with TF32 off for matmuls and cuDNN, hold each kernel against its plain
-   PyTorch version at the slice's shapes (f32 atol 1e-5; bf16 atol 1e-2 on the bf16
-   output) and time both;
+   PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
+   atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
+   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2);
 3. agreement: the size-S DreamerV3 player on the card against the same agent on the
-   CPU (plain path) for a few steps with injected draws, TF32 off, atol = rtol = 1e-3;
-4. eval (the slice's main path): write a seeded size-S DreamerV3 checkpoint and run
-   ``sheeprl_tpu_torch.cli.evaluate`` on it, with the precision the config asks for
-   (``float32_matmul_precision=high``: TF32 matmuls; cuDNN's default TF32 convs); the
+   CPU (plain path) for a few steps with injected draws, at ``mesh.precision=32-true``
+   set explicitly and TF32 off, atol = rtol = 1e-3;
+4. eval: write a seeded size-S DreamerV3 checkpoint and run
+   ``sheeprl_tpu_torch.cli.evaluate`` on it at the config's defaults
+   (``mesh.precision=bf16-mixed``, ``float32_matmul_precision=high``); the forward
    kernel's launch count must equal the player steps;
-5. batched player: 16 envs for 64 steps, sampling from a CUDA generator.
+5. batched player: 16 envs for 64 steps, sampling from a CUDA generator;
+6. train-agreement: one whole training step of a small agent on the card against the
+   CPU, same weights, batch and draws, at ``mesh.precision=32-true`` with TF32 off;
+7. train: the size-S training step at batch 16 x sequence 64, horizon 15, at
+   bf16-mixed and at 32-true: gradient steps/s, kernel launches per step against the
+   expected counts, peak memory and a ``torch.profiler`` breakdown of one step;
+8. train-cli: the training loop through the train entry at size S with the async vector
+   env: it trains, checkpoints, resumes from a checkpoint, and the eval entry evaluates
+   the last checkpoint.
 
-It then prints one JSON line describing every kernel, and last the line
-``{"ok": true, "device": {...}}``. Exits 2 without CUDA.
+Every path (eval, batched, train, train-cli) zeroes the kernels' launch counters just
+before it and reads them just after. The script then prints one JSON line describing
+every kernel, and last the line ``{"ok": true, "device": {...}}``. Exits 2 without
+CUDA.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -53,9 +66,48 @@ EPISODE_STEPS = 128  # DiscreteDummyEnv(n_steps=128): 129 player steps per episo
 
 KERNEL_SHAPES = [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # per hidden unit: LayerNorm statistics and normalisation over its 3 values (24),
 # two sigmoids, a tanh and the blend (15); transcendental functions count as one
 GRU_OPS_PER_UNIT = 39
+# the backward per hidden unit: the forward's recompute (39), the gate gradients (15),
+# the dgamma/dbeta sums (6), the two dp means (9) and dp itself (12)
+GRU_BWD_OPS_PER_UNIT = 81
+
+# Training phases: DreamerV3-S on 64x64 rgb frames, batch 16 x sequence 64, horizon 15
+TRAIN_OVERRIDES = [
+    "exp=dreamer_v3_dummy",
+    "algo=dreamer_v3_S",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+    "algo.per_rank_batch_size=16",
+    "algo.per_rank_sequence_length=64",
+    "algo.horizon=15",
+]
+# a small agent for the card-against-CPU training step
+SMALL_TRAIN = [
+    "exp=dreamer_v3_dummy",
+    "algo=dreamer_v3_XS",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+    "algo.dense_units=64",
+    "algo.world_model.encoder.cnn_channels_multiplier=8",
+    "algo.world_model.recurrent_model.recurrent_state_size=128",
+    "algo.world_model.transition_model.hidden_size=64",
+    "algo.world_model.representation_model.hidden_size=64",
+    "algo.per_rank_batch_size=4",
+    "algo.per_rank_sequence_length=16",
+    "algo.horizon=5",
+    "mesh.precision=32-true",
+]
+# params: about one Adam step of the world model's lr, for entries whose gradient is so
+# small that its sign differs between the two sums; losses: rtol 1e-4 with atol 1e-6
+# (the policy loss is ~1e-5: a mean of products of small advantages)
+TRAIN_AGREEMENT_TOL = {"params": 1e-4, "losses_rtol": 1e-4, "losses_atol": 1e-6}
 
 
 def log(msg: str) -> None:
@@ -116,6 +168,31 @@ def gru_bound(batch: int, hidden: int, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gru_bwd_bound(batch: int, hidden: int, dtype: torch.dtype):
+    """Least time for the gate step's gradient: proj, h and g read once, dproj and dh
+    written once, gamma/beta read and dgamma/dbeta written once (float32), against its
+    float32 operations. The kernel's dgamma/dbeta partials are not counted: the work
+    does not need them."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = batch * (3 * hidden + 2 * hidden) * elem + batch * 4 * hidden * elem + 4 * 3 * hidden * 4
+    ops = GRU_BWD_OPS_PER_UNIT * batch * hidden
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launches() -> tuple:
+    from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
+
+    return layernorm_gru.launches, layernorm_gru_backward.launches
+
+
+def zero_launches() -> None:
+    from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
+
+    layernorm_gru.launches = 0
+    layernorm_gru_backward.launches = 0
+
+
 def phase_build() -> float:
     from sheeprl_tpu_torch.ops import _build
 
@@ -168,7 +245,55 @@ def phase_kernels(device: torch.device) -> dict:
             rows.append(row)
             if dtype == torch.float32:
                 worst = max(worst, err)
-    main = next(r for r in rows if (r["B"], r["H"], r["dtype"]) == (1, 512, "float32"))
+    main = next(r for r in rows if (r["B"], r["H"], r["dtype"]) == (16, 512, "bfloat16"))
+    return {"rows": rows, "max_abs_err_f32": worst, "main": main}
+
+
+def phase_kernels_bwd(device: torch.device) -> dict:
+    """K1-bwd: the backward kernel against autograd through the plain forward on the
+    same values in float32, at the slice's shapes, f32 and bf16 inputs."""
+    from sheeprl_tpu_torch.ops.gru import layernorm_gru_backward, layernorm_gru_backward_reference
+
+    set_tf32(False)
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows, worst = [], 0.0
+    for batch, hidden in KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            proj = torch.randn(batch, 3 * hidden, device=device, generator=gen)
+            h = torch.randn(batch, hidden, device=device, generator=gen)
+            gamma = 1 + 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
+            beta = 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
+            g = torch.randn(batch, hidden, device=device, generator=gen)
+            ref = layernorm_gru_backward_reference(proj, h, gamma, beta, g)
+            args = (proj.to(dtype), h.to(dtype), gamma, beta, g.to(dtype))
+            out = layernorm_gru_backward(*args)
+            torch.cuda.synchronize()
+            err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+            want = [dtype, dtype, torch.float32, torch.float32]
+            if [o.dtype for o in out] != want or not math.isfinite(err) or err > BWD_TOL[dtype]:
+                raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: max_abs_err {err} > {BWD_TOL[dtype]}")
+            ms = graph_ms(lambda: layernorm_gru_backward(*args))
+            plain_ms = graph_ms(lambda: layernorm_gru_backward_reference(*args))
+            call_ms = eager_ms(lambda: layernorm_gru_backward(*args))
+            bound_ms, bound_by = gru_bwd_bound(batch, hidden, dtype)
+            row = {
+                "B": batch,
+                "H": hidden,
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err,
+                "tol": BWD_TOL[dtype],
+                "kernel_ms": ms,
+                "plain_ms": plain_ms,
+                "eager_call_ms": call_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            }
+            log("[kernels] layernorm_gru_bwd " + json.dumps(row))
+            rows.append(row)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    main = next(r for r in rows if (r["B"], r["H"], r["dtype"]) == (16, 512, "bfloat16"))
     return {"rows": rows, "max_abs_err_f32": worst, "main": main}
 
 
@@ -179,23 +304,25 @@ def _s_config(extra=()):
 
 
 def _build_s_agent(cfg, device: torch.device, seed: int):
+    """The agent ``cfg`` describes, computing in its ``mesh.precision``."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, parse_actions_dim
-    from sheeprl_tpu_torch.parallel.context import RunContext
+    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
     from sheeprl_tpu_torch.utils.env import make_env
 
     env = make_env(cfg, cfg.seed, 0, None)()
     is_continuous, actions_dim = parse_actions_dim(env.action_space)
-    modules = build_agent(RunContext(device, seed), actions_dim, is_continuous, cfg, env.observation_space)
+    ctx = RunContext(device, seed, compute_dtype=compute_dtype(cfg.mesh.precision))
+    modules = build_agent(ctx, actions_dim, is_continuous, cfg, env.observation_space)
     return env, actions_dim, modules
 
 
 def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> float:
     """The size-S player on ``device`` against the same agent on the CPU (plain GRU
-    path), fed the same observations and the same one-hot draws."""
+    path), fed the same observations and the same one-hot draws, in float32."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, make_player_step
 
     set_tf32(False)
-    cfg = _s_config(["device=cpu"])
+    cfg = _s_config(["device=cpu", "mesh.precision=32-true"])
     env, actions_dim, (wm, actor, _, _, _) = _build_s_agent(cfg, torch.device("cpu"), seed=11)
     wm_d, actor_d = copy.deepcopy(wm).to(device), copy.deepcopy(actor).to(device)
     wm_cfg = cfg.algo.world_model
@@ -231,7 +358,8 @@ def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> flo
                     raise AssertionError(f"agreement step {t}: non-finite {name}")
                 torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=lambda m: f"agreement step {t} {name}: {m}")
                 worst = max(worst, (a - b).abs().max().item())
-    log(f"[agreement] size-S player, {steps} steps x {batch} envs, {device} vs cpu: max_abs_diff {worst:.3e} (atol=rtol=1e-3)")
+    log(f"[agreement] size-S player at mesh.precision=32-true, {steps} steps x {batch} envs, {device} vs cpu: "
+        f"max_abs_diff {worst:.3e} (atol=rtol=1e-3)")
     env.close()
     return worst
 
@@ -242,7 +370,7 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.cli import evaluate
     from sheeprl_tpu_torch.config.core import save_config
-    from sheeprl_tpu_torch.ops.gru import layernorm_gru
+    from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
 
     set_tf32(True)  # the config's float32_matmul_precision=high sets the same for matmuls
     cfg = _s_config([f"device={device.type}"])
@@ -263,7 +391,7 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
 
     dv3_eval.build_agent = spy
     try:
-        layernorm_gru.launches = 0
+        zero_launches()
         result = evaluate(
             [
                 f"checkpoint_path={ckpt}",
@@ -272,19 +400,19 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
                 f"log_root={workdir / 'logs'}",
             ]
         )
-        launches = layernorm_gru.launches
+        launches, bwd_launches = layernorm_gru.launches, layernorm_gru_backward.launches
     finally:
         dv3_eval.build_agent = real_build
     tensors = [t for m in built for t in (*m.parameters(), *m.buffers())]
     if not tensors or any(t.device.type != device.type for t in tensors):
         raise AssertionError("the evaluated agent is not on the card")
-    if result.steps != EPISODE_STEPS + 1 or launches != result.steps:
-        raise AssertionError(f"eval: {result.steps} player steps, {launches} kernel launches")
+    if result.steps != EPISODE_STEPS + 1 or launches != result.steps or bwd_launches != 0:
+        raise AssertionError(f"eval: {result.steps} player steps, {launches} forward and {bwd_launches} backward launches")
     if not (math.isfinite(result.reward) and result.reward == 0.0):
         raise AssertionError(f"eval: reward {result.reward} (the dummy env pays 0)")
     sps = result.steps / result.seconds
-    log(f"[eval] DreamerV3-S ({n_params} parameters) on {device}: reward {result.reward}, {result.steps} player steps, "
-        f"{sps:.1f} player steps/s, layernorm_gru launches {launches}")
+    log(f"[eval] DreamerV3-S ({n_params} parameters) on {device} at mesh.precision={cfg.mesh.precision}: reward "
+        f"{result.reward}, {result.steps} player steps, {sps:.1f} player steps/s, layernorm_gru launches {launches}")
     return {"launches": launches, "steps": result.steps, "steps_per_s": sps, "devices": {t.device for t in tensors}}
 
 
@@ -311,7 +439,7 @@ def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> di
     with torch.inference_mode():
         step(state, {k: v[0] for k, v in obs.items()}, is_first, gen)  # warm-up (cuDNN/cuBLAS choice)
         torch.cuda.synchronize()
-        layernorm_gru.launches = 0
+        zero_launches()
         start = time.perf_counter()
         for t in range(steps):
             actions, _, state = step(state, {k: v[t] for k, v in obs.items()}, is_first, gen)
@@ -367,12 +495,207 @@ def profile_player(step, state, obs, gen, steps: int) -> None:
     }))
 
 
+def _train_batch(cfg, actions_dim, device: torch.device, gen: torch.Generator) -> dict:
+    """A seeded ``[T, B]`` replay batch on ``device``: rgb frames, one-hot actions,
+    rewards, a few terminations and episode starts."""
+    T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
+    n = int(sum(actions_dim))
+    u = lambda *shape: torch.rand(*shape, generator=gen, device=device)  # noqa: E731
+    return {
+        "rgb": torch.randint(0, 256, (T, B, 3, 64, 64), generator=gen, device=device, dtype=torch.uint8),
+        "actions": torch.nn.functional.one_hot(torch.randint(0, n, (T, B), generator=gen, device=device), n).float(),
+        "rewards": torch.randn(T, B, 1, generator=gen, device=device),
+        "terminated": (u(T, B, 1) < 0.01).float(),
+        "truncated": torch.zeros(T, B, 1, device=device),
+        "is_first": (u(T, B, 1) < 0.02).float(),
+    }
+
+
+def phase_train_agreement(device: torch.device) -> dict:
+    """One training step of a small agent on the card against the same step on the CPU:
+    same weights, batch and draws, float32, TF32 off."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step, sample_draws
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+    from sheeprl_tpu_torch.config.core import compose
+
+    set_tf32(False)
+    cfg = compose(overrides=[*SMALL_TRAIN, "device=cpu"])
+    env, actions_dim, cpu_modules = _build_s_agent(cfg, torch.device("cpu"), seed=21)
+    env.close()
+    dev_modules = [copy.deepcopy(m).to(device) for m in cpu_modules[:4]]
+    gen = torch.Generator().manual_seed(4)
+    batch = _train_batch(cfg, actions_dim, torch.device("cpu"), gen)
+    wm_cfg = cfg.algo.world_model
+    T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
+    draws = sample_draws(T, B, cfg.algo.horizon, wm_cfg.stochastic_size, wm_cfg.discrete_size, actions_dim, "gumbel", gen, torch.device("cpu"))
+    results = []
+    for modules, dev in ((cpu_modules[:4], torch.device("cpu")), (dev_modules, device)):
+        step, init = make_train_step(*modules, cfg, ["rgb"], [])
+        opt = init()
+        moments, metrics = step(
+            opt, init_moments(dev), {k: v.to(dev) for k, v in batch.items()}, True, draws=type(draws)(*(
+                tuple(t.to(dev) for t in d) if isinstance(d, tuple) else d.to(dev) for d in draws
+            ))
+        )
+        results.append((modules, opt, moments, metrics))
+    torch.cuda.synchronize()
+    (cm, copt, cmom, cmet), (dm, dopt, dmom, dmet) = results
+    diff = lambda a, b: (a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()  # noqa: E731
+    worst_param = max(diff(p, q) for a, b in zip(cm, dm) for p, q in zip(a.state_dict().values(), b.state_dict().values()))
+    worst_moment = max(diff(p, q) for name in copt for key in ("mu", "nu") for p, q in zip(copt[name][key], dopt[name][key]))
+    tol = TRAIN_AGREEMENT_TOL
+    losses = {k: (cmet[k].item(), dmet[k].item()) for k in cmet if k.startswith("Loss/")}
+    bad = [k for k, (c, d) in losses.items() if abs(c - d) > tol["losses_atol"] + tol["losses_rtol"] * abs(c)]
+    finite = all(torch.isfinite(v).all() for v in dmet.values())
+    log(f"[train-agreement] small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: max |param diff| "
+        f"{worst_param:.3e} (atol {tol['params']}), max |Adam moment diff| {worst_moment:.3e}; losses (cpu, card) "
+        + json.dumps(losses) + f" (rtol {tol['losses_rtol']}, atol {tol['losses_atol']})")
+    if not finite or worst_param > tol["params"] or bad:
+        raise AssertionError(f"train-agreement: the card's training step disagrees with the CPU's: {bad or worst_param}")
+    return {"param": worst_param, "moment": worst_moment, "losses": losses}
+
+
+def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy", steps: int = 8, warmup: int = 2) -> dict:
+    """The size-S training step on the card at the config's matmul precision (TF32):
+    steps/s, the kernels' launches per step (checked), peak memory, and one profiled
+    step."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+    from sheeprl_tpu_torch.config.core import compose
+
+    set_tf32(True)
+    cfg = compose(overrides=[*TRAIN_OVERRIDES, f"env={env}", f"mesh.precision={precision}", "device=cuda"])
+    env_, actions_dim, (wm, actor, critic, target, _) = _build_s_agent(cfg, device, seed=31)
+    env_.close()
+    is_continuous = actor.is_continuous
+    step, init = make_train_step(wm, actor, critic, target, cfg, ["rgb"], [])
+    gen = torch.Generator(device=device).manual_seed(6)
+    batch = _train_batch(cfg, actions_dim, device, gen)
+    if is_continuous:
+        batch["actions"] = torch.rand(*batch["actions"].shape[:2], int(sum(actions_dim)), generator=gen, device=device) * 2 - 1
+    opt, moments = init(), init_moments(device)
+    T, H = cfg.algo.per_rank_sequence_length, cfg.algo.horizon
+    for _ in range(warmup):
+        moments, metrics = step(opt, moments, batch, True, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    start = time.perf_counter()
+    for _ in range(steps):
+        moments, metrics = step(opt, moments, batch, True, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    fwd, bwd = launches()
+    want = (steps * (T + H), steps * (T + H if is_continuous else T))
+    if (fwd, bwd) != want:
+        raise AssertionError(f"train {precision} {env}: launches (fwd, bwd) = {(fwd, bwd)}, expected {want}")
+    if not all(math.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"train {precision} {env}: non-finite metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated(device)
+    row = {
+        "precision": precision,
+        "actor": "continuous" if is_continuous else "discrete",
+        "grad_steps_per_s": steps / seconds,
+        "fwd_launches_per_step": fwd / steps,
+        "bwd_launches_per_step": bwd / steps,
+        "peak_memory_bytes": peak,
+        "losses": {k: v.item() for k, v in metrics.items() if k.startswith("Loss/")},
+    }
+    log("[train] DreamerV3-S B16xT64 H15 " + json.dumps(row))
+    if not is_continuous:
+        row["profile"] = profile_train(step, opt, moments, batch, gen, precision)
+    return row
+
+
+def profile_train(step, opt, moments, batch, gen, precision: str) -> dict:
+    """One training step under ``torch.profiler``: kernels, device time, busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(opt, moments, batch, True, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    if not kernels or device_ms <= 0:
+        log(f"[profile] train {precision}: device time not measured (the profiler recorded no CUDA kernels)")
+        return {}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    gru = {k: v for k, v in by_name.items() if "layernorm_gru" in k or "sum_partials" in k}
+    out = {
+        "precision": precision,
+        "kernels_per_step": len(kernels),
+        "device_ms_per_step": device_ms,
+        "wall_ms_per_step": wall_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "layernorm_gru_ms_per_step": {k[:60]: v for k, v in gru.items()},
+        "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    log("[profile] train step " + json.dumps(out))
+    return out
+
+
+def phase_train_cli(device: torch.device, workdir: Path) -> dict:
+    """The training loop through the train entry, at size S with the async vector env:
+    train, checkpoint, resume from the checkpoint at policy step 64, evaluate the last
+    checkpoint through the eval entry."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate, run
+
+    set_tf32(True)
+    overrides = [
+        *TRAIN_OVERRIDES,
+        f"device={device.type}",
+        f"log_root={workdir / 'logs'}",
+        "env.sync_env=False",
+        "algo.learning_starts=128",
+        "algo.total_steps=256",
+        "checkpoint.every=64",
+        "metric.log_every=64",
+    ]
+    out = {}
+    zero_launches()
+    first = run(overrides)
+    fwd, bwd = launches()
+    if first.grad_steps < 32 or fwd == 0 or bwd == 0 or first.checkpoint is None:
+        raise AssertionError(f"train-cli: {first.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)}, checkpoint {first.checkpoint}")
+    out["train"] = {"grad_steps": first.grad_steps, "fwd": fwd, "bwd": bwd}
+    log(f"[train-cli] train: {first.policy_steps} policy steps, {first.grad_steps} gradient steps in {first.seconds:.2f} s "
+        f"({first.policy_steps / first.seconds:.1f} policy steps/s; {first.train_seconds:.2f} s in gradient steps, "
+        f"{first.env_seconds:.2f} s acting and stepping envs), layernorm_gru launches fwd {fwd} bwd {bwd}")
+    ckpts = CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints()
+    mid = next(p for p in ckpts if p.name == "ckpt_64")
+    zero_launches()
+    resumed = run([*overrides, f"checkpoint.resume_from={mid}"])
+    fwd, bwd = launches()
+    if resumed.grad_steps <= 0 or bwd == 0 or resumed.checkpoint is None:
+        raise AssertionError(f"train-cli resume: {resumed.grad_steps} gradient steps, launches {(fwd, bwd)}")
+    out["resume"] = {"grad_steps": resumed.grad_steps, "fwd": fwd, "bwd": bwd}
+    log(f"[train-cli] resume from {mid.name}: {resumed.policy_steps - 64} policy steps, {resumed.grad_steps} gradient steps "
+        f"in {resumed.seconds:.2f} s, layernorm_gru launches fwd {fwd} bwd {bwd}")
+    zero_launches()
+    start = time.perf_counter()
+    result = evaluate([f"checkpoint_path={resumed.checkpoint}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    fwd, bwd = launches()
+    if fwd != result.steps or bwd != 0 or not math.isfinite(result.reward):
+        raise AssertionError(f"train-cli eval: {result.steps} steps, launches {(fwd, bwd)}, reward {result.reward}")
+    out["eval"] = {"steps": result.steps, "fwd": fwd}
+    log(f"[train-cli] eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
+        f"{time.perf_counter() - start:.2f} s, layernorm_gru launches fwd {fwd}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import sheeprl_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    os.environ["SHEEPRL_TPU_QUIET"] = "1"  # the train entry prints no config dump
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -382,33 +705,41 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     kernels = phase_kernels(device)
+    kernels_bwd = phase_kernels_bwd(device)
     phase_agreement(device)
     with tempfile.TemporaryDirectory() as tmp:
         ev = phase_eval(device, Path(tmp))
     phase_batched(device)
-    main_row = kernels["main"]
-    line = {
-        "kernels": [
+    phase_train_agreement(device)
+    train = [phase_train(device, "bf16-mixed"), phase_train(device, "32-true"), phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_train_cli(device, Path(tmp))
+    line = {"kernels": []}
+    for name, source_line, k, n in (
+        ("layernorm_gru_fwd", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
+        ("layernorm_gru_bwd", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
+    ):
+        row = k["main"]
+        line["kernels"].append(
             {
-                "name": "layernorm_gru_fwd",
+                "name": name,
                 "route": "cuda",
                 "source": "sheeprl_tpu_torch/csrc/layernorm_gru.cu",
-                "replaces": "sheeprl_tpu/ops/gru.py:119",
-                "launches": ev["launches"],
-                "max_abs_err": kernels["max_abs_err_f32"],
-                "ms": main_row["kernel_ms"],
-                "plain_ms": main_row["plain_ms"],
-                "bound_ms": main_row["bound_ms"],
-                "bound_by": main_row["bound_by"],
+                "replaces": source_line,
+                "launches": n,
+                "max_abs_err": k["max_abs_err_f32"],
+                "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
                 "library_ms": None,
             }
-        ]
-    }
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
+        )
+    log(f"[done] {time.perf_counter() - t0:.1f} s; eval launches {ev['launches']}; train steps/s "
+        + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train))
     print(smi)
     print(json.dumps(line))
-    # count: the cards the run used (the evaluated agent's), not every card visible
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": len(ev["devices"])}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -6,9 +6,10 @@ imports ``torch`` and nothing of JAX or of the reference package. Each kernel th
 reference wrote in Pallas is a hand-written CUDA kernel here (``csrc/``), with a plain
 PyTorch version of the same math beside it (``ops/``).
 
-Ported so far: DreamerV3 inference through the evaluation entry
+Ported so far: DreamerV3 training through the train entry (``python -m
+sheeprl_tpu_torch exp=<preset> ...``) and inference through the evaluation entry
 (``python -m sheeprl_tpu_torch.eval checkpoint_path=<dir>``), with the LayerNorm-GRU
-forward kernel.
+forward and backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -36,7 +36,15 @@ from sheeprl_tpu_torch.distributions import (
     unimix_logits,
 )
 from sheeprl_tpu_torch.envs import spaces
-from sheeprl_tpu_torch.models.blocks import MLP, LayerNorm, LayerNormGRUCell
+from sheeprl_tpu_torch.models.blocks import (
+    MLP,
+    Conv2d,
+    ConvTranspose2d,
+    LayerNorm,
+    LayerNormGRUCell,
+    Linear,
+    set_compute_dtype,
+)
 from sheeprl_tpu_torch.utils.utils import symlog
 
 
@@ -46,12 +54,14 @@ def compute_stochastic_state(
     sample: bool = True,
     generator: Optional[torch.Generator] = None,
     draw: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The ``[..., stoch, discrete]`` one-hot state with straight-through gradients.
-    ``draw`` is an injected one-hot sample of that shape."""
+    ``draw`` is an injected one-hot sample of that shape, ``gumbel`` injected Gumbel
+    noise of that shape."""
     shaped = logits.reshape(*logits.shape[:-1], -1, discrete)
     dist = OneHotCategoricalStraightThrough(shaped)
-    return dist.rsample(generator, draw=draw) if sample else dist.mode
+    return dist.rsample(generator, draw=draw, gumbel=gumbel) if sample else dist.mode
 
 
 def _channel_norm(norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +77,7 @@ class CNNEncoder(nn.Module):
         super().__init__()
         chans = [in_channels] + [channels_multiplier * 2**i for i in range(stages)]
         self.convs = nn.ModuleList(
-            nn.Conv2d(a, b, 4, stride=2, padding=1, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
+            Conv2d(a, b, 4, stride=2, padding=1, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
         )
         self.norms = nn.ModuleList(LayerNorm(c, norm_eps) for c in chans[1:]) if layer_norm else None
 
@@ -155,16 +165,16 @@ class CNNDecoder(nn.Module):
         total_c = sum(int(s[0]) for s in self.output_shapes.values())
         self.h0 = image_size // 2**stages
         self.c0 = channels_multiplier * 2 ** (stages - 1)
-        self.latent_proj = nn.Linear(latent_size, self.h0 * self.h0 * self.c0)
+        self.latent_proj = Linear(latent_size, self.h0 * self.h0 * self.c0)
         chans = [self.c0] + [channels_multiplier * 2**i for i in reversed(range(stages - 1))]
         # Flax's ConvTranspose(k=4, s=2, padding="SAME") pads the stride-dilated input by
         # 2 on each side, as ConvTranspose2d(k=4, s=2, padding=1) does; params.py flips
         # the carried kernel, since torch's transposed conv flips it and Flax's does not.
         self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(a, b, 4, stride=2, padding=1, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
+            ConvTranspose2d(a, b, 4, stride=2, padding=1, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
         )
         self.norms = nn.ModuleList(LayerNorm(c, norm_eps) for c in chans[1:]) if layer_norm else None
-        self.head = nn.ConvTranspose2d(chans[-1], total_c, 4, stride=2, padding=1)
+        self.head = ConvTranspose2d(chans[-1], total_c, 4, stride=2, padding=1)
 
     def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.latent_proj(z)
@@ -190,7 +200,7 @@ class MLPDecoder(nn.Module):
     def __init__(self, latent_size: int, output_shapes: Dict[str, Tuple[int, ...]], dense_units: int = 512, mlp_layers: int = 2, layer_norm: bool = True):
         super().__init__()
         self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation="silu", layer_norm=layer_norm, norm_eps=1e-3)
-        self.heads = nn.ModuleDict({k: nn.Linear(dense_units, int(np.prod(s))) for k, s in output_shapes.items()})
+        self.heads = nn.ModuleDict({k: Linear(dense_units, int(np.prod(s))) for k, s in output_shapes.items()})
 
     def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.mlp(z)
@@ -210,8 +220,8 @@ class RecurrentModel(nn.Module):
 
 
 class RSSM(nn.Module):
-    """Recurrent State-Space Model. ``dynamic``/``imagination`` are forward only here;
-    each takes injected one-hot draws in place of the generator's."""
+    """Recurrent State-Space Model. ``dynamic``/``imagination`` take injected one-hot
+    draws or Gumbel noise in place of the generator's."""
 
     def __init__(
         self,
@@ -236,9 +246,9 @@ class RSSM(nn.Module):
         self.representation_model = MLP(
             recurrent_state_size + embed_size, (representation_hidden_size,), activation="silu", layer_norm=True, norm_eps=1e-3
         )
-        self.repr_logits = nn.Linear(representation_hidden_size, stoch_out)
+        self.repr_logits = Linear(representation_hidden_size, stoch_out)
         self.transition_model = MLP(recurrent_state_size, (transition_hidden_size,), activation="silu", layer_norm=True, norm_eps=1e-3)
-        self.trans_logits = nn.Linear(transition_hidden_size, stoch_out)
+        self.trans_logits = Linear(transition_hidden_size, stoch_out)
         if learnable_initial_recurrent_state:
             self.initial_recurrent_state = nn.Parameter(torch.zeros(recurrent_state_size))
         else:
@@ -248,14 +258,14 @@ class RSSM(nn.Module):
         shaped = logits.reshape(*logits.shape[:-1], self.stochastic_size, self.discrete_size)
         return unimix_logits(shaped, self.unimix).reshape(logits.shape)
 
-    def _representation(self, recurrent_state, embedded_obs, sample: bool = True, generator=None, draw=None):
+    def _representation(self, recurrent_state, embedded_obs, sample: bool = True, generator=None, draw=None, gumbel=None):
         x = self.representation_model(torch.cat([recurrent_state, embedded_obs], -1))
         logits = self._uniform_mix(self.repr_logits(x).float())
-        return logits, compute_stochastic_state(logits, self.discrete_size, sample, generator, draw)
+        return logits, compute_stochastic_state(logits, self.discrete_size, sample, generator, draw, gumbel)
 
-    def _transition(self, recurrent_state, sample: bool = True, generator=None, draw=None):
+    def _transition(self, recurrent_state, sample: bool = True, generator=None, draw=None, gumbel=None):
         logits = self._uniform_mix(self.trans_logits(self.transition_model(recurrent_state)).float())
-        return logits, compute_stochastic_state(logits, self.discrete_size, sample, generator, draw)
+        return logits, compute_stochastic_state(logits, self.discrete_size, sample, generator, draw, gumbel)
 
     def get_initial_states(self, batch_shape: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """tanh'd learnable initial recurrent state and its prior's mode."""
@@ -272,17 +282,23 @@ class RSSM(nn.Module):
         is_first: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        gumbels: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """One posterior step: ``is_first`` rows restart from the learned initial state,
-        then GRU -> prior -> posterior. ``draws`` = (prior one-hot, posterior one-hot)."""
+        then GRU -> prior -> posterior. ``draws`` = (prior one-hot, posterior one-hot);
+        ``gumbels`` = (prior Gumbel noise, posterior Gumbel noise), ``[B, stoch,
+        discrete]`` each."""
         prior_draw, post_draw = draws if draws is not None else (None, None)
+        prior_gumbel, post_gumbel = gumbels if gumbels is not None else (None, None)
         action = (1 - is_first) * action
         h0, z0 = self.get_initial_states(recurrent_state.shape[:-1])
         recurrent_state = (1 - is_first) * recurrent_state + is_first * h0
         posterior = (1 - is_first) * posterior + is_first * z0
         recurrent_state = self.recurrent_model(torch.cat([posterior, action], -1), recurrent_state)
-        prior_logits, prior = self._transition(recurrent_state, generator=generator, draw=prior_draw)
-        posterior_logits, posterior_sample = self._representation(recurrent_state, embedded_obs, generator=generator, draw=post_draw)
+        prior_logits, prior = self._transition(recurrent_state, generator=generator, draw=prior_draw, gumbel=prior_gumbel)
+        posterior_logits, posterior_sample = self._representation(
+            recurrent_state, embedded_obs, generator=generator, draw=post_draw, gumbel=post_gumbel
+        )
         return recurrent_state, posterior_sample.flatten(-2), prior, posterior_logits, prior_logits
 
     def imagination(
@@ -292,10 +308,11 @@ class RSSM(nn.Module):
         actions: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         draw: Optional[torch.Tensor] = None,
+        gumbel: Optional[torch.Tensor] = None,
     ):
         """One prior-only step."""
         recurrent_state = self.recurrent_model(torch.cat([prior, actions], -1), recurrent_state)
-        _, imagined = self._transition(recurrent_state, generator=generator, draw=draw)
+        _, imagined = self._transition(recurrent_state, generator=generator, draw=draw, gumbel=gumbel)
         return imagined.flatten(-2), recurrent_state
 
 
@@ -349,9 +366,9 @@ class WorldModel(nn.Module):
             self.observation_model_mlp = MLPDecoder(latent, {k: mlp_shapes[k] for k in self.mlp_keys}, dense_units, mlp_layers)
         head_mlp = lambda: MLP(latent, (dense_units,) * mlp_layers, activation="silu", layer_norm=True, norm_eps=1e-3)  # noqa: E731
         self.reward_model = head_mlp()
-        self.reward_head = nn.Linear(dense_units, reward_bins)
+        self.reward_head = Linear(dense_units, reward_bins)
         self.continue_model = head_mlp()
-        self.continue_head = nn.Linear(dense_units, 1)
+        self.continue_head = Linear(dense_units, 1)
 
     def encode(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.encoder(obs)
@@ -379,8 +396,8 @@ class WorldModel(nn.Module):
     def initial_states(self, batch_shape):
         return self.rssm.get_initial_states(batch_shape)
 
-    def representation(self, recurrent_state, embedded_obs, sample: bool = True, generator=None, draw=None):
-        return self.rssm._representation(recurrent_state, embedded_obs, sample, generator, draw)
+    def representation(self, recurrent_state, embedded_obs, sample: bool = True, generator=None, draw=None, gumbel=None):
+        return self.rssm._representation(recurrent_state, embedded_obs, sample, generator, draw, gumbel)
 
 
 class DreamerActor(nn.Module):
@@ -417,9 +434,9 @@ class DreamerActor(nn.Module):
         self.action_clip = action_clip
         self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation="silu", layer_norm=True, norm_eps=1e-3)
         if is_continuous:
-            self.head = nn.Linear(dense_units, 2 * sum(self.actions_dim))
+            self.head = Linear(dense_units, 2 * sum(self.actions_dim))
         else:
-            self.heads = nn.ModuleList(nn.Linear(dense_units, d) for d in self.actions_dim)
+            self.heads = nn.ModuleList(Linear(dense_units, d) for d in self.actions_dim)
 
     def forward(
         self,
@@ -428,10 +445,12 @@ class DreamerActor(nn.Module):
         greedy: bool = False,
         mask: Optional[Dict[str, torch.Tensor]] = None,
         draws: Optional[Sequence[torch.Tensor]] = None,
+        gumbels: Optional[Sequence[torch.Tensor]] = None,
     ):
         """Returns ``(actions, dists)``, one per action head. ``draws`` are injected
         samples: one-hots for the discrete heads, standard-normal (or, for
-        ``trunc_normal``, uniform) noise for the continuous head."""
+        ``trunc_normal``, uniform) noise for the continuous head; ``gumbels`` injected
+        Gumbel noise for the discrete heads."""
         x = self.mlp(state)
         if self.is_continuous:
             mean, std = self.head(x).float().chunk(2, -1)
@@ -458,8 +477,9 @@ class DreamerActor(nn.Module):
             d = OneHotCategoricalStraightThrough(unimix_logits(head(x).float(), self.unimix))
             dists.append(d)
             draw = draws[i] if draws is not None else None
-            sampled = not greedy and (generator is not None or draw is not None)
-            actions.append(d.rsample(generator, draw=draw) if sampled else d.mode)
+            gumbel = gumbels[i] if gumbels is not None else None
+            sampled = not greedy and (generator is not None or draw is not None or gumbel is not None)
+            actions.append(d.rsample(generator, draw=draw, gumbel=gumbel) if sampled else d.mode)
         return tuple(actions), tuple(dists)
 
 
@@ -469,7 +489,7 @@ class DreamerCritic(nn.Module):
     def __init__(self, latent_size: int, dense_units: int = 512, mlp_layers: int = 2, bins: int = 255):
         super().__init__()
         self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation="silu", layer_norm=True, norm_eps=1e-3)
-        self.head = nn.Linear(dense_units, bins)
+        self.head = Linear(dense_units, bins)
 
     def forward(self, state: torch.Tensor) -> torch.Tensor:
         return self.head(self.mlp(state)).float()
@@ -568,7 +588,8 @@ def build_agent(
     obs_space: spaces.Dict,
 ):
     """Build the world model, actor, critic and target critic on ``ctx.device``,
-    initialised as the reference initialises them, from ``ctx.rng()``.
+    initialised as the reference initialises them, from ``ctx.rng()``, computing in
+    ``ctx.compute_dtype`` over float32 parameters.
 
     Returns ``(world_model, actor, critic, target_critic, latent_size)``."""
     if "minedojo" in str(cfg.env.get("wrapper", {}).get("_target_", "")).lower():
@@ -622,7 +643,7 @@ def build_agent(
         zero_init_head(critic.head)
     target_critic = DreamerCritic(latent_size, cfg.algo.critic.dense_units, cfg.algo.critic.mlp_layers, cfg.algo.critic.bins)
     target_critic.load_state_dict(critic.state_dict())
-    modules = [m.to(ctx.device) for m in (world_model, actor, critic, target_critic)]
+    modules = [set_compute_dtype(m, ctx.compute_dtype).to(ctx.device) for m in (world_model, actor, critic, target_critic)]
     return (*modules, latent_size)
 
 

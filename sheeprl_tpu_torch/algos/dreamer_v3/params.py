@@ -20,12 +20,16 @@ dropped. Layouts convert as well:
 
 Every leaf must map to exactly one entry of the module's ``state_dict`` with the same
 shape, and every entry must be filled: a leaf left over or an entry missing raises.
+
+``parameter_list_from_jax`` carries a tree shaped like a module's parameters, such as
+an optimizer's moments (optax's ``mu``/``nu``), into the order of
+``module.parameters()``, the order of the port's optimizer state.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -108,3 +112,11 @@ def params_from_jax(params: Mapping[str, Any], modules: Mapping[str, nn.Module])
         tree = tree["params"] if set(tree) == {"params"} else tree
         out[name] = module_state_from_jax(tree, module, name)
     return out
+
+
+def parameter_list_from_jax(tree: Mapping[str, Any], module: nn.Module, name: str = "module") -> List[torch.Tensor]:
+    """A tree shaped like ``module``'s parameters -> one tensor per
+    ``module.parameters()`` entry, in that order (the port's optimizer-state layout)."""
+    tree = tree["params"] if set(tree) == {"params"} else tree
+    state = module_state_from_jax(tree, module, name)
+    return [state[k] for k, _ in module.named_parameters()]

@@ -1,16 +1,57 @@
-"""DreamerV3 helpers (counterpart of ``sheeprl_tpu/algos/dreamer_v3/utils.py``):
-observation transfer, the greedy test rollout and the env-action conversion. The
-moments and the training helpers come with the training slice."""
+"""DreamerV3 helpers (counterpart of ``sheeprl_tpu/algos/dreamer_v3/utils.py``): the
+aggregated metric names, the return-normalising moments, observation transfer, the
+greedy test rollout and the env-action conversion."""
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, NamedTuple, Sequence
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.envs import spaces
+
+AGGREGATOR_KEYS = {
+    "Rewards/rew_avg",
+    "Game/ep_len_avg",
+    "Loss/world_model_loss",
+    "Loss/value_loss",
+    "Loss/policy_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "State/post_entropy",
+    "Grads/world_model",
+    "Grads/actor",
+    "Grads/critic",
+    "State/prior_entropy",
+}
+
+
+def init_moments(device: torch.device | str = "cpu") -> Dict[str, torch.Tensor]:
+    return {"low": torch.zeros((), device=device), "high": torch.zeros((), device=device)}
+
+
+def update_moments(
+    state: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    decay: float = 0.99,
+    max_: float = 1.0,
+    percentile_low: float = 0.05,
+    percentile_high: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Percentile return normaliser (DreamerV3's ``Moments``): EMA of the ``x``
+    quantiles (linear interpolation, as ``jnp.quantile``). Returns ``(offset,
+    invscale, new_state)``; no gradient flows through it."""
+    x = x.detach().float().reshape(-1)
+    q = torch.quantile(x, torch.tensor([percentile_low, percentile_high], device=x.device, dtype=x.dtype))
+    new_low = decay * state["low"] + (1 - decay) * q[0]
+    new_high = decay * state["high"] + (1 - decay) * q[1]
+    invscale = torch.clamp_min(new_high - new_low, 1.0 / max_)
+    return new_low, invscale, {"low": new_low, "high": new_high}
 
 
 class TestResult(NamedTuple):

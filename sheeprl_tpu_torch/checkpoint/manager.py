@@ -35,6 +35,9 @@ import torch
 #: Manifest format written by this version.
 MANIFEST_FORMAT = 1
 
+#: Config keys a resumed run takes from the checkpoint's run, whatever the command says.
+PROTECTED_RESUME_KEYS = ("env", "algo", "buffer", "checkpoint", "distribution", "exp_name", "seed")
+
 
 class CheckpointCorruptError(RuntimeError):
     """A checkpoint failed verification: a missing, truncated or altered file, or an
@@ -210,3 +213,13 @@ def _sorted_ckpts(ckpt_dir: Path) -> List[Path]:
         return []
     ckpts = [p for p in ckpt_dir.iterdir() if p.is_dir() and p.name.startswith("ckpt_") and p.name[5:].isdigit()]
     return sorted(ckpts, key=lambda p: int(p.name[5:]))
+
+
+def validate_resume_config(old_cfg: Dict[str, Any], new_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge a checkpoint's config into the current one, keeping the checkpoint's
+    values of the keys a resume must not change."""
+    merged = dict(new_cfg)
+    for key in PROTECTED_RESUME_KEYS:
+        if key in old_cfg:
+            merged[key] = old_cfg[key]
+    return merged

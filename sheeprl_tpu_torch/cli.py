@@ -1,20 +1,27 @@
-"""CLI entry points (counterpart of ``sheeprl_tpu/cli.py``). Ported so far: evaluation.
+"""CLI entry points (counterpart of ``sheeprl_tpu/cli.py``): training and evaluation.
 
-``python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/checkpoints/ckpt_N [overrides]``
-loads the run's saved ``config.yaml``, applies the overrides, and calls the algorithm's
-registered evaluation entry on ``device`` (``cuda`` unless ``device=cpu`` is given).
+``python -m sheeprl_tpu_torch exp=<preset> [overrides]`` composes the config, merges a
+checkpoint's config when ``checkpoint.resume_from`` is set, checks it and calls the
+algorithm's registered train entry. ``python -m sheeprl_tpu_torch.eval
+checkpoint_path=<run>/checkpoints/ckpt_N [overrides]`` loads the run's saved
+``config.yaml``, applies the overrides, and calls the registered evaluation entry. Both
+run on ``device`` (``cuda`` unless ``device=cpu`` is given). Not ported: multirun
+sweeps, autoresume under the fault policy, the compile cache, the race detector and the
+flight recorder.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-from sheeprl_tpu_torch.config.core import DotDict, _parse_value, _set_dotted, load_config
+from sheeprl_tpu_torch.checkpoint.manager import validate_resume_config
+from sheeprl_tpu_torch.config.core import DotDict, _parse_value, _set_dotted, compose, load_config, print_config
 from sheeprl_tpu_torch.parallel.context import make_run_context
-from sheeprl_tpu_torch.utils.registry import get_evaluation
+from sheeprl_tpu_torch.utils.registry import get_algorithm, get_evaluation
 
 
 def _import_algorithms() -> None:
@@ -25,6 +32,74 @@ def _import_algorithms() -> None:
 def _default_run_name(cfg: Dict[str, Any]) -> str:
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     return f"{stamp}_{cfg.get('exp_name', 'run')}_{cfg.get('seed', 0)}"
+
+
+def resume_from_checkpoint(cfg: DotDict) -> DotDict:
+    """Merge the config of the run that wrote ``checkpoint.resume_from``, keeping that
+    run's values of the keys a resume must not change."""
+    ckpt_path = Path(cfg.checkpoint.resume_from)
+    run_dir = ckpt_path.parent.parent if ckpt_path.is_dir() else ckpt_path.parent
+    old_cfg_path = run_dir / "config.yaml"
+    if not old_cfg_path.is_file():
+        old_cfg_path = ckpt_path.parent / "config.yaml"
+    if not old_cfg_path.is_file():
+        raise FileNotFoundError(f"Cannot resume from {ckpt_path}: no config.yaml found alongside the checkpoint")
+    cfg = DotDict.wrap(validate_resume_config(load_config(old_cfg_path), cfg))
+    cfg.checkpoint.resume_from = str(ckpt_path)
+    return cfg
+
+
+def check_configs(cfg: DotDict) -> None:
+    """Refuse configurations the loop cannot run."""
+    algo = cfg.get("algo", {})
+    if not algo or "name" not in algo:
+        raise ValueError("No algorithm selected: choose one with 'exp=<preset>' or 'algo=<name>'")
+    get_algorithm(algo["name"])
+    cnn_keys = algo.get("cnn_keys", {}).get("encoder", [])
+    mlp_keys = algo.get("mlp_keys", {}).get("encoder", [])
+    if not isinstance(cnn_keys, list) or not isinstance(mlp_keys, list):
+        raise ValueError("algo.cnn_keys.encoder and algo.mlp_keys.encoder must be lists")
+    if cfg.metric.get("log_level", 1) not in (0, 1):
+        raise ValueError(f"Invalid metric.log_level: {cfg.metric.log_level}")
+    # A sequence-sampling loop's prefill must leave every env's sub-buffer at least one
+    # sequence long, or the first gradient step fails mid-run.
+    seq_len = int(algo.get("per_rank_sequence_length", 0) or 0)
+    learning_starts = int(algo.get("learning_starts", 0) or 0)
+    if seq_len > 1 and learning_starts > 0 and not cfg.checkpoint.get("resume_from") and not cfg.get("dry_run", False):
+        steps_per_iter = max(cfg.env.num_envs * max(cfg.env.action_repeat, 1), 1)
+        rows_per_env = learning_starts // steps_per_iter
+        if rows_per_env < seq_len:
+            raise ValueError(
+                f"algo.learning_starts={learning_starts} prefills only ~{rows_per_env} steps per environment "
+                f"({cfg.env.num_envs} envs x action_repeat {cfg.env.action_repeat}), but "
+                f"algo.per_rank_sequence_length={seq_len} needs at least {seq_len} steps per env before the first "
+                f"gradient step. Raise learning_starts to >= {seq_len * steps_per_iter} or lower the sequence length "
+                "or the env count."
+            )
+
+
+def run_algorithm(cfg: DotDict) -> Any:
+    """Registry lookup, run context, entry-point call; returns what the entry returns."""
+    entry = get_algorithm(cfg.algo.name)
+    ctx = make_run_context(cfg)
+    return entry["entrypoint"](ctx, cfg)
+
+
+def run(args: Optional[List[str]] = None) -> Any:
+    """Train entry: ``python -m sheeprl_tpu_torch exp=... key=value ...``."""
+    _import_algorithms()
+    overrides = list(args if args is not None else sys.argv[1:])
+    if {"-m", "--multirun"} & set(overrides):
+        raise NotImplementedError("multirun sweeps are not ported yet: run one configuration per call")
+    cfg = compose(overrides=overrides)
+    if cfg.checkpoint.get("resume_from"):
+        cfg = resume_from_checkpoint(cfg)
+    if not cfg.get("run_name"):
+        cfg.run_name = _default_run_name(cfg)
+    check_configs(cfg)
+    if os.environ.get("SHEEPRL_TPU_QUIET", "0") != "1":
+        print_config(cfg)
+    return run_algorithm(cfg)
 
 
 def eval_algorithm(cfg: DotDict) -> Any:

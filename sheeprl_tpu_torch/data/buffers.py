@@ -1,0 +1,341 @@
+"""Host-side replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``).
+
+Storage is numpy (optionally memmap) on the host with layout ``[buffer_size, n_envs,
+...]``, and sampling is numpy: the same code as the reference's, so a buffer seeded
+alike draws the same rows. ``to_device`` hands a sampled batch to the run's device as
+torch tensors.
+
+* ``ReplayBuffer``: circular dict-of-ndarray store.
+* ``SequentialReplayBuffer``: contiguous length-T sequences that ignore episode bounds;
+  output ``[n_samples, sequence_length, batch_size, ...]``.
+* ``EnvIndependentReplayBuffer``: one sub-buffer per env, so envs can add rows on their
+  own (``indices``), as the DreamerV3 loop does at episode ends.
+
+Not ported: the reference's episode buffer, its index-only sampling for device-resident
+replay, the staleness gauges and its native gather (the numpy gather it falls back to is
+what runs here).
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional, Sequence, Type
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.utils.memmap import MemmapArray
+
+
+def _np(v: Any) -> np.ndarray:
+    return v.array if isinstance(v, MemmapArray) else np.asarray(v)
+
+
+class ReplayBuffer:
+    batch_axis: int = 1
+
+    def __init__(
+        self,
+        buffer_size: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: Optional[os.PathLike] = None,
+        memmap_mode: str = "r+",
+        **kwargs: Any,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        self._buffer_size = buffer_size
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._memmap = memmap
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        self._memmap_mode = memmap_mode
+        if self._memmap:
+            if memmap_mode not in ("r+", "w+", "c", "copyonwrite", "readwrite", "write"):
+                raise ValueError(
+                    "Accepted values for memmap_mode are 'r+', 'readwrite', 'w+', 'write', 'c' or 'copyonwrite'."
+                )
+            if self._memmap_dir is None:
+                raise ValueError("memmap=True requires a `memmap_dir`.")
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._buf: Dict[str, np.ndarray | MemmapArray] = {}
+        self._pos = 0
+        self._full = False
+        self._rng = np.random.default_rng()
+
+    @property
+    def full(self) -> bool:
+        return self._full
+
+    @property
+    def empty(self) -> bool:
+        return (not self._full) and self._pos == 0
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
+    def __len__(self) -> int:
+        return self._buffer_size if self._full else self._pos
+
+    def seed(self, seed: Optional[int] = None) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def _init_storage(self, key: str, shape: Sequence[int], dtype: np.dtype) -> None:
+        full_shape = (self._buffer_size, self._n_envs, *shape)
+        if self._memmap:
+            filename = self._memmap_dir / f"{key}.memmap"
+            self._buf[key] = MemmapArray(dtype=dtype, shape=full_shape, mode=self._memmap_mode, filename=filename)
+        else:
+            self._buf[key] = np.zeros(full_shape, dtype=dtype)
+
+    def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
+        """Append ``[T, n_envs, ...]`` arrays, wrapping circularly."""
+        if validate_args:
+            if not isinstance(data, dict):
+                raise ValueError(f"`data` must be a dictionary of numpy arrays, got {type(data)}")
+            shapes = {k: np.asarray(v).shape[:2] for k, v in data.items()}
+            if len(set(shapes.values())) > 1:
+                raise RuntimeError(f"Every array in `data` must agree on [T, n_envs]: {shapes}")
+            for k, v in data.items():
+                if np.asarray(v).ndim < 2:
+                    raise RuntimeError(f"`data[{k}]` must have shape [T, n_envs, ...], got {np.asarray(v).shape}")
+                if np.asarray(v).shape[1] != self._n_envs:
+                    raise RuntimeError(f"`data[{k}]` has n_envs={np.asarray(v).shape[1]}, expected {self._n_envs}")
+        steps = np.asarray(next(iter(data.values()))).shape[0]
+        for k, v in data.items():
+            v = np.asarray(v)
+            if k not in self._buf:
+                self._init_storage(k, v.shape[2:], v.dtype)
+            buf = self._buf[k]
+            if steps >= self._buffer_size:  # only the trailing window survives
+                buf[:] = v[-self._buffer_size :]
+                continue
+            buf[(self._pos + np.arange(steps)) % self._buffer_size] = v
+        if steps >= self._buffer_size:
+            self._pos = 0
+            self._full = True
+        else:
+            new_pos = self._pos + steps
+            if new_pos >= self._buffer_size:
+                self._full = True
+            self._pos = new_pos % self._buffer_size
+
+    def sample(
+        self, batch_size: int, sample_next_obs: bool = False, clone: bool = False, n_samples: int = 1, **kwargs: Any
+    ) -> Dict[str, np.ndarray]:
+        """Uniformly sample ``[n_samples, batch_size, ...]`` transitions."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be greater than 0")
+        if self.empty:
+            raise ValueError("No sample has been added to the buffer. Please add at least one via `add()`")
+        batch_dim = batch_size * n_samples
+        if self._full:
+            if sample_next_obs:
+                # _pos - 1 is excluded: its "next" row (_pos) is the oldest one
+                idxes = (self._rng.integers(0, self._buffer_size - 1, size=batch_dim) + self._pos) % self._buffer_size
+            else:
+                idxes = self._rng.integers(0, self._buffer_size, size=batch_dim)
+        else:
+            upper = self._pos - 1 if sample_next_obs else self._pos
+            if upper <= 0:
+                raise ValueError("Not enough data to sample next observations")
+            idxes = self._rng.integers(0, upper, size=batch_dim)
+        env_idxes = self._rng.integers(0, self._n_envs, size=batch_dim)
+        out: Dict[str, np.ndarray] = {}
+        for k, v in self._buf.items():
+            arr = _np(v)
+            picked = arr[idxes, env_idxes]
+            out[k] = (picked.copy() if clone else picked).reshape(n_samples, batch_size, *arr.shape[2:])
+            if sample_next_obs and k in self._obs_keys:
+                nxt = arr[(idxes + 1) % self._buffer_size, env_idxes]
+                out[f"next_{k}"] = nxt.reshape(n_samples, batch_size, *arr.shape[2:])
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Memmap storage checkpoints as a reference to its flushed file (the rows
+        already live on disk): ``{"memmap": filename, "dtype", "shape"}``; RAM storage
+        by value, as a tensor. Once referenced by a checkpoint, a memmap file outlives
+        the buffer object. Only tensors and plain values, so the checkpoint loads with
+        ``torch.load(weights_only=True)``."""
+        buf: Dict[str, Any] = {}
+        for k, v in self._buf.items():
+            if isinstance(v, MemmapArray):
+                v.flush()
+                v.has_ownership = False
+                buf[k] = {"memmap": v.filename, "dtype": str(v.dtype), "shape": list(v.shape)}
+            else:
+                buf[k] = torch.from_numpy(_np(v).copy())
+        return {"buffer": buf, "pos": self._pos, "full": self._full}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "ReplayBuffer":
+        """Restore a checkpointed buffer. Memmap references are copied into this
+        buffer's own storage, so the resumed run never writes into files an older
+        checkpoint references."""
+        for k, v in state["buffer"].items():
+            if isinstance(v, dict):
+                try:
+                    src = np.memmap(v["memmap"], dtype=np.dtype(v["dtype"]), mode="r", shape=tuple(v["shape"]))
+                except (FileNotFoundError, OSError) as exc:
+                    raise RuntimeError(
+                        f"buffer checkpoint for key '{k}' references memmap storage at {v['memmap']!r}, which is "
+                        "not readable: resuming needs the original run's memmap_buffer directory"
+                    ) from exc
+            else:
+                src = v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            if k not in self._buf:
+                self._init_storage(k, src.shape[2:], src.dtype)
+            self._buf[k][:] = src
+        self._pos = state["pos"]
+        self._full = state["full"]
+        return self
+
+
+class SequentialReplayBuffer(ReplayBuffer):
+    """Contiguous-sequence sampling, ignoring episode boundaries."""
+
+    batch_axis: int = 2
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        clone: bool = False,
+        n_samples: int = 1,
+        sequence_length: int = 1,
+        **kwargs: Any,
+    ) -> Dict[str, np.ndarray]:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be greater than 0")
+        if self.empty:
+            raise ValueError("No sample has been added to the buffer. Please add at least one via `add()`")
+        if not self._full and self._pos - sequence_length + 1 < 1:
+            raise ValueError(f"Cannot sample a sequence of length {sequence_length}. Data added so far: {self._pos}")
+        if self._full and sequence_length > len(self):
+            raise ValueError(f"Sequence length ({sequence_length}) longer than buffer ({len(self)})")
+        batch_dim = batch_size * n_samples
+        if self._full:
+            # valid starts: sequences that do not cross the write cursor
+            first_range_end = self._pos - sequence_length + 1
+            second_range_end = self._buffer_size if first_range_end >= 0 else self._buffer_size + first_range_end
+            valid = np.concatenate([np.arange(0, max(first_range_end, 0)), np.arange(self._pos, second_range_end)]).astype(np.intp)
+            starts = valid[self._rng.integers(0, len(valid), size=batch_dim)]
+        else:
+            starts = self._rng.integers(0, self._pos - sequence_length + 1, size=batch_dim)
+        idxes = (starts[:, None] + np.arange(sequence_length, dtype=np.intp)[None, :]) % self._buffer_size  # [B*N, T]
+        env_idxes = np.repeat(self._rng.integers(0, self._n_envs, size=batch_dim)[:, None], sequence_length, axis=1)
+        out: Dict[str, np.ndarray] = {}
+        for k, v in self._buf.items():
+            arr = _np(v)
+            picked = arr[idxes.ravel(), env_idxes.ravel()].reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
+            out[k] = np.swapaxes(picked, 1, 2)  # [n_samples, T, B, ...]
+            if clone:
+                out[k] = out[k].copy()
+            if sample_next_obs and k in self._obs_keys:
+                nxt = arr[(idxes.ravel() + 1) % self._buffer_size, env_idxes.ravel()]
+                nxt = nxt.reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
+                out[f"next_{k}"] = np.swapaxes(nxt, 1, 2)
+        return out
+
+
+class EnvIndependentReplayBuffer:
+    """One sub-buffer per environment; a sample splits the batch uniformly across the
+    non-empty sub-buffers."""
+
+    def __init__(
+        self,
+        buffer_size: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: Optional[os.PathLike] = None,
+        memmap_mode: str = "r+",
+        buffer_cls: Type[ReplayBuffer] = ReplayBuffer,
+        **kwargs: Any,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        if memmap and memmap_dir is None:
+            raise ValueError("memmap=True requires a `memmap_dir`.")
+        self._n_envs = n_envs
+        self._concat_along_axis = buffer_cls.batch_axis
+        self._buf = [
+            buffer_cls(
+                buffer_size=buffer_size,
+                n_envs=1,
+                obs_keys=obs_keys,
+                memmap=memmap,
+                memmap_dir=None if memmap_dir is None else Path(memmap_dir) / f"env_{i}",
+                memmap_mode=memmap_mode,
+                **kwargs,
+            )
+            for i in range(n_envs)
+        ]
+        self._rng = np.random.default_rng()
+
+    @property
+    def buffer(self) -> Sequence[ReplayBuffer]:
+        return self._buf
+
+    @property
+    def is_memmap(self) -> Sequence[bool]:
+        return [b.is_memmap for b in self._buf]
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self._buf)
+
+    def seed(self, seed: Optional[int] = None) -> None:
+        self._rng = np.random.default_rng(seed)
+        for i, b in enumerate(self._buf):
+            b.seed(None if seed is None else seed + i)
+
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
+        if indices is None:
+            indices = tuple(range(self._n_envs))
+        if validate_args and len(indices) != next(iter(data.values())).shape[1]:
+            raise ValueError("`indices` must match data's env dimension")
+        for i, env_idx in enumerate(indices):
+            self._buf[env_idx].add({k: np.asarray(v)[:, i : i + 1] for k, v in data.items()}, validate_args=validate_args)
+
+    def sample(
+        self, batch_size: int, sample_next_obs: bool = False, clone: bool = False, n_samples: int = 1, **kwargs: Any
+    ) -> Dict[str, np.ndarray]:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be greater than 0")
+        valid = [i for i, b in enumerate(self._buf) if len(b) > 0]
+        if not valid:
+            raise ValueError("No sample has been added to the buffer.")
+        counts = np.bincount(self._rng.integers(0, len(valid), size=batch_size), minlength=len(valid))
+        parts = [
+            self._buf[i].sample(batch_size=int(counts[j]), sample_next_obs=sample_next_obs, clone=clone, n_samples=n_samples, **kwargs)
+            for j, i in enumerate(valid)
+            if counts[j] > 0
+        ]
+        return {k: np.concatenate([p[k] for p in parts], axis=self._concat_along_axis) for k in parts[0]}
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"buffers": [b.state_dict() for b in self._buf]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EnvIndependentReplayBuffer":
+        for b, s in zip(self._buf, state["buffers"]):
+            b.load_state_dict(s)
+        return self
+
+
+def to_device(samples: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A sampled batch as torch tensors on ``device`` (copied from pinned host memory
+    when the device is a GPU)."""
+    out = {}
+    for k, v in samples.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out

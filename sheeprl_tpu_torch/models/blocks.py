@@ -1,13 +1,21 @@
 """Reusable ``torch.nn`` building blocks (counterpart of ``sheeprl_tpu/models/blocks.py``).
 
+* ``Linear``, ``Conv2d``, ``ConvTranspose2d``: ``torch.nn``'s layers with a compute
+  dtype, as Flax's ``dtype=`` argument gives one (see below).
 * ``MLP``: dense stack with optional per-layer LayerNorm.
 * ``LayerNorm``: LayerNorm over the last axis with Flax's statistics (see below).
 * ``LayerNormGRUCell``: GRU with LayerNorm on the fused ``[x, h]`` projection and
   Hafner's ``update - 1`` bias; its gate step is the ``layernorm_gru`` kernel on CUDA.
 
-Parameters are float32. Child names follow the reference's parameter tree
-(``dense.<i>`` for ``Dense_<i>``, ``norms.<i>`` for ``LayerNorm_<i>``), so that
-``algos/dreamer_v3/params.py`` can carry a reference checkpoint across by rule.
+Parameters are float32. Each layer computes in its ``compute_dtype`` (float32 unless
+``set_compute_dtype`` says otherwise): the input and the parameters are cast to it and
+the output has it, as Flax's ``Dense``/``Conv``/``ConvTranspose`` with ``dtype=bfloat16``
+over float32 parameters do. Explicit casts in the layers, not ``torch.autocast``, whose
+per-operation rules differ from Flax's per-module dtype.
+
+Child names follow the reference's parameter tree (``dense.<i>`` for ``Dense_<i>``,
+``norms.<i>`` for ``LayerNorm_<i>``), so that ``algos/dreamer_v3/params.py`` can carry a
+reference checkpoint across by rule.
 """
 
 from __future__ import annotations
@@ -39,13 +47,60 @@ def _activation(act: str | Callable | None) -> Optional[Callable]:
     return table[str(act).lower()]
 
 
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], channel_dim: int) -> torch.Tensor:
+    """Flax rounds the product to the compute dtype, then adds the bias in it: two
+    roundings, which a fused bias would make one. The second matters in bfloat16, where
+    a categorical mode whose top logits tie to within a rounding otherwise picks another
+    class than the reference."""
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[channel_dim] = -1
+    return y + bias.to(y.dtype).reshape(shape)
+
+
+class Linear(nn.Linear):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.linear(x.float(), self.weight, self.bias)
+        return _add_bias(F.linear(x.to(dt), self.weight.to(dt)), self.bias, -1)
+
+
+class Conv2d(nn.Conv2d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return self._conv_forward(x.float(), self.weight, self.bias)
+        return _add_bias(self._conv_forward(x.to(dt), self.weight.to(dt), None), self.bias, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        args = (self.stride, self.padding, self.output_padding, self.groups, self.dilation)
+        if dt == torch.float32:
+            return F.conv_transpose2d(x.float(), self.weight, self.bias, *args)
+        return _add_bias(F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, *args), self.bias, 1)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, computed as ``flax.linen.LayerNorm`` computes it.
 
-    Flax (0.12, ``use_fast_variance=True``) takes the variance as ``E[x^2] - E[x]^2``,
-    clipped at 0, in float32, then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
-    The port keeps that order so carried weights give the reference's outputs; the
-    GRU cell's own LayerNorm is the two-pass form (``ops/gru.py``)."""
+    Flax (0.12, ``use_fast_variance=True``) takes the statistics in float32 whatever
+    its ``dtype``: the variance as ``E[x^2] - E[x]^2``, clipped at 0, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast to ``dtype``
+    (here ``compute_dtype``) at the end. The port keeps that order so carried weights
+    give the reference's outputs; the GRU cell's own LayerNorm is the two-pass form
+    (``ops/gru.py``)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -58,7 +113,16 @@ class LayerNorm(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(x.dtype)
+        return (y + self.bias).to(self.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the compute dtype of every layer in ``module`` (Flax's ``dtype=``); the
+    parameters stay as they are."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d, ConvTranspose2d, LayerNorm)):
+            m.compute_dtype = dtype
+    return module
 
 
 class MLP(nn.Module):
@@ -74,10 +138,10 @@ class MLP(nn.Module):
         super().__init__()
         self.act = _activation(activation)
         sizes = [input_dim, *hidden_sizes]
-        self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.dense = nn.ModuleList(Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
         self.norms = nn.ModuleList(LayerNorm(s, norm_eps) for s in hidden_sizes) if layer_norm else None
         if output_dim is not None:
-            self.dense.append(nn.Linear(sizes[-1], output_dim))
+            self.dense.append(Linear(sizes[-1], output_dim))
         self.n_hidden = len(hidden_sizes)
         self.output_dim = output_dim if output_dim is not None else sizes[-1]
 
@@ -97,14 +161,15 @@ class LayerNormGRUCell(nn.Module):
 
     One bias-free ``Linear`` maps ``concat([x, h])`` to ``3H`` laid out as
     ``[reset, cand, update]``; ``ln_scale``/``ln_bias`` (``[3H]``) are the LayerNorm's
-    parameters. The gate step is ``ops.gru.layernorm_gru``: the CUDA kernel for CUDA
-    tensors, the plain version on the CPU. Returns the new state."""
+    parameters. The gate step is ``ops.gru.layernorm_gru``: the CUDA kernels for CUDA
+    tensors, the plain version on the CPU. It takes the projection and the state in the
+    compute dtype and returns the new state in it."""
 
     def __init__(self, input_size: int, hidden_size: int, norm_eps: float = 1e-3):
         super().__init__()
         self.hidden_size = hidden_size
         self.norm_eps = norm_eps
-        self.linear = nn.Linear(input_size + hidden_size, 3 * hidden_size, bias=False)
+        self.linear = Linear(input_size + hidden_size, 3 * hidden_size, bias=False)
         self.ln_scale = nn.Parameter(torch.ones(3 * hidden_size))
         self.ln_bias = nn.Parameter(torch.zeros(3 * hidden_size))
 

@@ -1,5 +1,5 @@
-"""Environment factory (counterpart of ``sheeprl_tpu/utils/env.py``; ``make_env`` only,
-the vector env comes with the training slice).
+"""Environment factory (counterpart of ``sheeprl_tpu/utils/env.py``): ``make_env`` and
+``make_vector_env``.
 
 Builds the wrapper pipeline: adapter -> ActionRepeat -> MaskVelocity -> dict-obs coercion ->
 cv2 resize/grayscale -> FrameStack -> ActionsAsObservation -> RewardAsObservation ->
@@ -131,81 +131,106 @@ def make_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> Callable[[], gym.Env]:
-    def thunk() -> gym.Env:
-        instantiate_kwargs = {}
-        if "seed" in cfg.env.wrapper:
-            instantiate_kwargs["seed"] = seed
-        if "rank" in cfg.env.wrapper:
-            instantiate_kwargs["rank"] = rank + vector_env_idx
-        env = instantiate(cfg.env.wrapper, **instantiate_kwargs)
+    """A callable that builds the env; picklable, so that a vector env can hand it to
+    worker processes started with ``spawn``."""
+    return _EnvThunk(cfg, seed, rank, run_name, prefix, vector_env_idx)
 
-        if cfg.env.action_repeat > 1:
-            env = ActionRepeat(env, cfg.env.action_repeat)
-        if cfg.env.get("mask_velocities", False):
-            env = MaskVelocityWrapper(env)
 
-        cnn_sel = list(cfg.algo.cnn_keys.encoder or [])
-        mlp_sel = list(cfg.algo.mlp_keys.encoder or [])
-        if len(cnn_sel) + len(mlp_sel) == 0:
-            raise ValueError(
-                "`algo.cnn_keys.encoder` and `algo.mlp_keys.encoder` must be lists with at "
-                f"least one key overall, got: cnn={cnn_sel} mlp={mlp_sel}"
-            )
+class _EnvThunk:
+    def __init__(self, cfg, seed, rank, run_name, prefix, vector_env_idx):
+        self.args = (cfg, seed, rank, run_name, prefix, vector_env_idx)
 
-        # Coerce the observation space to a Dict (reference ``:98-140``).
-        obs_space = env.observation_space
-        if isinstance(obs_space, gym.spaces.Box) and len(obs_space.shape) < 2:
-            if cnn_sel:
-                if len(cnn_sel) > 1:
-                    warnings.warn(f"Only one pixel obs allowed for {cfg.env.id}; keeping {cnn_sel[0]}")
-                env = _PixelObservationWrapper(
-                    env, pixel_key=cnn_sel[0], state_key=mlp_sel[0] if mlp_sel else None
-                )
-            else:
-                if len(mlp_sel) > 1:
-                    warnings.warn(f"Only one vector obs allowed for {cfg.env.id}; keeping {mlp_sel[0]}")
-                env = _DictObservation(env, mlp_sel[0])
-        elif isinstance(obs_space, gym.spaces.Box) and 2 <= len(obs_space.shape) <= 3:
-            if not cnn_sel:
-                raise ValueError(
-                    "Pixel observation selected but no cnn key specified: set `algo.cnn_keys.encoder=[your_key]`"
-                )
+    def __call__(self) -> gym.Env:
+        return _build_env(*self.args)
+
+
+def _build_env(cfg, seed, rank, run_name, prefix, vector_env_idx) -> gym.Env:
+    instantiate_kwargs = {}
+    if "seed" in cfg.env.wrapper:
+        instantiate_kwargs["seed"] = seed
+    if "rank" in cfg.env.wrapper:
+        instantiate_kwargs["rank"] = rank + vector_env_idx
+    env = instantiate(cfg.env.wrapper, **instantiate_kwargs)
+
+    if cfg.env.action_repeat > 1:
+        env = ActionRepeat(env, cfg.env.action_repeat)
+    if cfg.env.get("mask_velocities", False):
+        env = MaskVelocityWrapper(env)
+
+    cnn_sel = list(cfg.algo.cnn_keys.encoder or [])
+    mlp_sel = list(cfg.algo.mlp_keys.encoder or [])
+    if len(cnn_sel) + len(mlp_sel) == 0:
+        raise ValueError(
+            "`algo.cnn_keys.encoder` and `algo.mlp_keys.encoder` must be lists with at "
+            f"least one key overall, got: cnn={cnn_sel} mlp={mlp_sel}"
+        )
+
+    # Coerce the observation space to a Dict (reference ``:98-140``).
+    obs_space = env.observation_space
+    if isinstance(obs_space, gym.spaces.Box) and len(obs_space.shape) < 2:
+        if cnn_sel:
             if len(cnn_sel) > 1:
                 warnings.warn(f"Only one pixel obs allowed for {cfg.env.id}; keeping {cnn_sel[0]}")
-            env = _DictObservation(env, cnn_sel[0])
-
-        if not isinstance(env.observation_space, gym.spaces.Dict):
-            raise RuntimeError(f"Unsupported observation space: {env.observation_space}")
-        env_keys = set(env.observation_space.spaces.keys())
-        if not env_keys.intersection(cnn_sel + mlp_sel):
-            raise ValueError(
-                f"The user-specified keys {cnn_sel + mlp_sel} are not a subset of the "
-                f"environment observation keys {sorted(env_keys)}."
+            env = _PixelObservationWrapper(
+                env, pixel_key=cnn_sel[0], state_key=mlp_sel[0] if mlp_sel else None
             )
+        else:
+            if len(mlp_sel) > 1:
+                warnings.warn(f"Only one vector obs allowed for {cfg.env.id}; keeping {mlp_sel[0]}")
+            env = _DictObservation(env, mlp_sel[0])
+    elif isinstance(obs_space, gym.spaces.Box) and 2 <= len(obs_space.shape) <= 3:
+        if not cnn_sel:
+            raise ValueError(
+                "Pixel observation selected but no cnn key specified: set `algo.cnn_keys.encoder=[your_key]`"
+            )
+        if len(cnn_sel) > 1:
+            warnings.warn(f"Only one pixel obs allowed for {cfg.env.id}; keeping {cnn_sel[0]}")
+        env = _DictObservation(env, cnn_sel[0])
 
-        env_cnn_keys = {k for k in env_keys if len(env.observation_space[k].shape) in (2, 3)}
-        cnn_keys = sorted(env_cnn_keys.intersection(cnn_sel))
-        if cnn_keys:
-            env = _ImageTransform(env, cnn_keys, cfg.env.screen_size, cfg.env.grayscale)
-            if cfg.env.frame_stack > 1:
-                if cfg.env.frame_stack_dilation <= 0:
-                    raise ValueError(
-                        f"The frame stack dilation argument must be greater than zero, got: {cfg.env.frame_stack_dilation}"
-                    )
-                env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
+    if not isinstance(env.observation_space, gym.spaces.Dict):
+        raise RuntimeError(f"Unsupported observation space: {env.observation_space}")
+    env_keys = set(env.observation_space.spaces.keys())
+    if not env_keys.intersection(cnn_sel + mlp_sel):
+        raise ValueError(
+            f"The user-specified keys {cnn_sel + mlp_sel} are not a subset of the "
+            f"environment observation keys {sorted(env_keys)}."
+        )
 
-        if cfg.env.actions_as_observation.num_stack > 0:
-            env = ActionsAsObservationWrapper(env, **cfg.env.actions_as_observation)
-        if cfg.env.reward_as_observation:
-            env = RewardAsObservationWrapper(env)
+    env_cnn_keys = {k for k in env_keys if len(env.observation_space[k].shape) in (2, 3)}
+    cnn_keys = sorted(env_cnn_keys.intersection(cnn_sel))
+    if cnn_keys:
+        env = _ImageTransform(env, cnn_keys, cfg.env.screen_size, cfg.env.grayscale)
+        if cfg.env.frame_stack > 1:
+            if cfg.env.frame_stack_dilation <= 0:
+                raise ValueError(
+                    f"The frame stack dilation argument must be greater than zero, got: {cfg.env.frame_stack_dilation}"
+                )
+            env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
 
-        env.action_space.seed(seed)
-        env.observation_space.seed(seed)
-        if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
-            env = gym.TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)
-        env = gym.RecordEpisodeStatistics(env)
-        if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
-            warnings.warn("Video capture is not ported yet; running without it")
-        return env
+    if cfg.env.actions_as_observation.num_stack > 0:
+        env = ActionsAsObservationWrapper(env, **cfg.env.actions_as_observation)
+    if cfg.env.reward_as_observation:
+        env = RewardAsObservationWrapper(env)
 
-    return thunk
+    env.action_space.seed(seed)
+    env.observation_space.seed(seed)
+    if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
+        env = gym.TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)
+    env = gym.RecordEpisodeStatistics(env)
+    if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
+        warnings.warn("Video capture is not ported yet; running without it")
+    return env
+
+
+def make_vector_env(cfg: Dict[str, Any], seed: int, rank: int, run_name: Optional[str] = None, prefix: str = ""):
+    """The vector env of the training loops: ``env.num_envs`` envs, env ``i`` seeded
+    ``seed + rank * num_envs + i``, with same-step autoreset. ``env.sync_env`` picks
+    the in-process vector env; otherwise each env runs in a worker process started with
+    ``spawn``. The reference's shared-memory env pool (``env.pool``) is not ported."""
+    from sheeprl_tpu_torch.envs.vector import AsyncVectorEnv, SyncVectorEnv
+
+    if (cfg.env.get("pool") or {}).get("enabled", False):
+        raise NotImplementedError("env.pool.enabled=True (the shared-memory env pool) is not ported yet")
+    n_envs = cfg.env.num_envs
+    thunks = [make_env(cfg, seed + rank * n_envs + i, rank, run_name, prefix=prefix, vector_env_idx=i) for i in range(n_envs)]
+    return (SyncVectorEnv if cfg.env.sync_env else AsyncVectorEnv)(thunks)

@@ -21,17 +21,24 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch",
     "sheeprl_tpu_torch.cli",
     "sheeprl_tpu_torch.eval",
+    "sheeprl_tpu_torch.__main__",
     "sheeprl_tpu_torch.algos",
     "sheeprl_tpu_torch.algos.dreamer_v3.agent",
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.dreamer_v3.loss",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.params",
     "sheeprl_tpu_torch.algos.dreamer_v3.utils",
+    "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.checkpoint.manager",
     "sheeprl_tpu_torch.config.core",
+    "sheeprl_tpu_torch.data.buffers",
+    "sheeprl_tpu_torch.data.prefetch",
     "sheeprl_tpu_torch.distributions",
     "sheeprl_tpu_torch.envs.core",
     "sheeprl_tpu_torch.envs.dummy",
     "sheeprl_tpu_torch.envs.spaces",
+    "sheeprl_tpu_torch.envs.vector",
     "sheeprl_tpu_torch.envs.wrappers",
     "sheeprl_tpu_torch.models.blocks",
     "sheeprl_tpu_torch.ops.gru",
@@ -40,7 +47,10 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.utils.env",
     "sheeprl_tpu_torch.utils.imports",
     "sheeprl_tpu_torch.utils.logger",
+    "sheeprl_tpu_torch.utils.memmap",
+    "sheeprl_tpu_torch.utils.metric",
     "sheeprl_tpu_torch.utils.registry",
+    "sheeprl_tpu_torch.utils.timer",
     "sheeprl_tpu_torch.utils.utils",
 ]
 
