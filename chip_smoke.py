@@ -21,7 +21,9 @@ result line:
    kernel's launch count must equal the player steps;
 5. batched player: 16 envs for 64 steps, sampling from a CUDA generator;
 6. train-agreement: one whole training step of a small agent on the card against the
-   CPU, same weights, batch and draws, at ``mesh.precision=32-true`` with TF32 off;
+   CPU, same weights, batch and draws, at ``mesh.precision=32-true`` with TF32 off: the
+   parameter changes to 0.1 of the learning rate, the Adam moments, losses and gradient
+   norms (``TRAIN_AGREEMENT_TOL``);
 7. train: the size-S training step at batch 16 x sequence 64, horizon 15, at
    bf16-mixed and at 32-true: gradient steps/s, kernel launches per step against the
    expected counts, peak memory and a ``torch.profiler`` breakdown of one step;
@@ -104,10 +106,16 @@ SMALL_TRAIN = [
     "algo.horizon=5",
     "mesh.precision=32-true",
 ]
-# params: about one Adam step of the world model's lr, for entries whose gradient is so
-# small that its sign differs between the two sums; losses: rtol 1e-4 with atol 1e-6
-# (the policy loss is ~1e-5: a mean of products of small advantages)
-TRAIN_AGREEMENT_TOL = {"params": 1e-4, "losses_rtol": 1e-4, "losses_atol": 1e-6}
+# The first Adam step moves each parameter by about its lr (1e-4 world model, 8e-5 actor
+# and critic) with the gradient's sign. Held, card against CPU: each module's parameter
+# change (new minus old) to 0.1 of its lr, where at most 0.1 % of the entries (gradients
+# whose sign the summation order decides) may miss it; each leaf's Adam mu and nu by
+# relative norm to 1e-2 (on an H100 the furthest leaf read 1.34e-3: float32 sums in
+# another order, and a leaf whose gradient is a difference of large terms keeps only
+# their absolute precision; a wrong or rescaled gradient is off by ~0.1-1); the losses
+# and the Grads/* norms at rtol 1e-4 with atol 1e-6 (the policy loss is ~1e-4: a mean
+# of products of small advantages).
+TRAIN_AGREEMENT_TOL = {"step_of_lr": 0.1, "off_share": 1e-3, "moments_rtol": 1e-2, "metrics_rtol": 1e-4, "metrics_atol": 1e-6}
 
 
 def log(msg: str) -> None:
@@ -158,24 +166,9 @@ def eager_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gru_bound(batch: int, hidden: int, dtype: torch.dtype):
-    """Least time for the gate step on an H100: every input read once and the output
-    written once, against the float32 operations it needs."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (batch * 3 * hidden + 2 * batch * hidden) * elem + 2 * 3 * hidden * 4
-    ops = GRU_OPS_PER_UNIT * batch * hidden
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def gru_bwd_bound(batch: int, hidden: int, dtype: torch.dtype):
-    """Least time for the gate step's gradient: proj, h and g read once, dproj and dh
-    written once, gamma/beta read and dgamma/dbeta written once (float32), against its
-    float32 operations. The kernel's dgamma/dbeta partials are not counted: the work
-    does not need them."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = batch * (3 * hidden + 2 * hidden) * elem + batch * 4 * hidden * elem + 4 * 3 * hidden * 4
-    ops = GRU_BWD_OPS_PER_UNIT * batch * hidden
+def bound_ms(nbytes: float, ops: float):
+    """Least time on an H100 for work that moves ``nbytes`` and does ``ops`` float32
+    operations: the larger of the two times, and which one it is."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -227,7 +220,9 @@ def phase_kernels(device: torch.device) -> dict:
                 ms = graph_ms(lambda: layernorm_gru(proj, h, gamma, beta))
                 plain_ms = graph_ms(lambda: layernorm_gru_reference(proj, h, gamma, beta))
                 call_ms = eager_ms(lambda: layernorm_gru(proj, h, gamma, beta))
-            bound_ms, bound_by = gru_bound(batch, hidden, dtype)
+            # proj and h read, h' written, gamma and beta read (float32)
+            elem = proj.element_size()
+            bound, bound_by = bound_ms((batch * 3 * hidden + 2 * batch * hidden) * elem + 2 * 3 * hidden * 4, GRU_OPS_PER_UNIT * batch * hidden)
             row = {
                 "B": batch,
                 "H": hidden,
@@ -237,7 +232,7 @@ def phase_kernels(device: torch.device) -> dict:
                 "kernel_ms": ms,
                 "plain_ms": plain_ms,
                 "eager_call_ms": call_ms,
-                "bound_ms": bound_ms,
+                "bound_ms": bound,
                 "bound_by": bound_by,
                 "library_ms": None,
             }
@@ -275,7 +270,11 @@ def phase_kernels_bwd(device: torch.device) -> dict:
             ms = graph_ms(lambda: layernorm_gru_backward(*args))
             plain_ms = graph_ms(lambda: layernorm_gru_backward_reference(*args))
             call_ms = eager_ms(lambda: layernorm_gru_backward(*args))
-            bound_ms, bound_by = gru_bwd_bound(batch, hidden, dtype)
+            # proj, h and g read, dproj and dh written, gamma/beta read and dgamma/dbeta
+            # written (float32); the kernel's dgamma/dbeta partials are not counted: the
+            # work does not need them
+            elem = args[0].element_size()
+            bound, bound_by = bound_ms(batch * 9 * hidden * elem + 4 * 3 * hidden * 4, GRU_BWD_OPS_PER_UNIT * batch * hidden)
             row = {
                 "B": batch,
                 "H": hidden,
@@ -285,7 +284,7 @@ def phase_kernels_bwd(device: torch.device) -> dict:
                 "kernel_ms": ms,
                 "plain_ms": plain_ms,
                 "eager_call_ms": call_ms,
-                "bound_ms": bound_ms,
+                "bound_ms": bound,
                 "bound_by": bound_by,
                 "library_ms": None,
             }
@@ -453,46 +452,53 @@ def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> di
         raise AssertionError("batched player: non-finite state or wrong action shape")
     log(f"[batched] {n_envs} envs x {steps} steps: {steps / seconds:.1f} player steps/s ({n_envs * steps / seconds:.1f} env steps/s), "
         f"layernorm_gru launches {launches}")
-    for rows in (1, n_envs):
-        sub_state = PlayerState(*(t[:rows] for t in state))
-        sub_obs = {k: v[:, :rows] for k, v in obs.items()}
-        profile_player(step, sub_state, sub_obs, gen, min(16, steps))
+    for rows in (1, n_envs):  # one player step per call, observations on the card
+        box = [PlayerState(*(t[:rows] for t in state))]
+        frames = iter(range(steps))
+        is_first = torch.zeros(rows, 1, device=device)
+
+        def one_step():
+            t = next(frames)
+            box[0] = step(box[0], {k: v[t, :rows] for k, v in obs.items()}, is_first, gen)[2]
+
+        with torch.inference_mode():
+            profile_calls(one_step, min(16, steps), "player step", {"envs": rows})
     return {"launches": launches, "steps_per_s": steps / seconds}
 
 
-def profile_player(step, state, obs, gen, steps: int) -> None:
-    """Where a player step's time goes on the card: ``torch.profiler`` over ``steps``
-    steps (no env, observations already on the card). Prints the kernels per step, the
-    device time per step, the wall time per step (profiler overhead included) and the
-    device's busy share, and the kernels that take most device time."""
+def profile_calls(fn, calls: int, label: str, extra: dict) -> dict:
+    """Where ``calls`` calls of ``fn`` spend their time on the card, under
+    ``torch.profiler``: kernels, device time and wall time per call (profiler overhead
+    included), the device's busy share, the LayerNorm-GRU kernels' share and the
+    kernels that take most device time. Printed as ``[profile] <label> {...}``."""
     from torch.profiler import ProfilerActivity, profile
 
-    rows = state.recurrent_state.shape[0]
-    is_first = torch.zeros(rows, 1, device=state.recurrent_state.device)
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for t in range(steps):
-            _, _, state = step(state, {k: v[t] for k, v in obs.items()}, is_first, gen)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3 / steps
+        wall_ms = (time.perf_counter() - start) * 1e3 / calls
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3 / calls
     if not kernels or device_ms <= 0:
-        log(f"[profile] {rows} env(s): device time not measured (the profiler recorded no CUDA kernels)")
-        return
+        log(f"[profile] {label}: device time not measured (the profiler recorded no CUDA kernels)")
+        return {}
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log("[profile] " + json.dumps({
-        "envs": rows,
-        "steps": steps,
-        "kernels_per_step": len(kernels) / steps,
-        "device_ms_per_step": device_ms,
-        "wall_ms_per_step": wall_ms,
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / calls
+    out = {
+        **extra,
+        "calls": calls,
+        "kernels_per_call": len(kernels) / calls,
+        "device_ms_per_call": device_ms,
+        "wall_ms_per_call": wall_ms,
         "device_busy_share": device_ms / wall_ms,
-        "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top],
-    }))
+        "layernorm_gru_ms_per_call": {k[:60]: v for k, v in by_name.items() if "layernorm_gru" in k or "sum_partials" in k},
+        "top_kernels_ms_per_call": [[name[:80], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    log(f"[profile] {label} " + json.dumps(out))
+    return out
 
 
 def _train_batch(cfg, actions_dim, device: torch.device, gen: torch.Generator) -> dict:
@@ -539,20 +545,41 @@ def phase_train_agreement(device: torch.device) -> dict:
         )
         results.append((modules, opt, moments, metrics))
     torch.cuda.synchronize()
-    (cm, copt, cmom, cmet), (dm, dopt, dmom, dmet) = results
-    diff = lambda a, b: (a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()  # noqa: E731
-    worst_param = max(diff(p, q) for a, b in zip(cm, dm) for p, q in zip(a.state_dict().values(), b.state_dict().values()))
-    worst_moment = max(diff(p, q) for name in copt for key in ("mu", "nu") for p, q in zip(copt[name][key], dopt[name][key]))
+    (cm, copt, _, cmet), (dm, dopt, _, dmet) = results
     tol = TRAIN_AGREEMENT_TOL
-    losses = {k: (cmet[k].item(), dmet[k].item()) for k in cmet if k.startswith("Loss/")}
-    bad = [k for k, (c, d) in losses.items() if abs(c - d) > tol["losses_atol"] + tol["losses_rtol"] * abs(c)]
-    finite = all(torch.isfinite(v).all() for v in dmet.values())
-    log(f"[train-agreement] small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: max |param diff| "
-        f"{worst_param:.3e} (atol {tol['params']}), max |Adam moment diff| {worst_moment:.3e}; losses (cpu, card) "
-        + json.dumps(losses) + f" (rtol {tol['losses_rtol']}, atol {tol['losses_atol']})")
-    if not finite or worst_param > tol["params"] or bad:
-        raise AssertionError(f"train-agreement: the card's training step disagrees with the CPU's: {bad or worst_param}")
-    return {"param": worst_param, "moment": worst_moment, "losses": losses}
+    algo = cfg.algo
+    lrs = (algo.world_model.optimizer.lr, algo.actor.optimizer.lr, algo.critic.optimizer.lr, algo.critic.optimizer.lr)
+    # both start from the same weights, so the difference of the two parameter changes is
+    # that of the new parameters; per module: its largest entry over lr, and the share of
+    # entries off by more than the limit
+    steps = {}
+    for name, a, b, lr in zip(("world_model", "actor", "critic", "target_critic"), cm, dm, lrs):
+        sa, sb = a.state_dict(), b.state_dict()
+        diff = torch.cat([(sb[k].float().cpu() - sa[k].float()).abs().flatten() for k in sa])
+        steps[name] = ((diff.max() / lr).item(), (diff > tol["step_of_lr"] * lr).float().mean().item())
+    leaves = {name: [k for k, _ in m.named_parameters()] for name, m in zip(("world_model", "actor", "critic"), cm)}
+    moments = {}  # per moment: the leaf whose card value lies furthest from the CPU's, by relative norm
+    for key in ("mu", "nu"):
+        moments[key] = max(
+            (((q.cpu() - p).norm() / p.norm().clamp_min(1e-30)).item(), f"{name}.{leaf}", p.norm().item())
+            for name in leaves for leaf, p, q in zip(leaves[name], copt[name][key], dopt[name][key])
+        )
+    rel_moment = max(rel for rel, _, _ in moments.values())
+    metrics = {k: (cmet[k].item(), dmet[k].item()) for k in cmet if k.startswith(("Loss/", "Grads/"))}
+    bad = [k for k, (c, d) in metrics.items() if abs(c - d) > tol["metrics_atol"] + tol["metrics_rtol"] * abs(c)]
+    bad += [f"{k} change" for k, (_, share) in steps.items() if share > tol["off_share"]]
+    if rel_moment > tol["moments_rtol"]:
+        bad.append(f"Adam moments {rel_moment}")
+    if not all(torch.isfinite(v).all() for v in dmet.values()):
+        bad.append("non-finite metrics")
+    log(f"[train-agreement] small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: parameter change "
+        "(max |card - cpu| / lr, share > " + f"{tol['step_of_lr']} lr) " + json.dumps(steps) + f" (share <= {tol['off_share']}); "
+        "Adam moments, the leaf furthest off (relative norm diff, leaf, its norm) " + json.dumps(moments)
+        + f" (<= {tol['moments_rtol']}); metrics (cpu, card) " + json.dumps(metrics)
+        + f" (rtol {tol['metrics_rtol']}, atol {tol['metrics_atol']})")
+    if bad:
+        raise AssertionError(f"train-agreement: the card's training step disagrees with the CPU's: {bad}")
+    return {"steps": steps, "moments": moments, "metrics": metrics}
 
 
 def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy", steps: int = 8, warmup: int = 2) -> dict:
@@ -603,39 +630,8 @@ def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy
     }
     log("[train] DreamerV3-S B16xT64 H15 " + json.dumps(row))
     if not is_continuous:
-        row["profile"] = profile_train(step, opt, moments, batch, gen, precision)
+        row["profile"] = profile_calls(lambda: step(opt, moments, batch, True, generator=gen), 1, "train step", {"precision": precision})
     return row
-
-
-def profile_train(step, opt, moments, batch, gen, precision: str) -> dict:
-    """One training step under ``torch.profiler``: kernels, device time, busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        step(opt, moments, batch, True, generator=gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3
-    if not kernels or device_ms <= 0:
-        log(f"[profile] train {precision}: device time not measured (the profiler recorded no CUDA kernels)")
-        return {}
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    gru = {k: v for k, v in by_name.items() if "layernorm_gru" in k or "sum_partials" in k}
-    out = {
-        "precision": precision,
-        "kernels_per_step": len(kernels),
-        "device_ms_per_step": device_ms,
-        "wall_ms_per_step": wall_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "layernorm_gru_ms_per_step": {k[:60]: v for k, v in gru.items()},
-        "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
-    }
-    log("[profile] train step " + json.dumps(out))
-    return out
 
 
 def phase_train_cli(device: torch.device, workdir: Path) -> dict:

@@ -48,6 +48,31 @@ def _compose(extra=()):
     return jax_compose(overrides=overrides), torch_compose(overrides=[*overrides, "device=cpu"])
 
 
+def _train_overrides(is_continuous: bool, precision: str, cnn: bool):
+    extra = ["env=continuous_dummy"] if is_continuous else []
+    if not cnn:
+        extra.append("algo.cnn_keys.encoder=[]")
+    return [*extra, f"mesh.precision={precision}"], (["rgb"] if cnn else []) + ["state"]
+
+
+def build_port_step(params, is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0):
+    """The port's agent over the carried JAX ``params``, its train step and config."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
+    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
+
+    overrides, keys = _train_overrides(is_continuous, precision, cnn)
+    _, tcfg = _compose(overrides)
+    port_ctx = RunContext(torch.device("cpu"), seed, compute_dtype=compute_dtype(precision))
+    wm, actor, critic, target, _ = build_agent(port_ctx, (2,), is_continuous, tcfg, OBS_SPACE)
+    modules = {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target}
+    for name, state in params_from_jax(params, modules).items():
+        modules[name].load_state_dict(state)
+    step, init = make_train_step(wm, actor, critic, target, tcfg, keys[:-1], ["state"])
+    return modules, step, init, tcfg
+
+
 def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0, perturb: float = 0.05):
     """The JAX step (jitted) and the port's, over the same carried parameters. Without
     ``cnn`` the agent reads the vector key only (a smaller program to compile)."""
@@ -56,16 +81,9 @@ def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed
     from sheeprl_tpu.algos.dreamer_v3.agent import build_agent as jax_build_agent
     from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import make_train_step as jax_make_train_step
     from sheeprl_tpu.parallel.mesh import MeshContext, build_mesh
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step
-    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
-    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
 
-    extra = ["env=continuous_dummy"] if is_continuous else []
-    if not cnn:
-        extra.append("algo.cnn_keys.encoder=[]")
-    jcfg, tcfg = _compose([*extra, f"mesh.precision={precision}"])
-    keys = (["rgb"] if cnn else []) + ["state"]
+    overrides, keys = _train_overrides(is_continuous, precision, cnn)
+    jcfg, _ = _compose(overrides)
     actions_dim = (2,)
     ctx = MeshContext(mesh=build_mesh(devices=jax.devices()[:1]), precision=precision, seed=seed)
     with _jitted_init():
@@ -74,13 +92,8 @@ def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed
     rng = np.random.default_rng(seed + 100)
     params = jax.tree.map(lambda x: (x + rng.normal(0.0, perturb, x.shape)).astype(np.float32), params)
     jstep, jinit = jax_make_train_step(jwm, jactor, jcritic, jcfg, keys[:-1], ["state"], {})
-    port_ctx = RunContext(torch.device("cpu"), seed, compute_dtype=compute_dtype(precision))
-    wm, actor, critic, target, _ = build_agent(port_ctx, actions_dim, is_continuous, tcfg, OBS_SPACE)
-    modules = {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target}
-    for name, state in params_from_jax(params, modules).items():
-        modules[name].load_state_dict(state)
-    step, init = make_train_step(wm, actor, critic, target, tcfg, keys[:-1], ["state"])
-    return dict(jstep=jax.jit(jstep, static_argnums=(5,)), jinit=jinit, params=params, modules=modules, step=step, init=init)
+    modules, step, init, tcfg = build_port_step(params, is_continuous, precision, cnn, seed)
+    return dict(jstep=jax.jit(jstep, static_argnums=(5,)), jinit=jinit, params=params, modules=modules, step=step, init=init, cfg=tcfg)
 
 
 def make_batch(seed: int, is_continuous: bool):
@@ -148,22 +161,28 @@ def run_pair(pair, is_continuous: bool, seed: int = 3, update_target: bool = Tru
     import jax
     import jax.numpy as jnp
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
-
     batch = make_batch(seed, is_continuous)
     key = jax.random.PRNGKey(seed)
     jparams = jax.tree.map(jnp.asarray, pair["params"])
     jmoments = {"low": jnp.asarray(0.3), "high": jnp.asarray(1.7)}
     jout = pair["jstep"](jparams, pair["jinit"](jparams), jmoments, {k: jnp.asarray(v) for k, v in batch.items()}, key, update_target)
-    jout = jax.device_get(jout)
+    return jax.device_get(jout), run_port(pair["step"], pair["init"], is_continuous, seed, update_target)
+
+
+def run_port(step, init, is_continuous: bool, seed: int = 3, update_target: bool = True):
+    """The port's step on ``run_pair``'s batch, moments and JAX draws."""
+    import jax
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+
+    batch = make_batch(seed, is_continuous)
     moments = init_moments()
     moments["low"].fill_(0.3)
     moments["high"].fill_(1.7)
-    opt = pair["init"]()
-    new_moments, metrics = pair["step"](
-        opt, moments, {k: torch.from_numpy(v) for k, v in batch.items()}, update_target, draws=jax_draws(key, is_continuous)
-    )
-    return jout, (opt, new_moments, metrics)
+    opt = init()
+    draws = jax_draws(jax.random.PRNGKey(seed), is_continuous)
+    new_moments, metrics = step(opt, moments, {k: torch.from_numpy(v) for k, v in batch.items()}, update_target, draws=draws)
+    return opt, new_moments, metrics
 
 
 def _param_diffs(pair, jparams):
