@@ -11,7 +11,8 @@ result line:
 2. kernels: with TF32 off for matmuls and cuDNN, hold each kernel against its plain
    PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
    atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
-   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2);
+   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2), and the fused RSSM
+   step forward and backward at (B, K, H) = (16|13|64|256, 1024, 512) (``STEP_TOL``);
 3. agreement: the size-S DreamerV3 player on the card against the same agent on the
    CPU (plain path) for a few steps with injected draws, at ``mesh.precision=32-true``
    set explicitly and TF32 off, atol = rtol = 1e-3;
@@ -29,9 +30,15 @@ result line:
    expected counts, peak memory and a ``torch.profiler`` breakdown of one step;
 8. train-cli: the training loop through the train entry at size S with the async vector
    env: it trains, checkpoints, resumes from a checkpoint, and the eval entry evaluates
-   the last checkpoint.
+   the last checkpoint;
+9. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+   (the fused step's only path): the three variants' eager and device ms per scan, 64
+   launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
+   kernel per ``post_fused`` scan), and each fused variant's states and gradient against
+   ``plain``'s (``RSSM_SCAN_TOL``).
 
-Every path (eval, batched, train, train-cli) zeroes the kernels' launch counters just
+Every path (eval, batched, train, train-cli, rssm-scan) zeroes the kernels' launch
+counters just
 before it and reads them just after. The script then prints one JSON line describing
 every kernel, and last the line ``{"ok": true, "device": {...}}``. Exits 2 without
 CUDA.
@@ -54,6 +61,7 @@ import torch
 # H100 SXM, dense, from NVIDIA's data sheet (full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # bf16 products in the tensor cores, dense
 
 # Eval-phase configuration: DreamerV3 size S on the dummy env with rgb + state keys.
 S_OVERRIDES = [
@@ -75,6 +83,35 @@ GRU_OPS_PER_UNIT = 39
 # the backward per hidden unit: the forward's recompute (39), the gate gradients (15),
 # the dgamma/dbeta sums (6), the two dp means (9) and dp itself (12)
 GRU_BWD_OPS_PER_UNIT = 81
+
+# The fused RSSM step: (B, K, H) at the unroll's batch (16), ragged (13), 64 and the JAX
+# package's batch cap (256); K = 512 + 512, H = 512 (size S). Operand types (xh and w, h,
+# gamma and beta): all float32, all bf16, and the scan bench's mix.
+STEP_SHAPES = [(16, 1024, 512), (13, 1024, 512), (64, 1024, 512), (256, 1024, 512)]
+STEP_TYPES = {
+    "float32": (torch.float32, torch.float32, torch.float32),
+    "bfloat16": (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    "bf16_xw": (torch.bfloat16, torch.float32, torch.float32),
+}
+# Forward: against the plain version on the same inputs, by the output's type (h's):
+# f32 atol 1e-5, bf16 atol 1e-2. Backward: against autograd through the plain forward on
+# float32 inputs, by the least precise operand's type (bf16 operands put their rounding
+# into every gradient): f32 atol 2e-4; bf16 atol 6e-2 (test_precision_ops.py's, at its 8
+# rows) for dxh and dh, and for dw, dgamma and dbeta, which sum B rows of bf16-rounded
+# terms, 6e-2 * sqrt(max(B, 8) / 8): the rounding errors of a sum grow as the root of
+# its terms. The JAX package's own kernel (interpret mode, all-bf16 operands, seeds 0-3 of
+# `python -m tests.torch_rssm_step_bf16_readings`) reaches 0.079 on dw at B = 16, where
+# dw's entries reach ~9, 0.096 at B = 64 and 0.133 at B = 256 (entries ~20).
+STEP_TOL = {torch.float32: (1e-5, 2e-4), torch.bfloat16: (1e-2, 6e-2)}
+
+
+def step_bwd_atol(dtype: torch.dtype, batch: int, row_sum: bool) -> float:
+    """The backward's limit for a gradient of the fused step (``STEP_TOL``)."""
+    atol = STEP_TOL[dtype][1]
+    return atol * math.sqrt(max(batch, 8) / 8) if dtype == torch.bfloat16 and row_sum else atol
+# The scan: each fused variant's dw against plain's by relative norm, and the states by
+# max abs difference. First readings of full_fused (H100, bf16): 7.07e-3 and 4.89e-4.
+RSSM_SCAN_TOL = {"dw_rel": 3e-2, "hs_atol": 1e-2}
 
 # Training phases: DreamerV3-S on 64x64 rgb frames, batch 16 x sequence 64, horizon 15
 TRAIN_OVERRIDES = [
@@ -166,33 +203,44 @@ def eager_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
-    """Least time on an H100 for work that moves ``nbytes`` and does ``ops`` float32
-    operations: the larger of the two times, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, ops: float, tensor_ops: float = 0.0):
+    """Least time on an H100 for work that moves ``nbytes``, does ``ops`` float32
+    operations and ``tensor_ops`` bf16 tensor-core operations: the larger of the byte
+    time and the operation time, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / F32_FLOPS + tensor_ops / BF16_TENSOR_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def launches() -> tuple:
+    """The launch counts of the LayerNorm-GRU forward and backward kernels; raises if a
+    fused-step kernel launched, which no DreamerV3 path calls."""
     from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
+    from sheeprl_tpu_torch.ops.rssm_step import gru_step, gru_step_backward
 
+    if gru_step.launches or gru_step_backward.launches:
+        raise AssertionError(f"a DreamerV3 path launched the fused step: {gru_step.launches} forward, {gru_step_backward.launches} backward")
     return layernorm_gru.launches, layernorm_gru_backward.launches
 
 
 def zero_launches() -> None:
-    from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
+    from sheeprl_tpu_torch.ops.counters import zero_launches as zero_all
 
-    layernorm_gru.launches = 0
-    layernorm_gru_backward.launches = 0
+    zero_all()
 
 
 def phase_build() -> float:
+    """Build every kernel library at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sheeprl_tpu_torch.ops import _build
 
+    names = ("layernorm_gru", "rssm_step")
     start = time.perf_counter()
-    _build.load_kernel_library("layernorm_gru")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load_kernel_library, names))
     seconds = time.perf_counter() - start
-    log(f"[build] layernorm_gru: nvcc {_build.build_seconds('layernorm_gru'):.2f} s, load total {seconds:.2f} s")
+    log("[build] " + ", ".join(f"{n}: nvcc {_build.build_seconds(n):.2f} s" for n in names) + f"; all loaded in {seconds:.2f} s")
     return seconds
 
 
@@ -296,6 +344,159 @@ def phase_kernels_bwd(device: torch.device) -> dict:
     return {"rows": rows, "max_abs_err_f32": worst, "main": main}
 
 
+def _step_operands(batch: int, k: int, hidden: int, device: torch.device, gen: torch.Generator):
+    """Float32 operands of the fused step: xh, h and g ~ N(0, 1), w ~ N(0, 1/K) (so the
+    projection is ~N(0, 1)), gamma ~ 1 + N(0, 0.01), beta ~ N(0, 0.01)."""
+    xh = torch.randn(batch, k, device=device, generator=gen)
+    h = torch.randn(batch, hidden, device=device, generator=gen)
+    w = torch.randn(k, 3 * hidden, device=device, generator=gen) * k**-0.5
+    gamma = 1 + 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
+    beta = 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
+    g = torch.randn(batch, hidden, device=device, generator=gen)
+    return xh, h, w, gamma, beta, g
+
+
+def _step_row(batch, k, hidden, types, err, tol, fn, plain, nbytes, ops, tensor_ops) -> dict:
+    bound, bound_by = bound_ms(nbytes, ops, tensor_ops)
+    return {
+        "B": batch,
+        "K": k,
+        "H": hidden,
+        "types": types,
+        "max_abs_err": err,
+        "tol": tol,
+        "kernel_ms": graph_ms(fn),
+        "plain_ms": graph_ms(plain),
+        "eager_call_ms": eager_ms(fn),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "w_in_l2": "hot: the graph replays one w, 3.1 MB in bf16 and 6.3 MB in f32, under the 50 MB L2",
+        "library_ms": None,
+    }
+
+
+def _main_step_row(rows: list) -> dict:
+    return next(r for r in rows if (r["B"], r["types"]) == (16, "bf16_xw"))
+
+
+def phase_kernels_step(device: torch.device) -> dict:
+    """K2-fwd against its plain version on the same inputs, at ``STEP_SHAPES`` in each of
+    ``STEP_TYPES``; the tolerance is that of the output's type (h's)."""
+    from sheeprl_tpu_torch.ops.rssm_step import gru_step, gru_step_reference
+
+    set_tf32(False)
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows, worst = [], 0.0
+    for batch, k, hidden in STEP_SHAPES:
+        xh, h, w, gamma, beta, _ = _step_operands(batch, k, hidden, device, gen)
+        for types, (ti, th, tg) in STEP_TYPES.items():
+            args = (xh.to(ti), h.to(th), w.to(ti), gamma.to(tg), beta.to(tg))
+            with torch.inference_mode():
+                out = gru_step(*args)
+                torch.cuda.synchronize()
+                err = (out.float() - gru_step_reference(*args).float()).abs().max().item()
+                tol = STEP_TOL[th][0]
+                if not (out.dtype == th and out.shape == h.shape and math.isfinite(err) and err <= tol):
+                    raise AssertionError(f"rssm_step {batch}x{k}x{hidden} {types}: max_abs_err {err} > {tol}")
+                # xh, w, h, gamma and beta read, h' written; the product (2 B K 3H, on the
+                # tensor cores in bf16) beside the LayerNorm-GRU's 39 operations per unit
+                nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
+                mm = 2 * batch * k * 3 * hidden
+                row = _step_row(
+                    batch, k, hidden, types, err, tol, lambda: gru_step(*args), lambda: gru_step_reference(*args), nbytes,
+                    GRU_OPS_PER_UNIT * batch * hidden + (mm if ti == torch.float32 else 0), mm if ti == torch.bfloat16 else 0,
+                )
+            log("[kernels] rssm_step " + json.dumps(row))
+            rows.append(row)
+            if th == torch.float32:
+                worst = max(worst, err)
+    return {"rows": rows, "max_abs_err_f32": worst, "main": _main_step_row(rows)}
+
+
+def phase_kernels_step_bwd(device: torch.device) -> dict:
+    """K2-bwd against autograd through the plain forward on the same values in float32,
+    at ``STEP_SHAPES`` in each of ``STEP_TYPES``; each gradient is held to its own type's
+    tolerance."""
+    from sheeprl_tpu_torch.ops.rssm_step import gru_step_backward, gru_step_backward_reference
+
+    set_tf32(False)
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows, worst = [], 0.0
+    for batch, k, hidden in STEP_SHAPES:
+        xh, h, w, gamma, beta, g = _step_operands(batch, k, hidden, device, gen)
+        ref = gru_step_backward_reference(xh, h, w, gamma, beta, g)
+        for types, (ti, th, tg) in STEP_TYPES.items():
+            args = (xh.to(ti), h.to(th), w.to(ti), gamma.to(tg), beta.to(tg), g.to(th))
+            out = gru_step_backward(*args)
+            torch.cuda.synchronize()
+            want = [ti, th, ti, tg, tg]
+            if [o.dtype for o in out] != want:
+                raise AssertionError(f"rssm_step_bwd {batch}x{k}x{hidden} {types}: gradient types {[o.dtype for o in out]}, expected {want}")
+            lo = torch.float32 if types == "float32" else torch.bfloat16
+            err, over, tol = 0.0, [], {}
+            for name, o, r in zip(("dxh", "dh", "dw", "dgamma", "dbeta"), out, ref):
+                e = (o.float() - r).abs().max().item()
+                tol[name] = step_bwd_atol(lo, batch, name not in ("dxh", "dh"))
+                if not e <= tol[name]:
+                    over.append(f"{name} max_abs_err {e} > {tol[name]}")
+                err = max(err, e)
+            if over:
+                raise AssertionError(f"rssm_step_bwd {batch}x{k}x{hidden} {types}: {over}")
+            # xh, h, w, gamma, beta and g read; dxh, dh, dw, dgamma and dbeta written; the
+            # recomputed projection and the two products of dp (3 x 2 B K 3H) beside the
+            # LayerNorm-GRU backward's 81 operations per unit
+            nbytes = 2 * sum(t.numel() * t.element_size() for t in args[:5]) + args[5].numel() * args[5].element_size()
+            mm = 3 * 2 * batch * k * 3 * hidden
+            row = _step_row(
+                batch, k, hidden, types, err, tol, lambda: gru_step_backward(*args),
+                lambda: gru_step_backward_reference(*args), nbytes,
+                GRU_BWD_OPS_PER_UNIT * batch * hidden + (mm if ti == torch.float32 else 0), mm if ti == torch.bfloat16 else 0,
+            )
+            log("[kernels] rssm_step_bwd " + json.dumps(row))
+            rows.append(row)
+            if types == "float32":
+                worst = max(worst, err)
+    return {"rows": rows, "max_abs_err_f32": worst, "main": _main_step_row(rows)}
+
+
+def phase_rssm_scan(device: torch.device) -> dict:
+    """The fused step's path: the port's ``fused_step_bench`` at size S in bf16. Checks
+    each variant's launches per scan and holds ``post_fused``'s and ``full_fused``'s
+    states and gradient to ``plain``'s (``RSSM_SCAN_TOL``)."""
+    from sheeprl_tpu_torch.benchmarks.fused_step_bench import run
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(False)  # as PyTorch's default: the plain scan's float32 products stay float32
+    T, B = 64, 16
+    zero_launches()
+    line, outputs = run(T, B, 512, 512, device)
+    total = launch_counts()
+    zero = {"rssm_step": 0, "rssm_step_bwd": 0, "layernorm_gru": 0, "layernorm_gru_bwd": 0}
+    want = {
+        "plain": zero,
+        "post_fused": {**zero, "layernorm_gru": T, "layernorm_gru_bwd": T},
+        "full_fused": {**zero, "rssm_step": T, "rssm_step_bwd": T},
+    }
+    bad = [f"{n}: {line[n]['launches_per_scan']} per scan, expected {want[n]}" for n in want if line[n]["launches_per_scan"] != want[n]]
+    hs_p, dw_p = (t.float() for t in outputs["plain"])
+    if hs_p.shape != (T, B, 512) or not (torch.isfinite(hs_p).all() and torch.isfinite(dw_p).all()):
+        bad.append(f"plain: states {tuple(hs_p.shape)}, finite {bool(torch.isfinite(hs_p).all())}, dw finite {bool(torch.isfinite(dw_p).all())}")
+    agree = {}
+    for name in ("post_fused", "full_fused"):
+        hs_v, dw_v = (t.float() for t in outputs[name])
+        agree[name] = {"dw_rel": ((dw_v - dw_p).norm() / dw_p.norm()).item(), "hs_diff": (hs_v - hs_p).abs().max().item()}
+        if not agree[name]["dw_rel"] <= RSSM_SCAN_TOL["dw_rel"] or not agree[name]["hs_diff"] <= RSSM_SCAN_TOL["hs_atol"]:
+            bad.append(f"{name} against plain: dw relative norm {agree[name]['dw_rel']}, states max abs diff {agree[name]['hs_diff']} ({RSSM_SCAN_TOL})")
+    log("[rssm-scan] " + json.dumps(line))
+    log(f"[rssm-scan] {json.dumps(line['shape'])}: "
+        + "; ".join(f"{n} {line[n]['ms_per_scan']:.3f} ms eager, {line[n]['device_ms_per_scan']:.3f} ms device ({line[n]['device_ms_source']})" for n in want)
+        + "".join(f"; {n} vs plain: dw relative norm {a['dw_rel']:.3e}, states max abs diff {a['hs_diff']:.3e}" for n, a in agree.items())
+        + f"; launches in the phase {json.dumps(total)}")
+    if bad:
+        raise AssertionError(f"rssm-scan: {bad}")
+    return {"line": line, "launches": total, "agree": agree}
+
+
 def _s_config(extra=()):
     from sheeprl_tpu_torch.config.core import compose
 
@@ -369,7 +570,6 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.cli import evaluate
     from sheeprl_tpu_torch.config.core import save_config
-    from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_backward
 
     set_tf32(True)  # the config's float32_matmul_precision=high sets the same for matmuls
     cfg = _s_config([f"device={device.type}"])
@@ -399,25 +599,24 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
                 f"log_root={workdir / 'logs'}",
             ]
         )
-        launches, bwd_launches = layernorm_gru.launches, layernorm_gru_backward.launches
+        fwd_launches, bwd_launches = launches()
     finally:
         dv3_eval.build_agent = real_build
     tensors = [t for m in built for t in (*m.parameters(), *m.buffers())]
     if not tensors or any(t.device.type != device.type for t in tensors):
         raise AssertionError("the evaluated agent is not on the card")
-    if result.steps != EPISODE_STEPS + 1 or launches != result.steps or bwd_launches != 0:
-        raise AssertionError(f"eval: {result.steps} player steps, {launches} forward and {bwd_launches} backward launches")
+    if result.steps != EPISODE_STEPS + 1 or fwd_launches != result.steps or bwd_launches != 0:
+        raise AssertionError(f"eval: {result.steps} player steps, {fwd_launches} forward and {bwd_launches} backward launches")
     if not (math.isfinite(result.reward) and result.reward == 0.0):
         raise AssertionError(f"eval: reward {result.reward} (the dummy env pays 0)")
     sps = result.steps / result.seconds
     log(f"[eval] DreamerV3-S ({n_params} parameters) on {device} at mesh.precision={cfg.mesh.precision}: reward "
-        f"{result.reward}, {result.steps} player steps, {sps:.1f} player steps/s, layernorm_gru launches {launches}")
-    return {"launches": launches, "steps": result.steps, "steps_per_s": sps, "devices": {t.device for t in tensors}}
+        f"{result.reward}, {result.steps} player steps, {sps:.1f} player steps/s, layernorm_gru launches {fwd_launches}")
+    return {"launches": fwd_launches, "steps": result.steps, "steps_per_s": sps, "devices": {t.device for t in tensors}}
 
 
 def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> dict:
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, make_player_step
-    from sheeprl_tpu_torch.ops.gru import layernorm_gru
 
     set_tf32(True)
     cfg = _s_config([f"device={device.type}"])
@@ -445,13 +644,13 @@ def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> di
             is_first = torch.zeros(n_envs, 1, device=device)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        launches = layernorm_gru.launches
-    if launches != steps:
-        raise AssertionError(f"batched player: {launches} kernel launches for {steps} steps")
+        fwd_launches = launches()[0]
+    if fwd_launches != steps:
+        raise AssertionError(f"batched player: {fwd_launches} kernel launches for {steps} steps")
     if not (torch.isfinite(state.recurrent_state).all() and actions[0].shape == (n_envs, actions_dim[0])):
         raise AssertionError("batched player: non-finite state or wrong action shape")
     log(f"[batched] {n_envs} envs x {steps} steps: {steps / seconds:.1f} player steps/s ({n_envs * steps / seconds:.1f} env steps/s), "
-        f"layernorm_gru launches {launches}")
+        f"layernorm_gru launches {fwd_launches}")
     for rows in (1, n_envs):  # one player step per call, observations on the card
         box = [PlayerState(*(t[:rows] for t in state))]
         frames = iter(range(steps))
@@ -463,7 +662,7 @@ def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> di
 
         with torch.inference_mode():
             profile_calls(one_step, min(16, steps), "player step", {"envs": rows})
-    return {"launches": launches, "steps_per_s": steps / seconds}
+    return {"launches": fwd_launches, "steps_per_s": steps / seconds}
 
 
 def profile_calls(fn, calls: int, label: str, extra: dict) -> dict:
@@ -702,6 +901,8 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     kernels = phase_kernels(device)
     kernels_bwd = phase_kernels_bwd(device)
+    step_fwd = phase_kernels_step(device)
+    step_bwd = phase_kernels_step_bwd(device)
     phase_agreement(device)
     with tempfile.TemporaryDirectory() as tmp:
         ev = phase_eval(device, Path(tmp))
@@ -710,17 +911,20 @@ def main() -> int:
     train = [phase_train(device, "bf16-mixed"), phase_train(device, "32-true"), phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1)]
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_train_cli(device, Path(tmp))
+    scan = phase_rssm_scan(device)
     line = {"kernels": []}
-    for name, source_line, k, n in (
-        ("layernorm_gru_fwd", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
-        ("layernorm_gru_bwd", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
+    for name, source, source_line, k, n in (
+        ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
+        ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
+        ("rssm_step_fwd", "rssm_step.cu", "sheeprl_tpu/ops/rssm_step.py:139", step_fwd, scan["launches"]["rssm_step"]),
+        ("rssm_step_bwd", "rssm_step.cu", "sheeprl_tpu/ops/rssm_step.py:152", step_bwd, scan["launches"]["rssm_step_bwd"]),
     ):
         row = k["main"]
         line["kernels"].append(
             {
                 "name": name,
                 "route": "cuda",
-                "source": "sheeprl_tpu_torch/csrc/layernorm_gru.cu",
+                "source": f"sheeprl_tpu_torch/csrc/{source}",
                 "replaces": source_line,
                 "launches": n,
                 "max_abs_err": k["max_abs_err_f32"],
@@ -732,7 +936,8 @@ def main() -> int:
             }
         )
     log(f"[done] {time.perf_counter() - t0:.1f} s; eval launches {ev['launches']}; train steps/s "
-        + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train))
+        + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train)
+        + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -30,6 +30,8 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.dreamer_v3.params",
     "sheeprl_tpu_torch.algos.dreamer_v3.utils",
     "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.benchmarks",
+    "sheeprl_tpu_torch.benchmarks.fused_step_bench",
     "sheeprl_tpu_torch.checkpoint.manager",
     "sheeprl_tpu_torch.config.core",
     "sheeprl_tpu_torch.data.buffers",
@@ -41,7 +43,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.envs.vector",
     "sheeprl_tpu_torch.envs.wrappers",
     "sheeprl_tpu_torch.models.blocks",
+    "sheeprl_tpu_torch.ops.counters",
     "sheeprl_tpu_torch.ops.gru",
+    "sheeprl_tpu_torch.ops.rssm_step",
     "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.parallel.context",
     "sheeprl_tpu_torch.utils.env",
