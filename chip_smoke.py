@@ -12,7 +12,11 @@ result line:
    PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
    atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
    the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2), and the fused RSSM
-   step forward and backward at (B, K, H) = (16|13|64|256, 1024, 512) (``STEP_TOL``);
+   step forward and backward at (B, K, H) = (16|13|64|256, 1024, 512) (``STEP_TOL``),
+   two calls of each giving the same bits, the backward from the forward's saved
+   projection; the source's launch geometry held equal to the wrapper's and the card's
+   ``cudaOccupancyMaxActiveClusters`` for the forward's clusters printed; beside each
+   fused-step row the bare cuBLAS product(s) of its shapes (``product_ms``, a yardstick);
 3. agreement: the size-S DreamerV3 player on the card against the same agent on the
    CPU (plain path) for a few steps with injected draws, at ``mesh.precision=32-true``
    set explicitly and TF32 off, atol = rtol = 1e-3;
@@ -84,16 +88,8 @@ GRU_OPS_PER_UNIT = 39
 # the dgamma/dbeta sums (6), the two dp means (9) and dp itself (12)
 GRU_BWD_OPS_PER_UNIT = 81
 
-# The fused RSSM step: (B, K, H) at the unroll's batch (16), ragged (13), 64 and the JAX
-# package's batch cap (256); K = 512 + 512, H = 512 (size S). Operand types (xh and w, h,
-# gamma and beta): all float32, all bf16, and the scan bench's mix.
-STEP_SHAPES = [(16, 1024, 512), (13, 1024, 512), (64, 1024, 512), (256, 1024, 512)]
-STEP_TYPES = {
-    "float32": (torch.float32, torch.float32, torch.float32),
-    "bfloat16": (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-    "bf16_xw": (torch.bfloat16, torch.float32, torch.float32),
-}
-# Forward: against the plain version on the same inputs, by the output's type (h's):
+# The fused RSSM step's rows are STEP_SHAPES x STEP_TYPES of the port's
+# benchmarks/step_kernel_ab.py. Forward: against the plain version on the same inputs, by the output's type (h's):
 # f32 atol 1e-5, bf16 atol 1e-2. Backward: against autograd through the plain forward on
 # float32 inputs, by the least precise operand's type (bf16 operands put their rounding
 # into every gradient): f32 atol 2e-4; bf16 atol 6e-2 (test_precision_ops.py's, at its 8
@@ -344,19 +340,11 @@ def phase_kernels_bwd(device: torch.device) -> dict:
     return {"rows": rows, "max_abs_err_f32": worst, "main": main}
 
 
-def _step_operands(batch: int, k: int, hidden: int, device: torch.device, gen: torch.Generator):
-    """Float32 operands of the fused step: xh, h and g ~ N(0, 1), w ~ N(0, 1/K) (so the
-    projection is ~N(0, 1)), gamma ~ 1 + N(0, 0.01), beta ~ N(0, 0.01)."""
-    xh = torch.randn(batch, k, device=device, generator=gen)
-    h = torch.randn(batch, hidden, device=device, generator=gen)
-    w = torch.randn(k, 3 * hidden, device=device, generator=gen) * k**-0.5
-    gamma = 1 + 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
-    beta = 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
-    g = torch.randn(batch, hidden, device=device, generator=gen)
-    return xh, h, w, gamma, beta, g
-
-
-def _step_row(batch, k, hidden, types, err, tol, fn, plain, nbytes, ops, tensor_ops) -> dict:
+def _step_row(batch, k, hidden, types, err, tol, fn, plain, product, nbytes, ops, tensor_ops) -> dict:
+    """A fused-step kernel's row: its time, its plain version's, and the bare product(s)
+    of the same shapes in cuBLAS (``product_ms``, a yardstick the port never calls). The
+    bound counts the bytes of the function itself; ``residual_bytes`` is the float32
+    projection that the port's forward writes and its backward reads beside them."""
     bound, bound_by = bound_ms(nbytes, ops, tensor_ops)
     return {
         "B": batch,
@@ -365,35 +353,81 @@ def _step_row(batch, k, hidden, types, err, tol, fn, plain, nbytes, ops, tensor_
         "types": types,
         "max_abs_err": err,
         "tol": tol,
+        "bit_identical": True,
+        "launches_per_call": 2,
         "kernel_ms": graph_ms(fn),
         "plain_ms": graph_ms(plain),
+        "product_ms": graph_ms(product),
         "eager_call_ms": eager_ms(fn),
         "bound_ms": bound,
         "bound_by": bound_by,
+        "residual_bytes": batch * 3 * hidden * 4,
         "w_in_l2": "hot: the graph replays one w, 3.1 MB in bf16 and 6.3 MB in f32, under the 50 MB L2",
         "library_ms": None,
     }
+
+
+def _same_bits(a, b, what: str) -> None:
+    """Two calls of a fused-step kernel must give the same bits (fixed-order sums)."""
+    for name, x, y in zip(("dxh", "dh", "dw", "dgamma", "dbeta") if len(a) > 1 else ("h'",), a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: two calls differ in {name} (max {(x.float() - y.float()).abs().max().item()})")
+
+
+def _f32_product(a, b):
+    """a @ b with a float32 output, as XLA's preferred_element_type (TF32 off)."""
+    return a @ b if a.dtype == torch.float32 else torch.mm(a, b, out_dtype=torch.float32)
 
 
 def _main_step_row(rows: list) -> dict:
     return next(r for r in rows if (r["B"], r["types"]) == (16, "bf16_xw"))
 
 
+def check_step_geometry() -> list:
+    """The built source's launch geometry (``rssm_step_geometry``) against the wrapper's
+    restatement at every ``STEP_SHAPES`` row, and ``cudaOccupancyMaxActiveClusters`` of
+    the forward's clusters beside the clusters its grid holds."""
+    from sheeprl_tpu_torch.benchmarks.step_kernel_ab import STEP_SHAPES, STEP_TYPES
+    from sheeprl_tpu_torch.ops.rssm_step import geometry, kernel_geometry, max_active_clusters
+
+    out = []
+    for batch, k, hidden in STEP_SHAPES:
+        for types, (ti, th, tg) in STEP_TYPES.items():
+            itemsize = torch.empty((), dtype=ti).element_size()
+            c_geo, py_geo = kernel_geometry(batch, k, hidden, itemsize), geometry(batch, k, hidden, itemsize)
+            if c_geo != py_geo:
+                raise AssertionError(f"rssm_step geometry {batch}x{k}x{hidden} {types}: source {c_geo} != wrapper {py_geo}")
+            row = {
+                "B": batch, "types": types, "grid": [c_geo["col_blocks"], c_geo["slices"], c_geo["groups"]],
+                "cluster": c_geo["slices"], "clusters": c_geo["col_blocks"] * c_geo["groups"],
+                "max_active_clusters": max_active_clusters(batch, k, hidden, ti),
+                "fwd_smem": c_geo["fwd_smem"], "prod_blocks": c_geo["prod_blocks"], "prod_smem": c_geo["prod_smem"],
+            }
+            log("[kernels] rssm_step geometry " + json.dumps(row))
+            out.append(row)
+    return out
+
+
 def phase_kernels_step(device: torch.device) -> dict:
     """K2-fwd against its plain version on the same inputs, at ``STEP_SHAPES`` in each of
-    ``STEP_TYPES``; the tolerance is that of the output's type (h's)."""
+    ``STEP_TYPES``; the tolerance is that of the output's type (h's). Two calls must give
+    the same bits."""
+    from sheeprl_tpu_torch.benchmarks.step_kernel_ab import STEP_SHAPES, STEP_TYPES, step_operands, typed
     from sheeprl_tpu_torch.ops.rssm_step import gru_step, gru_step_reference
 
     set_tf32(False)
     gen = torch.Generator(device=device).manual_seed(2)
     rows, worst = [], 0.0
     for batch, k, hidden in STEP_SHAPES:
-        xh, h, w, gamma, beta, _ = _step_operands(batch, k, hidden, device, gen)
+        ops = step_operands(batch, k, hidden, device, gen)
         for types, (ti, th, tg) in STEP_TYPES.items():
-            args = (xh.to(ti), h.to(th), w.to(ti), gamma.to(tg), beta.to(tg))
+            args, _ = typed(ops, types)
+            h = args[1]
             with torch.inference_mode():
                 out = gru_step(*args)
+                again = gru_step(*args)
                 torch.cuda.synchronize()
+                _same_bits([out], [again], f"rssm_step {batch}x{k}x{hidden} {types}")
                 err = (out.float() - gru_step_reference(*args).float()).abs().max().item()
                 tol = STEP_TOL[th][0]
                 if not (out.dtype == th and out.shape == h.shape and math.isfinite(err) and err <= tol):
@@ -403,7 +437,8 @@ def phase_kernels_step(device: torch.device) -> dict:
                 nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * out.element_size()
                 mm = 2 * batch * k * 3 * hidden
                 row = _step_row(
-                    batch, k, hidden, types, err, tol, lambda: gru_step(*args), lambda: gru_step_reference(*args), nbytes,
+                    batch, k, hidden, types, err, tol, lambda: gru_step(*args), lambda: gru_step_reference(*args),
+                    lambda: _f32_product(args[0], args[2]), nbytes,
                     GRU_OPS_PER_UNIT * batch * hidden + (mm if ti == torch.float32 else 0), mm if ti == torch.bfloat16 else 0,
                 )
             log("[kernels] rssm_step " + json.dumps(row))
@@ -416,19 +451,25 @@ def phase_kernels_step(device: torch.device) -> dict:
 def phase_kernels_step_bwd(device: torch.device) -> dict:
     """K2-bwd against autograd through the plain forward on the same values in float32,
     at ``STEP_SHAPES`` in each of ``STEP_TYPES``; each gradient is held to its own type's
-    tolerance."""
-    from sheeprl_tpu_torch.ops.rssm_step import gru_step_backward, gru_step_backward_reference
+    tolerance. The backward runs from the forward's saved projection, as autograd (and
+    the scan) calls it; two calls must give the same bits."""
+    from sheeprl_tpu_torch.benchmarks.step_kernel_ab import STEP_SHAPES, STEP_TYPES, step_operands, typed
+    from sheeprl_tpu_torch.ops.rssm_step import gru_step_backward, gru_step_backward_reference, gru_step_forward
 
     set_tf32(False)
     gen = torch.Generator(device=device).manual_seed(3)
     rows, worst = [], 0.0
     for batch, k, hidden in STEP_SHAPES:
-        xh, h, w, gamma, beta, g = _step_operands(batch, k, hidden, device, gen)
-        ref = gru_step_backward_reference(xh, h, w, gamma, beta, g)
+        ops = step_operands(batch, k, hidden, device, gen)
+        ref = gru_step_backward_reference(*ops)
         for types, (ti, th, tg) in STEP_TYPES.items():
-            args = (xh.to(ti), h.to(th), w.to(ti), gamma.to(tg), beta.to(tg), g.to(th))
-            out = gru_step_backward(*args)
+            five, g = typed(ops, types)
+            args = (*five, g)
+            proj = gru_step_forward(*five)[1]
+            out = gru_step_backward(*args, proj)
+            again = gru_step_backward(*args, proj)
             torch.cuda.synchronize()
+            _same_bits(out, again, f"rssm_step_bwd {batch}x{k}x{hidden} {types}")
             want = [ti, th, ti, tg, tg]
             if [o.dtype for o in out] != want:
                 raise AssertionError(f"rssm_step_bwd {batch}x{k}x{hidden} {types}: gradient types {[o.dtype for o in out]}, expected {want}")
@@ -443,13 +484,14 @@ def phase_kernels_step_bwd(device: torch.device) -> dict:
             if over:
                 raise AssertionError(f"rssm_step_bwd {batch}x{k}x{hidden} {types}: {over}")
             # xh, h, w, gamma, beta and g read; dxh, dh, dw, dgamma and dbeta written; the
-            # recomputed projection and the two products of dp (3 x 2 B K 3H) beside the
-            # LayerNorm-GRU backward's 81 operations per unit
-            nbytes = 2 * sum(t.numel() * t.element_size() for t in args[:5]) + args[5].numel() * args[5].element_size()
-            mm = 3 * 2 * batch * k * 3 * hidden
+            # two products of dp (2 x 2 B K 3H) beside the LayerNorm-GRU backward's 81
+            # operations per unit
+            nbytes = 2 * sum(t.numel() * t.element_size() for t in five) + g.numel() * g.element_size()
+            mm = 2 * 2 * batch * k * 3 * hidden
+            dp = torch.randn(batch, 3 * hidden, device=device, generator=torch.Generator(device=device).manual_seed(4)).to(ti)
             row = _step_row(
-                batch, k, hidden, types, err, tol, lambda: gru_step_backward(*args),
-                lambda: gru_step_backward_reference(*args), nbytes,
+                batch, k, hidden, types, err, tol, lambda: gru_step_backward(*args, proj),
+                lambda: gru_step_backward_reference(*args), lambda: (dp @ args[2].T, args[0].T @ dp), nbytes,
                 GRU_BWD_OPS_PER_UNIT * batch * hidden + (mm if ti == torch.float32 else 0), mm if ti == torch.bfloat16 else 0,
             )
             log("[kernels] rssm_step_bwd " + json.dumps(row))
@@ -901,6 +943,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     kernels = phase_kernels(device)
     kernels_bwd = phase_kernels_bwd(device)
+    check_step_geometry()
     step_fwd = phase_kernels_step(device)
     step_bwd = phase_kernels_step_bwd(device)
     phase_agreement(device)

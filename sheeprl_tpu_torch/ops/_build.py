@@ -46,11 +46,12 @@ def find_nvcc() -> str:
     return found
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+def load_kernel_library(name: str, source: Path | None = None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (or ``source``, another version of a kernel's file,
+    loaded under ``name``) if needed and return the loaded library."""
     if name in _LOADED:
         return _LOADED[name][0]
-    source = CSRC_DIR / f"{name}.cu"
+    source = CSRC_DIR / f"{name}.cu" if source is None else Path(source)
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     target = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds = 0.0

@@ -23,11 +23,12 @@ import torch
 
 from sheeprl_tpu_torch.ops.rssm_step import (
     fused_step_supported,
+    geometry,
     gru_step,
     gru_step_backward,
     gru_step_backward_reference,
+    gru_step_forward,
     gru_step_reference,
-    smem_bytes,
 )
 
 FWD_ATOL = 1e-5
@@ -107,11 +108,23 @@ def test_gradients_match_jax(jax_fn):
         np.testing.assert_allclose(leaf.grad.numpy(), r, rtol=GRAD_ATOL, atol=GRAD_ATOL, err_msg=name)
 
 
+def test_forward_with_projection_on_cpu_is_the_plain_version():
+    """``gru_step_forward`` gives the step and its float32 projection, the backward's
+    residual; on the CPU the plain version and ``xh @ w``, with no launch."""
+    ops = [torch.from_numpy(o) for o in _operands(6, 40, 32, seed=8)[0]]
+    before = gru_step.launches
+    out, proj = gru_step_forward(*ops)
+    assert gru_step.launches == before
+    torch.testing.assert_close(out, gru_step_reference(*ops), rtol=0, atol=0)
+    assert proj.dtype == torch.float32 and proj.shape == (6, 96)
+    torch.testing.assert_close(proj, ops[0] @ ops[2], rtol=0, atol=0)
+
+
 def test_backward_wrapper_on_cpu_is_the_plain_version():
     ops = [torch.from_numpy(o) for o in _operands(6, 40, 32, seed=9)[0]]
     g = torch.randn(6, 32, generator=torch.Generator().manual_seed(0))
     before = gru_step_backward.launches
-    got = gru_step_backward(*ops, g)
+    got = gru_step_backward(*ops, g, gru_step_forward(*ops)[1])
     assert gru_step_backward.launches == before, "the CPU path launches no kernel"
     for a, b in zip(got, gru_step_backward_reference(*ops, g)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -182,37 +195,76 @@ def test_bf16_gradients_track_jax_f32_reference():
 
 @pytest.mark.parametrize(
     "batch,k,hidden,itemsize",
-    [(16, 1024, 512, 2), (16, 1024, 512, 4), (256, 1024, 512, 4), (16, 96, 32, 4), (64, 128, 64, 4), (8, 96, 64, 4)],
+    [
+        (16, 1024, 512, 2),
+        (16, 1024, 512, 4),
+        (256, 1024, 512, 4),
+        (16, 96, 32, 4),
+        (64, 128, 64, 4),
+        (8, 96, 64, 4),
+        (256, 8192, 512, 4),
+        (16, 8192, 512, 4),
+    ],
 )
 def test_budget_takes_size_s_and_the_jax_test_shapes(batch, k, hidden, itemsize):
+    """Size S, B = 256 and the JAX package's test shapes; and K = 8192, which the design
+    of one cluster per row tile refused and the split design takes: K no longer bounds
+    the shared memory (the card holds both rows to the plain version,
+    ``test_cuda_kernels_match_plain_version_at_long_k``)."""
     assert fused_step_supported(batch, k, hidden, itemsize)
 
 
 @pytest.mark.parametrize(
     "batch,k,hidden,itemsize",
-    [(512, 4096, 4096, 4), (16, 1020, 512, 2), (16, 1024, 48, 4), (16, 1024, 1024, 2), (512, 1024, 512, 4), (16, 8192, 512, 4)],
+    [(512, 4096, 4096, 4), (16, 1020, 512, 2), (16, 1024, 48, 4), (16, 1024, 1024, 2), (16, 1024, 544, 4), (512, 1024, 512, 4)],
 )
 def test_budget_refuses_what_the_kernel_does_not_take(batch, k, hidden, itemsize):
     """Past VMEM's budget in the JAX package's own test; K not a multiple of 8; H not a
-    multiple of 32 or above 512; the backward's shared memory past 232,448 bytes."""
+    multiple of 32, or above 512 (1,024 and the next multiple of 32, 544); B past the
+    JAX budget's cap of 256."""
     assert not fused_step_supported(batch, k, hidden, itemsize)
 
 
 @pytest.mark.parametrize(
     "batch,k,itemsize,backward,nbytes",
     [
-        (16, 1024, 4, False, 50_712),
-        (16, 1024, 2, False, 93_720),
-        (16, 1024, 4, True, 130_328),
-        (16, 1024, 2, True, 170_264),
-        (256, 1024, 4, True, 226_328),
-        (256, 1024, 2, True, 220_184),
+        (16, 1024, 4, False, 49_680),
+        (16, 1024, 2, False, 49_680),
+        (16, 1024, 4, True, 203_040),
+        (16, 1024, 2, True, 182_944),
+        (256, 1024, 4, True, 203_040),
+        (256, 1024, 2, True, 182_944),
+        (256, 1024, 4, False, 86_544),
+        (256, 1024, 2, False, 86_544),
     ],
 )
 def test_shared_memory_is_the_kernels_layout(batch, k, itemsize, backward, nbytes):
-    """``smem_bytes`` is ``smem_layout`` of ``csrc/rssm_step.cu``, which it restates: the
-    byte counts of its docstring, region by region, at size S and at B = 256."""
-    assert smem_bytes(batch, k, itemsize, backward) == nbytes
+    """``geometry``'s ``fwd_smem`` / ``prod_smem`` are those of ``csrc/rssm_step.cu``, which
+    it restates, at H = 512: the forward's product-pass block (its row tiles grow with B up
+    to 4; the two tiles of its K-slice in flight), the backward's product-pass block
+    (independent of B and K), at size S and at B = 256."""
+    assert geometry(batch, k, 512, itemsize)["prod_smem" if backward else "fwd_smem"] == nbytes
+
+
+@pytest.mark.parametrize(
+    "batch,itemsize,want",
+    [
+        (16, 2, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=1, groups=1, dp_rows=16, dp_ld=1544, prod_blocks=128)),
+        (16, 4, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=1, groups=1, dp_rows=16, dp_ld=1540, prod_blocks=128)),
+        (13, 4, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=1, groups=1, dp_rows=16, dp_ld=1540, prod_blocks=128)),
+        (64, 2, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=4, groups=1, dp_rows=64, dp_ld=1544, prod_blocks=128)),
+        (64, 4, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=4, groups=1, dp_rows=64, dp_ld=1540, prod_blocks=128)),
+        (256, 2, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=4, groups=4, dp_rows=256, dp_ld=1544, prod_blocks=128)),
+        (256, 4, dict(col_blocks=12, slice_k=128, slices=8, row_tiles=4, groups=4, dp_rows=256, dp_ld=1540, prod_blocks=128)),
+    ],
+)
+def test_geometry_is_the_kernels_launch(batch, itemsize, want):
+    """The grids and workspaces the wrapper sizes at K = 1024, H = 512: the forward's
+    product pass's 12 blocks of 128 projection columns x 8 K-slices of 128 rows x row groups of up to 64, and the backward's
+    dp workspace (rows padded to the product pass's tile, 16 in bf16 and 8 in float32;
+    3H plus 16 bytes per row) and its 1024 / 8 product blocks."""
+    geo = geometry(batch, 1024, 512, itemsize)
+    assert {name: geo[name] for name in want} == want
 
 
 def _bad_operands(case):
@@ -281,7 +333,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         gru_step(*meta, torch.ones(96), torch.zeros(96))
     with pytest.raises(ValueError):
-        gru_step_backward(*meta, torch.ones(96), torch.zeros(96), torch.zeros(2, 32, device="meta"))
+        gru_step_backward(*meta, torch.ones(96), torch.zeros(96), torch.zeros(2, 32, device="meta"), torch.zeros(2, 96, device="meta"))
 
 
 # ----- on the card ---------------------------------------------------------------------
@@ -361,3 +413,89 @@ def test_cuda_backward_kernel_matches_plain_version(cuda_device, batch, k, hidde
         if types != "float32":
             s = s.float()
             torch.testing.assert_close(got, s, atol=2**-8 * s.abs().max().item(), rtol=2**-7, msg=lambda m: f"{name} (same bf16 operands): {m}")
+
+
+def _card_args(batch, k, hidden, types, device, seed):
+    ti, th, tg = CARD_TYPES[types]
+    xh, h, w, gamma, beta, g = _card_operands(batch, k, hidden, device, seed)
+    return (xh.to(ti), h.to(th), w.to(ti), gamma.to(tg), beta.to(tg)), g.to(th)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["bf16_xw", "float32"])
+@pytest.mark.parametrize("batch", [16, 256])
+def test_cuda_kernels_give_the_same_bits_twice(cuda_device, batch, types):
+    """Every sum runs in a fixed order and no float atomic is used: two forward calls
+    give bit-identical h', two backward calls bit-identical dxh, dh, dw, dgamma and dbeta."""
+    args, g = _card_args(batch, 1024, 512, types, cuda_device, seed=4)
+    (first, proj), (second, _) = gru_step_forward(*args), gru_step_forward(*args)
+    grads = [gru_step_backward(*args, g, proj), gru_step_backward(*args, g, proj)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for name, a, b in zip(("dxh", "dh", "dw", "dgamma", "dbeta"), *grads):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k,hidden", CARD_SHAPES + [(16, 96, 32), (64, 128, 64), (8, 96, 64)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_cuda_geometry_is_the_wrappers(cuda_device, batch, k, hidden, itemsize):
+    """The built source's geometry (``rssm_step_geometry``) is the wrapper's restatement,
+    by which it sizes the workspaces."""
+    from sheeprl_tpu_torch.ops.rssm_step import kernel_geometry
+
+    assert kernel_geometry(batch, k, hidden, itemsize) == geometry(batch, k, hidden, itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["bf16_xw", "float32"])
+def test_cuda_kernels_replay_in_a_graph(cuda_device, types):
+    """A CUDA graph of a forward and a backward call, replayed three times, gives the eager
+    calls' bits each time: the kernels keep no state between launches and the workspaces
+    are written in full before they are read."""
+    args, g = _card_args(64, 1024, 512, types, cuda_device, seed=5)
+    want_out, proj = gru_step_forward(*args)
+    want_grads = gru_step_backward(*args, g, proj)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gru_step_backward(*args, g, gru_step_forward(*args)[1])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, proj = gru_step_forward(*args)
+        grads = gru_step_backward(*args, g, proj)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want_out)
+        for a, b in zip(grads, want_grads):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k,hidden", [(16, 96, 32), (64, 128, 64), (8, 96, 64), (250, 200, 96)])
+def test_cuda_kernels_match_plain_version_at_small_shapes(cuda_device, batch, k, hidden):
+    """The JAX test shapes and a ragged one (B past a row group, K not a multiple of the
+    TMA box, one K-slice short), float32, forward and backward."""
+    args, g = _card_args(batch, k, hidden, "float32", cuda_device, seed=6)
+    out, proj = gru_step_forward(*args)
+    torch.testing.assert_close(out, gru_step_reference(*args), atol=FWD_ATOL, rtol=0)
+    for name, got, want in zip(NAMES, gru_step_backward(*args, g, proj), gru_step_backward_reference(*args, g)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k,types", [(16, 2048, "bf16_xw"), (256, 2048, "bfloat16"), (16, 8192, "float32"), (256, 8192, "bf16_xw")])
+def test_cuda_kernels_match_plain_version_at_long_k(cuda_device, batch, k, types):
+    """K past size S's, where a forward K-slice holds more than its two tiles in flight
+    (4 tiles at K = 2048 in bf16, 16 at K = 8192 in bf16, 32 in float32): forward and
+    backward against the plain version, held as the size-S rows are."""
+    args, g = _card_args(batch, k, 512, types, cuda_device, seed=7)
+    th = args[1].dtype
+    out, proj = gru_step_forward(*args)
+    torch.testing.assert_close(out.float(), gru_step_reference(*args).float(), atol=FWD_ATOL if th == torch.float32 else 1e-2, rtol=0)
+    f32 = [t.float() for t in args]
+    for name, got, want in zip(NAMES, gru_step_backward(*args, g, proj), gru_step_backward_reference(*f32, g.float())):
+        atol = GRAD_ATOL if types == "float32" else BF16_GRAD_ATOL * (math.sqrt(max(batch, 8) / 8) if name in ("w", "gamma", "beta") else 1.0)
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=0, msg=lambda m: f"{name}: {m}")
