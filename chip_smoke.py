@@ -11,7 +11,10 @@ result line:
 2. kernels: with TF32 off for matmuls and cuDNN, hold each kernel against its plain
    PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
    atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
-   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2), and the fused RSSM
+   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2), two calls of each
+   giving the same bits, beside each row the least a one-kernel call takes from a CUDA
+   graph (``launch_floor_ms``: a one-element ``zero_()``); their launch plan held equal
+   to the wrapper's at every row (``[kernels] layernorm_gru geometry``); and the fused RSSM
    step forward and backward at (B, K, H) = (16|13|64|256, 1024, 512) (``STEP_TOL``),
    two calls of each giving the same bits, the backward from the forward's saved
    projection; the source's launch geometry held equal to the wrapper's and the card's
@@ -78,7 +81,9 @@ S_OVERRIDES = [
 ]
 EPISODE_STEPS = 128  # DiscreteDummyEnv(n_steps=128): 129 player steps per episode
 
-KERNEL_SHAPES = [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096)]
+# The LayerNorm-GRU kernels' rows are KERNEL_SHAPES of the port's
+# benchmarks/gru_kernel_ab.py: (B, H) at the eval entry's one row, a ragged batch, the
+# RSSM unroll's 16 rows, the imagination's 1024 and a wide H.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # per hidden unit: LayerNorm statistics and normalisation over its 3 values (24),
@@ -240,8 +245,37 @@ def phase_build() -> float:
     return seconds
 
 
+def launch_floor_ms(device: torch.device) -> float:
+    """The least time one kernel takes from a CUDA graph: a one-element ``zero_()``,
+    captured and replayed as ``graph_ms`` captures a kernel."""
+    z = torch.zeros(1, device=device)
+    return graph_ms(lambda: z.zero_())
+
+
+def gru_launches_per_call(fn, want: int, what: str, calls: int = 4) -> int | None:
+    """Kernel launches per call of ``fn`` whose name holds ``layernorm_gru``, counted by
+    ``torch.profiler`` over ``calls`` eager calls; it must be ``want`` (the plan's). None
+    where the profiler recorded no kernel at all (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"[kernels] {what}: launches per call not measured (the profiler recorded no CUDA kernels)")
+        return None
+    got = sum("layernorm_gru" in e.name for e in kernels)
+    if got != want * calls:
+        raise AssertionError(f"{what}: {got / calls} layernorm_gru launches per call, the plan says {want}")
+    return want
+
+
 def phase_kernels(device: torch.device) -> dict:
-    """K1-fwd against its plain version, f32 and bf16, at the slice's shapes."""
+    """K1-fwd against its plain version, f32 and bf16, at the slice's shapes; two calls
+    must give the same bits."""
+    from sheeprl_tpu_torch.benchmarks.gru_kernel_ab import KERNEL_SHAPES
     from sheeprl_tpu_torch.ops.gru import layernorm_gru, layernorm_gru_reference
 
     set_tf32(False)
@@ -256,7 +290,10 @@ def phase_kernels(device: torch.device) -> dict:
             beta = 0.1 * torch.randn(3 * hidden, device=device, generator=gen)
             with torch.inference_mode():
                 out = layernorm_gru(proj, h, gamma, beta)
+                again = layernorm_gru(proj, h, gamma, beta)
                 torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"layernorm_gru {batch}x{hidden} {dtype}: two calls differ")
                 ref = layernorm_gru_reference(proj, h, gamma, beta)
                 err = (out.float() - ref.float()).abs().max().item()
                 if not (out.dtype == dtype and out.shape == h.shape and math.isfinite(err) and err <= TOL[dtype]):
@@ -264,6 +301,7 @@ def phase_kernels(device: torch.device) -> dict:
                 ms = graph_ms(lambda: layernorm_gru(proj, h, gamma, beta))
                 plain_ms = graph_ms(lambda: layernorm_gru_reference(proj, h, gamma, beta))
                 call_ms = eager_ms(lambda: layernorm_gru(proj, h, gamma, beta))
+                per_call = gru_launches_per_call(lambda: layernorm_gru(proj, h, gamma, beta), 1, f"layernorm_gru {batch}x{hidden} {dtype}")
             # proj and h read, h' written, gamma and beta read (float32)
             elem = proj.element_size()
             bound, bound_by = bound_ms((batch * 3 * hidden + 2 * batch * hidden) * elem + 2 * 3 * hidden * 4, GRU_OPS_PER_UNIT * batch * hidden)
@@ -273,7 +311,10 @@ def phase_kernels(device: torch.device) -> dict:
                 "dtype": str(dtype).replace("torch.", ""),
                 "max_abs_err": err,
                 "tol": TOL[dtype],
+                "bit_identical": True,
+                "launches_per_call": per_call,
                 "kernel_ms": ms,
+                "launch_floor_ms": launch_floor_ms(device),
                 "plain_ms": plain_ms,
                 "eager_call_ms": call_ms,
                 "bound_ms": bound,
@@ -290,8 +331,10 @@ def phase_kernels(device: torch.device) -> dict:
 
 def phase_kernels_bwd(device: torch.device) -> dict:
     """K1-bwd: the backward kernel against autograd through the plain forward on the
-    same values in float32, at the slice's shapes, f32 and bf16 inputs."""
-    from sheeprl_tpu_torch.ops.gru import layernorm_gru_backward, layernorm_gru_backward_reference
+    same values in float32, at the slice's shapes, f32 and bf16 inputs; two calls must
+    give the same bits."""
+    from sheeprl_tpu_torch.benchmarks.gru_kernel_ab import KERNEL_SHAPES
+    from sheeprl_tpu_torch.ops.gru import geometry, layernorm_gru_backward, layernorm_gru_backward_reference
 
     set_tf32(False)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -306,7 +349,11 @@ def phase_kernels_bwd(device: torch.device) -> dict:
             ref = layernorm_gru_backward_reference(proj, h, gamma, beta, g)
             args = (proj.to(dtype), h.to(dtype), gamma, beta, g.to(dtype))
             out = layernorm_gru_backward(*args)
+            again = layernorm_gru_backward(*args)
             torch.cuda.synchronize()
+            for name, a, b in zip(("dproj", "dh", "dgamma", "dbeta"), out, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: two calls differ in {name}")
             err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
             want = [dtype, dtype, torch.float32, torch.float32]
             if [o.dtype for o in out] != want or not math.isfinite(err) or err > BWD_TOL[dtype]:
@@ -314,8 +361,10 @@ def phase_kernels_bwd(device: torch.device) -> dict:
             ms = graph_ms(lambda: layernorm_gru_backward(*args))
             plain_ms = graph_ms(lambda: layernorm_gru_backward_reference(*args))
             call_ms = eager_ms(lambda: layernorm_gru_backward(*args))
+            planned = geometry(batch, hidden)["bwd_launches"]
+            per_call = gru_launches_per_call(lambda: layernorm_gru_backward(*args), planned, f"layernorm_gru_bwd {batch}x{hidden} {dtype}")
             # proj, h and g read, dproj and dh written, gamma/beta read and dgamma/dbeta
-            # written (float32); the kernel's dgamma/dbeta partials are not counted: the
+            # written (float32); the two-launch plan's partial rows are not counted: the
             # work does not need them
             elem = args[0].element_size()
             bound, bound_by = bound_ms(batch * 9 * hidden * elem + 4 * 3 * hidden * 4, GRU_BWD_OPS_PER_UNIT * batch * hidden)
@@ -325,7 +374,10 @@ def phase_kernels_bwd(device: torch.device) -> dict:
                 "dtype": str(dtype).replace("torch.", ""),
                 "max_abs_err": err,
                 "tol": BWD_TOL[dtype],
+                "bit_identical": True,
+                "launches_per_call": per_call,
                 "kernel_ms": ms,
+                "launch_floor_ms": launch_floor_ms(device),
                 "plain_ms": plain_ms,
                 "eager_call_ms": call_ms,
                 "bound_ms": bound,
@@ -381,6 +433,30 @@ def _f32_product(a, b):
 
 def _main_step_row(rows: list) -> dict:
     return next(r for r in rows if (r["B"], r["types"]) == (16, "bf16_xw"))
+
+
+def check_gru_geometry() -> list:
+    """The built source's launch plan (``layernorm_gru_geometry``) against the wrapper's
+    restatement at every ``KERNEL_SHAPES`` row, and ``cudaOccupancyMaxActiveClusters`` of
+    the backward's clusters in each type beside the clusters its grid holds."""
+    from sheeprl_tpu_torch.benchmarks.gru_kernel_ab import KERNEL_SHAPES
+    from sheeprl_tpu_torch.ops.gru import geometry, kernel_geometry, max_active_clusters
+
+    out = []
+    for batch, hidden in KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            c_geo, py_geo = kernel_geometry(batch, hidden), geometry(batch, hidden)
+            if c_geo != py_geo:
+                raise AssertionError(f"layernorm_gru geometry {batch}x{hidden} {dtype}: source {c_geo} != wrapper {py_geo}")
+            row = {
+                "B": batch, "H": hidden, "dtype": str(dtype).replace("torch.", ""), **c_geo,
+                "clusters": c_geo["bwd_grid"] // c_geo["cluster"], "max_active_clusters": max_active_clusters(batch, hidden, dtype),
+            }
+            if row["max_active_clusters"] < 1:
+                raise AssertionError(f"layernorm_gru geometry {batch}x{hidden} {dtype}: no cluster of {c_geo['cluster']} fits the card")
+            log("[kernels] layernorm_gru geometry " + json.dumps(row))
+            out.append(row)
+    return out
 
 
 def check_step_geometry() -> list:
@@ -735,7 +811,7 @@ def profile_calls(fn, calls: int, label: str, extra: dict) -> dict:
         "device_ms_per_call": device_ms,
         "wall_ms_per_call": wall_ms,
         "device_busy_share": device_ms / wall_ms,
-        "layernorm_gru_ms_per_call": {k[:60]: v for k, v in by_name.items() if "layernorm_gru" in k or "sum_partials" in k},
+        "layernorm_gru_ms_per_call": {k[:60]: v for k, v in by_name.items() if "layernorm_gru" in k},
         "top_kernels_ms_per_call": [[name[:80], ms] for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
     }
     log(f"[profile] {label} " + json.dumps(out))
@@ -943,6 +1019,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     kernels = phase_kernels(device)
     kernels_bwd = phase_kernels_bwd(device)
+    check_gru_geometry()
     check_step_geometry()
     step_fwd = phase_kernels_step(device)
     step_bwd = phase_kernels_step_bwd(device)

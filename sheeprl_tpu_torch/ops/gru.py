@@ -11,52 +11,177 @@ package's Pallas kernels (``sheeprl_tpu/ops/gru.py::_fused_fwd`` and ``_fused_bw
   autograd through it (``layernorm_gru_backward_reference``). The CPU path and the tests
   use them, and ``chip_smoke.py`` holds the kernels against them on the card.
 * ``layernorm_gru`` is the wrapper. On CPU tensors it returns the plain version; on CUDA
-  tensors it launches the forward kernel or raises, and counts the launch in
+  tensors it launches the forward kernel or raises, and counts the call in
   ``layernorm_gru.launches``. When autograd records, it goes through
   ``LayerNormGRUFunction``, which saves ``(proj, h, gamma, beta)`` and whose backward is
   ``layernorm_gru_backward``: the backward kernel, counted in
-  ``layernorm_gru_backward.launches``.
+  ``layernorm_gru_backward.launches`` (once per call, whether the call is one launch or
+  two).
+
+The kernels' launch plan is ``geometry`` (the source's ``geometry``, exported as
+``layernorm_gru_geometry``): a row belongs to a group of ``threads_per_row`` threads, 2 or
+4 hidden units a thread per segment, loaded in one piece where every operand is 16-byte
+aligned and H allows it. The forward is one launch. The backward is one launch where its
+CTAs fit one thread-block cluster (dgamma/dbeta added through distributed shared
+memory), else two: clusters of 8 write ``partial_rows`` rows of partial sums, which a
+second launch adds.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 
 from sheeprl_tpu_torch.ops._build import load_kernel_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FWD = None  # the bound C functions, set at their first launch
-_BWD = None
-# The backward's CTAs take tiles of consecutive rows, so that the dgamma/dbeta partials
-# stay at most this many rows of [3H] however large the batch.
-MAX_TILES = 128
+_KERNELS = None  # the bound C functions, set at their first launch
+_SET_UP = set()  # devices on which layernorm_gru_setup has run
+
+# The launch plan (csrc/layernorm_gru.cu), restated. A thread owns SMALL_UNITS hidden units
+# per segment of the 3H axis where the batch's CTAs fit one cluster of MAX_CLUSTER (the
+# backward in one launch), else LARGE_UNITS; a row's group is a whole number of warps.
+# Narrow path (groups of at most CTA_THREADS): CTA_THREADS // threads_per_row rows per
+# CTA. Wide path: one row per CTA of WIDE_THREADS, the row streamed again in each pass,
+# WIDE_VEC units per load. A two-launch backward keeps at most MAX_CTAS CTAs with rows, in
+# clusters of MULTI_CLUSTER that write one partial row each for a second launch to add;
+# the wide path writes one partial row per CTA (none when the batch is one CTA). A
+# backward CTA of the narrow path gathers its share of the cluster's dgamma/dbeta terms in
+# dynamic shared memory (one slot per group of the cluster; a single CTA with a single
+# group needs none).
+SMALL_UNITS = 2
+LARGE_UNITS = 4
+CTA_THREADS = 256
+WIDE_THREADS = 1024
+WIDE_VEC = 4
+MAX_CTAS = 128
+MAX_CLUSTER = 16
+MULTI_CLUSTER = 8
+MAX_BWD_HIDDEN = 16384
+# layernorm_gru_geometry's fields, in its order
+GEOMETRY_FIELDS = (
+    "units", "vec", "path", "threads_per_row", "rows_per_cta", "fwd_grid", "rows_per_group", "bwd_grid", "cluster",
+    "bwd_launches", "partial_rows", "bwd_smem",
+)
+_PARTIAL_ROWS = GEOMETRY_FIELDS.index("partial_rows")
 
 
-def _fwd_kernel():
-    """Build or load ``csrc/layernorm_gru.cu`` once and declare the C signature of
-    ``layernorm_gru_fwd(proj, h, gamma, beta, out, batch, hidden, eps, dtype, stream)``."""
-    global _FWD
-    if _FWD is None:
-        fn = load_kernel_library("layernorm_gru").layernorm_gru_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def share_of(cols: int, size: int) -> int:
+    """The columns of the 2 x 3H that each CTA of a cluster of ``size`` adds up: a multiple
+    of 8, so that a thread's consecutive columns have one owner."""
+    return _cdiv(_cdiv(cols, size), 8) * 8
+
+
+def _rows_layout(batch: int, hidden: int, units: int) -> tuple:
+    tpr = _cdiv(_cdiv(hidden, units), 32) * 32
+    path = 0 if tpr <= CTA_THREADS else 1
+    rows_per_cta = min(CTA_THREADS // tpr, batch) if path == 0 else 1
+    return path, WIDE_THREADS if path == 1 else tpr, rows_per_cta, _cdiv(batch, rows_per_cta)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(batch: int, hidden: int, aligned: bool) -> tuple:
+    units = SMALL_UNITS
+    path, tpr, rows_per_cta, fwd_grid = _rows_layout(batch, hidden, units)
+    if path == 1 or fwd_grid > MAX_CLUSTER:
+        units = LARGE_UNITS
+        path, tpr, rows_per_cta, fwd_grid = _rows_layout(batch, hidden, units)
+    vec = WIDE_VEC if path == 1 else units
+    vec = vec if aligned and hidden % vec == 0 else 1
+    if path == 0 and fwd_grid <= MAX_CLUSTER:
+        cluster = 1 << (fwd_grid - 1).bit_length()
+        rows_per_group, bwd_grid, launches, partial_rows = 1, cluster, 1, 0
+    else:
+        rows_per_group = _cdiv(batch, rows_per_cta * MAX_CTAS)
+        tiles = _cdiv(batch, rows_per_cta * rows_per_group)
+        cluster = MULTI_CLUSTER if path == 0 else 1
+        bwd_grid = _cdiv(tiles, cluster) * cluster
+        launches = 2 if bwd_grid > 1 else 1
+        partial_rows = bwd_grid // cluster if launches == 2 else 0
+    slots = path == 0 and (cluster > 1 or rows_per_cta > 1)
+    bwd_smem = cluster * rows_per_cta * share_of(6 * hidden, cluster) * 4 if slots else 0
+    return (units, vec, path, tpr, rows_per_cta, fwd_grid, rows_per_group, bwd_grid, cluster, launches, partial_rows, bwd_smem)
+
+
+def geometry(batch: int, hidden: int, aligned: bool = True) -> dict:
+    """The kernels' launch plan for ``[batch, 3 * hidden]`` operands of either type
+    (``geometry`` in the source; ``layernorm_gru_geometry`` exports it): ``units`` per
+    thread and segment, ``vec`` units per load (all of them, 4 on the wide path, when
+    ``aligned`` and H allow, else 1), the ``path`` (0 narrow, 1 wide),
+    ``threads_per_row``, ``rows_per_cta`` (row groups of a CTA) and the forward's CTAs
+    ``fwd_grid`` (one row a group); the backward's ``rows_per_group`` (rows each group
+    walks), ``bwd_grid`` CTAs in clusters of ``cluster``, ``bwd_launches`` (1 or 2), the
+    scratch rows ``partial_rows`` ([2][3H] float32 each) and ``bwd_smem`` bytes of dynamic
+    shared memory per CTA.
+
+    At (16, 512): 2 units a thread, 256 threads per row, one row per CTA, 16 forward CTAs;
+    the backward is one launch, a cluster of 16. At (1024, 512): 4 units a thread, 128
+    threads per row, two rows per CTA, 512 forward CTAs; the backward is 128 CTAs whose
+    groups walk 4 rows each, 16 clusters of 8 and 16 partial rows."""
+    if batch <= 0 or hidden <= 0:
+        raise ValueError(f"no plan for B={batch}, H={hidden}")
+    return dict(zip(GEOMETRY_FIELDS, _plan(batch, hidden, bool(aligned))))
+
+
+def bind(lib: ctypes.CDLL):
+    """The C functions of a build of ``csrc/layernorm_gru.cu``, with their signatures:
+    ``layernorm_gru_fwd(proj, h, gamma, beta, out, batch, hidden, eps, dtype, aligned,
+    stream)``, ``layernorm_gru_bwd(proj, h, gamma, beta, g, dproj, dh, dgamma, dbeta,
+    partials, batch, hidden, eps, dtype, aligned, stream)``,
+    ``layernorm_gru_geometry(batch, hidden, aligned, int* out)``,
+    ``layernorm_gru_max_active_clusters(batch, hidden, dtype, aligned, int* out)`` and
+    ``layernorm_gru_setup()``."""
+    fwd, bwd = lib.layernorm_gru_fwd, lib.layernorm_gru_bwd
+    geo, clusters, setup = lib.layernorm_gru_geometry, lib.layernorm_gru_max_active_clusters, lib.layernorm_gru_setup
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    geo.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    setup.argtypes = []
+    for fn in (fwd, bwd, geo, clusters, setup):
         fn.restype = ctypes.c_int
-        _FWD = fn
-    return _FWD
+    return fwd, bwd, geo, clusters, setup
 
 
-def _bwd_kernel():
-    """The C signature of ``layernorm_gru_bwd(proj, h, gamma, beta, g, dproj, dh, dgamma,
-    dbeta, partials, batch, hidden, rows_per_tile, eps, dtype, stream)``."""
-    global _BWD
-    if _BWD is None:
-        fn = load_kernel_library("layernorm_gru").layernorm_gru_bwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BWD = fn
-    return _BWD
+def _kernels():
+    """Build or load ``csrc/layernorm_gru.cu`` once and bind it; on each device's first
+    call, ``layernorm_gru_setup`` (the backward's shared-memory and cluster attributes)."""
+    global _KERNELS
+    if _KERNELS is None:
+        _KERNELS = bind(load_kernel_library("layernorm_gru"))
+    device = torch.cuda.current_device()
+    if device not in _SET_UP:
+        err = _KERNELS[4]()
+        if err != 0:
+            raise RuntimeError(f"layernorm_gru_setup failed with CUDA error {err} on device {device}")
+        _SET_UP.add(device)
+    return _KERNELS
+
+
+def kernel_geometry(batch: int, hidden: int, aligned: bool = True) -> dict:
+    """``geometry`` as the built source computes it (``layernorm_gru_geometry``)."""
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    err = _kernels()[2](batch, hidden, int(aligned), out)
+    if err != 0:
+        raise RuntimeError(f"layernorm_gru_geometry failed with CUDA error {err} (B={batch}, H={hidden})")
+    return dict(zip(GEOMETRY_FIELDS, out))
+
+
+def max_active_clusters(batch: int, hidden: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the backward's main kernel at this shape on the
+    current device: how many of its clusters the card holds at once."""
+    out = ctypes.c_int(0)
+    err = _kernels()[3](batch, hidden, _DTYPE_CODES[dtype], int(aligned), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"layernorm_gru_max_active_clusters failed with CUDA error {err} (B={batch}, H={hidden})")
+    return out.value
 
 
 def _ln(p: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
@@ -122,28 +247,61 @@ def _check_grad(h: torch.Tensor, g: torch.Tensor) -> None:
         raise ValueError(f"g must be a contiguous {h.dtype} tensor of h's shape {tuple(h.shape)} on {h.device}")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor starts at a 16-byte boundary (a contiguous view with a storage
+    offset may not): the kernels' vector path. One flag stands for every operand and
+    output of a call, so it asks for the widest access of any plan, 16 bytes (the 4-unit
+    paths' float4 loads of gamma/beta and stores of dgamma/dbeta, and f32 proj); a finer
+    test per plan would gain only views offset by 4 or 8 bytes, which the port never
+    makes (its tensors start where the allocator puts them)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch_fwd(proj: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
     _check(proj, h, gamma, beta)
     batch, hidden = h.shape
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(proj.device).cuda_stream
+    aligned = _aligned(proj, h, gamma, beta, out)
     with _on_device(proj):
-        err = _fwd_kernel()(
-            proj.data_ptr(),
-            h.data_ptr(),
-            gamma.data_ptr(),
-            beta.data_ptr(),
-            out.data_ptr(),
-            batch,
-            hidden,
-            float(eps),
-            _DTYPE_CODES[proj.dtype],
-            stream,
+        err = _kernels()[0](
+            proj.data_ptr(), h.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            batch, hidden, float(eps), _DTYPE_CODES[proj.dtype], int(aligned), stream,
         )
     if err != 0:
-        raise RuntimeError(f"layernorm_gru_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"layernorm_gru_fwd launch failed with CUDA error {err} (B={batch}, H={hidden})")
     layernorm_gru.launches += 1
     return out
+
+
+def _partials(batch: int, hidden: int, aligned: bool, device) -> torch.Tensor | None:
+    """The backward's scratch: ``partial_rows`` rows of ``[2][3H]`` float32 (``geometry``),
+    or None for a one-launch call."""
+    rows = _plan(batch, hidden, aligned)[_PARTIAL_ROWS]
+    return torch.empty(rows, 2, 3 * hidden, dtype=torch.float32, device=device) if rows else None
+
+
+def _launch_bwd(proj, h, gamma, beta, g, eps: float):
+    """The backward kernel on checked CUDA operands, its scratch sized from ``geometry``
+    (only a two-launch call has any)."""
+    batch, hidden = h.shape
+    if hidden > MAX_BWD_HIDDEN:
+        raise ValueError(f"layernorm_gru backward kernel takes H <= {MAX_BWD_HIDDEN}; got {hidden}")
+    dproj, dh = torch.empty_like(proj), torch.empty_like(h)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    aligned = _aligned(proj, h, gamma, beta, g, dproj, dh)
+    partials = _partials(batch, hidden, aligned, proj.device)
+    stream = torch.cuda.current_stream(proj.device).cuda_stream
+    with _on_device(proj):
+        err = _kernels()[1](
+            proj.data_ptr(), h.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(), dproj.data_ptr(),
+            dh.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), None if partials is None else partials.data_ptr(),
+            batch, hidden, float(eps), _DTYPE_CODES[proj.dtype], int(aligned), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"layernorm_gru_bwd launch failed with CUDA error {err} (B={batch}, H={hidden})")
+    layernorm_gru_backward.launches += 1
+    return dproj, dh, dgamma, dbeta
 
 
 class LayerNormGRUFunction(torch.autograd.Function):
@@ -189,36 +347,7 @@ def layernorm_gru_backward(
         raise ValueError(f"layernorm_gru_backward runs on cuda or cpu tensors, not {proj.device.type}")
     _check(proj, h, gamma, beta)
     _check_grad(h, g)
-    batch, hidden = h.shape
-    rows_per_tile = -(-batch // MAX_TILES)
-    n_tiles = -(-batch // rows_per_tile)
-    dproj, dh = torch.empty_like(proj), torch.empty_like(h)
-    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
-    partials = torch.empty(2 * n_tiles * 3 * hidden, dtype=torch.float32, device=proj.device)
-    stream = torch.cuda.current_stream(proj.device).cuda_stream
-    with _on_device(proj):
-        err = _bwd_kernel()(
-            proj.data_ptr(),
-            h.data_ptr(),
-            gamma.data_ptr(),
-            beta.data_ptr(),
-            g.data_ptr(),
-            dproj.data_ptr(),
-            dh.data_ptr(),
-            dgamma.data_ptr(),
-            dbeta.data_ptr(),
-            partials.data_ptr(),
-            batch,
-            hidden,
-            rows_per_tile,
-            float(eps),
-            _DTYPE_CODES[proj.dtype],
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"layernorm_gru_bwd launch failed with CUDA error {err} (B={batch}, H={hidden})")
-    layernorm_gru_backward.launches += 1
-    return dproj, dh, dgamma, dbeta
+    return _launch_bwd(proj, h, gamma, beta, g, eps)
 
 
 layernorm_gru.launches = 0

@@ -32,6 +32,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.benchmarks",
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",
+    "sheeprl_tpu_torch.benchmarks.gru_kernel_ab",
     "sheeprl_tpu_torch.benchmarks.step_kernel_ab",
     "sheeprl_tpu_torch.checkpoint.manager",
     "sheeprl_tpu_torch.config.core",

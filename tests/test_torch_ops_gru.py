@@ -12,7 +12,9 @@ plain version of the backward kernel) against ``jax.grad`` through both JAX func
 f32 atol 2e-4 (the JAX package's own kernel-gradient bound) and, for bf16 inputs
 against the f32 reference, atol 6e-2 (``test_precision_ops.py``'s ``GRAD_ATOL``).
 
-The tests marked ``cuda`` launch the CUDA kernels; they skip where there is no card.
+The kernels' launch plan (``geometry``) is checked on the CPU: every row covered once,
+the clusters, where the backward is one launch, the scratch it sizes. The tests marked
+``cuda`` launch the CUDA kernels; they skip where there is no card.
 JAX is imported inside the tests that use it, so that on a machine with the card and
 without JAX the ``cuda`` test still runs (``pytest --noconftest -m cuda``).
 """
@@ -22,6 +24,8 @@ import pytest
 import torch
 
 from sheeprl_tpu_torch.ops.gru import (
+    MAX_CLUSTER,
+    geometry,
     layernorm_gru,
     layernorm_gru_backward,
     layernorm_gru_backward_reference,
@@ -224,3 +228,250 @@ def test_backward_checks_reject_a_gradient_the_kernel_does_not_take(case):
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         layernorm_gru(torch.zeros(2, 6, device="meta"), torch.zeros(2, 2, device="meta"), torch.ones(6), torch.zeros(6))
+
+
+# Shapes for the launch plan: the model's (16 and 1024 rows at H = 512), the eval entry's
+# one row, ragged batches around the cluster and tile edges, and every path.
+PLAN_BATCHES = [1, 8, 13, 16, 17, 63, 64, 65, 128, 129, 1024, 1025, 4096]
+
+
+def bwd_rows(geo, batch, cta, group):
+    """The rows that row group ``group`` of backward CTA ``cta`` walks (the source's
+    indexing: ``cta * rows_per_cta * rows_per_group + group + j * rows_per_cta``), rows
+    past the batch left out."""
+    rpc, rpg = geo["rows_per_cta"], geo["rows_per_group"]
+    first = cta * rpc * rpg + group
+    return [r for r in range(first, first + rpg * rpc, rpc) if r < batch]
+PLAN_HIDDEN = [64, 200, 512, 2048, 2056, 4096, 5000, 16384]
+
+
+@pytest.mark.parametrize("hidden", PLAN_HIDDEN)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_geometry_covers_every_row_once(hidden, aligned):
+    """The forward's CTAs (one row a group) and the backward's CTAs (each group walking
+    ``rows_per_group`` rows) take every row of the batch exactly once; a group is whole
+    warps, a CTA at most 1024 threads, and a thread's units per segment cover H."""
+    for batch in PLAN_BATCHES:
+        geo = geometry(batch, hidden, aligned)
+        tpr, rpc = geo["threads_per_row"], geo["rows_per_cta"]
+        assert tpr % 32 == 0 and tpr * rpc <= 1024 and (geo["path"] == 1 or tpr * geo["units"] >= hidden)
+        fwd = sorted(cta * rpc + k for cta in range(geo["fwd_grid"]) for k in range(rpc) if cta * rpc + k < batch)
+        assert fwd == list(range(batch)), (batch, geo)
+        bwd = [r for cta in range(geo["bwd_grid"]) for k in range(rpc) for r in bwd_rows(geo, batch, cta, k)]
+        assert sorted(bwd) == list(range(batch)), (batch, geo)
+        whole = 4 if geo["path"] == 1 else geo["units"]
+        assert geo["vec"] == (whole if aligned and hidden % whole == 0 else 1)
+
+
+@pytest.mark.parametrize("hidden", PLAN_HIDDEN)
+def test_geometry_clusters_divide_the_grid(hidden):
+    """A backward cluster has at most 16 CTAs (8 on the two-launch path), a power of two
+    that divides the grid; the two-launch path has at most 128 CTAs that hold rows and
+    one partial row per cluster (per CTA on the wide path); a CTA's slots, one share of
+    the 2 x 3H columns per group of its cluster, stay under the 48 KB a CTA takes without
+    opting in to more, and a single CTA with a single group needs none."""
+    from sheeprl_tpu_torch.ops.gru import share_of
+
+    for batch in PLAN_BATCHES:
+        geo = geometry(batch, hidden)
+        cluster, grid = geo["cluster"], geo["bwd_grid"]
+        assert cluster <= MAX_CLUSTER and cluster & (cluster - 1) == 0 and grid % cluster == 0, (batch, geo)
+        rows_per_cta = geo["rows_per_cta"] * geo["rows_per_group"]
+        assert -(-batch // rows_per_cta) <= 128 or geo["bwd_launches"] == 1, (batch, geo)
+        assert grid - -(-batch // rows_per_cta) < cluster, "no cluster is idle"
+        if geo["bwd_launches"] == 2:
+            assert geo["partial_rows"] == (grid if geo["path"] == 1 else grid // 8) and (geo["path"] == 1 or cluster == 8)
+        slots = geo["path"] == 0 and (cluster > 1 or geo["rows_per_cta"] > 1)
+        share = share_of(6 * hidden, cluster)
+        assert share % 8 == 0 and share * cluster >= 6 * hidden
+        assert geo["bwd_smem"] == (cluster * geo["rows_per_cta"] * share * 4 if slots else 0) <= 48 * 1024
+
+
+@pytest.mark.parametrize("hidden", PLAN_HIDDEN)
+def test_geometry_is_one_launch_where_the_ctas_fit_one_cluster(hidden):
+    """The backward is one launch, with no scratch, exactly where its CTAs at one row a
+    group fit one cluster of 16 (the wide path: where the batch is one CTA); else two."""
+    for batch in PLAN_BATCHES:
+        geo = geometry(batch, hidden)
+        fits = geo["fwd_grid"] <= 16 if geo["path"] == 0 else geo["bwd_grid"] == 1
+        assert geo["bwd_launches"] == (1 if fits else 2), (batch, geo)
+        assert (geo["partial_rows"] == 0) == fits
+        if fits and geo["path"] == 0:
+            assert geo["rows_per_group"] == 1 and geo["bwd_grid"] < 2 * geo["fwd_grid"]
+
+
+def test_geometry_at_the_models_shapes():
+    """DreamerV3-S's GRU (H = 512). The unroll's 16 rows: 2 units a thread, 256 threads
+    (8 warps) per row, one row per CTA, the backward one launch of a cluster of 16. The
+    imagination's 1024 rows: 4 units a thread, 128 threads per row, two rows per CTA, the
+    backward 128 CTAs walking 4 rows a group, 16 clusters of 8 and 16 partial rows. The eval
+    entry's one row: one CTA whose backward writes dgamma/dbeta itself (no shared memory)."""
+    small, large = geometry(16, 512), geometry(1024, 512)
+    assert (small["units"], small["threads_per_row"], small["rows_per_cta"], small["fwd_grid"]) == (2, 256, 1, 16)
+    assert (small["bwd_launches"], small["cluster"], small["bwd_grid"], small["partial_rows"]) == (1, 16, 16, 0)
+    assert (large["units"], large["threads_per_row"], large["rows_per_cta"], large["fwd_grid"]) == (4, 128, 2, 512)
+    assert (large["bwd_grid"], large["rows_per_group"], large["bwd_launches"], large["cluster"], large["partial_rows"]) == (128, 4, 2, 8, 16)
+    single = geometry(1, 512)
+    assert (single["bwd_grid"], single["cluster"], single["bwd_smem"]) == (1, 1, 0)
+    assert geometry(1, 16384)["bwd_launches"] == 1
+
+
+@pytest.mark.parametrize("batch,hidden", [(16, 512), (1024, 512), (129, 512), (16, 5000), (1, 16384)])
+def test_backward_scratch_is_sized_from_the_geometry(batch, hidden):
+    """The wrapper's scratch is ``partial_rows`` rows of [2][3H] float32, none for a
+    one-launch call."""
+    from sheeprl_tpu_torch.ops.gru import _partials
+
+    rows = geometry(batch, hidden)["partial_rows"]
+    got = _partials(batch, hidden, True, torch.device("cpu"))
+    if rows == 0:
+        assert got is None
+    else:
+        assert got.dtype == torch.float32 and tuple(got.shape) == (rows, 2, 3 * hidden)
+
+
+def test_geometry_refuses_what_the_kernels_do_not_plan():
+    for args in [(0, 512), (16, 0), (-1, 512), (16, -512)]:
+        with pytest.raises(ValueError):
+            geometry(*args)
+
+
+CARD_BATCHES = [1, 8, 16, 17, 128, 129, 1024, 4096]
+CARD_HIDDEN = [64, 512, 4096, 5000, 16384]
+
+
+def _card_operands(batch, hidden, device, seed):
+    proj, h, gamma, beta = (torch.from_numpy(o).to(device) for o in _operands(batch, hidden, seed=seed))
+    g = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(batch, hidden)).astype(np.float32)).to(device)
+    return proj, h, gamma, beta, g
+
+
+# A bf16 output is the kernel's float32 result rounded once: within half a bf16 step
+# (2^-8 of the value) of the float32 reference computed from the same bf16 inputs, beyond
+# the float32 bound.
+BF16_HALF_STEP = 2.0**-8
+
+
+def _assert_forward_close(out, args):
+    ref = layernorm_gru_reference(*(t.float() for t in args))
+    rtol = 0.0 if out.dtype == torch.float32 else BF16_HALF_STEP
+    torch.testing.assert_close(out.float(), ref, atol=F32_ATOL, rtol=rtol)
+
+
+def _assert_backward_close(got, args, g):
+    """The backward kernel against autograd through the plain forward on the same values
+    in float32: f32 atol 2e-4 for every gradient; a bf16 dproj/dh also within half a bf16
+    step (dgamma/dbeta are float32)."""
+    dtype = args[0].dtype
+    ref = layernorm_gru_backward_reference(*(t.float() for t in args), g.float())
+    assert [t.dtype for t in got] == [dtype, dtype, torch.float32, torch.float32]
+    for name, a, r in zip(("dproj", "dh", "dgamma", "dbeta"), got, ref):
+        rtol = BF16_HALF_STEP if a.dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(a.float(), r, atol=GRAD_F32_ATOL, rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", CARD_HIDDEN)
+@pytest.mark.parametrize("batch", CARD_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain_version_across_shapes(cuda_device, batch, hidden, dtype):
+    """Both kernels against the plain version in float32 on the same values, on every path
+    (narrow and wide; one launch and two): forward atol 1e-5, backward 2e-4, and a bf16
+    output within half a bf16 step beyond that."""
+    proj, h, gamma, beta, g = _card_operands(batch, hidden, cuda_device, seed=20)
+    args = (proj.to(dtype), h.to(dtype), gamma, beta)
+    with torch.inference_mode():
+        out = layernorm_gru(*args)
+    assert out.dtype == dtype
+    _assert_forward_close(out, args)
+    got = layernorm_gru_backward(*args, g.to(dtype))
+    torch.cuda.synchronize()
+    _assert_backward_close(got, args, g.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hidden", [(16, 512), (17, 512), (1024, 512), (16, 4096), (16, 5000), (300, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_give_the_same_bits_twice(cuda_device, batch, hidden, dtype):
+    """Fixed-order sums, no atomics: two calls of either kernel give the same bits."""
+    proj, h, gamma, beta, g = _card_operands(batch, hidden, cuda_device, seed=30)
+    args = (proj.to(dtype), h.to(dtype), gamma, beta)
+    with torch.inference_mode():
+        assert torch.equal(layernorm_gru(*args), layernorm_gru(*args))
+    first, second = layernorm_gru_backward(*args, g.to(dtype)), layernorm_gru_backward(*args, g.to(dtype))
+    for name, a, b in zip(("dproj", "dh", "dgamma", "dbeta"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [16, 1024])
+def test_cuda_kernels_replay_in_graphs_on_two_streams(cuda_device, batch):
+    """The kernels keep nothing between calls: two CUDA graphs of the forward and the
+    backward, each on its own inputs, replayed at once on two streams, give the eager
+    results."""
+    graphs, inputs, outs, want = [], [], [], []
+    for seed in (40, 41):
+        proj, h, gamma, beta, g = _card_operands(batch, 512, cuda_device, seed=seed)
+        args = (proj.bfloat16(), h.bfloat16(), gamma, beta, g.bfloat16())
+        inputs.append(args)  # a graph reads its inputs where they were at capture
+        want.append((layernorm_gru(*args[:4]), *layernorm_gru_backward(*args)))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            layernorm_gru(*args[:4]), layernorm_gru_backward(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = (layernorm_gru(*args[:4]), *layernorm_gru_backward(*args))
+        graphs.append(graph)
+        outs.append(out)
+    for out in outs:
+        for t in out:
+            t.zero_()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, want):
+        for name, a, b in zip(("out", "dproj", "dh", "dgamma", "dbeta"), out, ref):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3 * 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_take_a_view_with_a_storage_offset(cuda_device, offset, dtype):
+    """A contiguous view that starts ``offset`` elements into its storage: one element in
+    takes the scalar path (not 16-byte aligned), a whole row in the vector path."""
+    from sheeprl_tpu_torch.ops.gru import _aligned
+
+    batch, hidden = 16, 512
+    proj, h, gamma, beta, g = _card_operands(batch, hidden, cuda_device, seed=50)
+    store = torch.zeros(offset + batch * 3 * hidden, dtype=dtype, device=cuda_device)
+    view = store[offset:].view(batch, 3 * hidden)
+    view.copy_(proj.to(dtype))
+    assert view.is_contiguous() and _aligned(view) == (offset * view.element_size() % 16 == 0)
+    args = (view, h.to(dtype), gamma, beta)
+    with torch.inference_mode():
+        _assert_forward_close(layernorm_gru(*args), args)
+    got = layernorm_gru_backward(*args, g.to(dtype))
+    torch.cuda.synchronize()
+    _assert_backward_close(got, args, g.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", PLAN_HIDDEN)
+def test_cuda_geometry_is_the_wrappers(cuda_device, hidden):
+    """The built source's plan (``layernorm_gru_geometry``) is the wrapper's restatement
+    at every batch and alignment; every one-launch cluster of the model's and the tests'
+    shapes fits the card (``cudaOccupancyMaxActiveClusters`` >= 1) in either type."""
+    from sheeprl_tpu_torch.ops.gru import kernel_geometry, max_active_clusters
+
+    for batch in PLAN_BATCHES:
+        for aligned in (True, False):
+            assert kernel_geometry(batch, hidden, aligned) == geometry(batch, hidden, aligned), (batch, aligned)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert max_active_clusters(batch, hidden, dtype) >= 1, (batch, dtype)
