@@ -32,21 +32,31 @@ result line:
    CPU, same weights, batch and draws, at ``mesh.precision=32-true`` with TF32 off: the
    parameter changes to 0.1 of the learning rate, the Adam moments, losses and gradient
    norms (``TRAIN_AGREEMENT_TOL``);
-7. train: the size-S training step at batch 16 x sequence 64, horizon 15, at
+7. train: the size-S training step, eager, at batch 16 x sequence 64, horizon 15, at
    bf16-mixed and at 32-true: gradient steps/s, kernel launches per step against the
    expected counts, peak memory and a ``torch.profiler`` breakdown of one step;
-8. train-cli: the training loop through the train entry at size S with the async vector
-   env: it trains, checkpoints, resumes from a checkpoint, and the eval entry evaluates
-   the last checkpoint;
-9. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+8. train-graph: the same step captured as a CUDA graph and replayed through the loop's
+   block, discrete and continuous actor at bf16-mixed: 4 replays against 4 eager steps
+   from the same state, batches and draws, within the spread of two eager runs
+   (``GRAPH_SPREAD``) and never looser than ``TRAIN_AGREEMENT_TOL``; K1 launches per
+   replay by the profiler equal to the eager step's (79/64 discrete, 79/79 continuous);
+   the quantile levels on the card make no host sync; then graph against eager in
+   turns: gradient steps/s, device ms per step, busy share, peak memory;
+9. train-cli: the training loop through the train entry at size S with the async vector
+   env, which replays the captured step: it trains, checkpoints, resumes from a
+   checkpoint, and the eval entry evaluates the last checkpoint; once with host replay
+   and once with ``buffer.device=True`` (batches gathered from the ring on the card);
+   the backward kernel's launches count the replays (64 per gradient step, plus the
+   capture's warm-up steps);
+10. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
    ``plain``'s (``RSSM_SCAN_TOL``).
 
 Every path (eval, batched, train, train-cli, rssm-scan) zeroes the kernels' launch
-counters just
-before it and reads them just after. The script then prints one JSON line describing
+counters just before it and reads them just after; a replayed graph adds its capture's
+counts on every replay (``utils/graphs.py``). The script then prints one JSON line describing
 every kernel, and last the line ``{"ok": true, "device": {...}}``. Exits 2 without
 CUDA.
 """
@@ -154,6 +164,15 @@ SMALL_TRAIN = [
 # and the Grads/* norms at rtol 1e-4 with atol 1e-6 (the policy loss is ~1e-4: a mean
 # of products of small advantages).
 TRAIN_AGREEMENT_TOL = {"step_of_lr": 0.1, "off_share": 1e-3, "moments_rtol": 1e-2, "metrics_rtol": 1e-4, "metrics_atol": 1e-6}
+# The graphed train step against the eager step ([train-graph]): from the same state,
+# batches and draws, 4 replays against 4 eager steps, the eager steps run twice. The
+# replay runs the eager step's kernels on the same inputs, so it may differ from the
+# first eager run only as the second eager run does (kernels whose sums are ordered by
+# atomics): by GRAPH_SPREAD x that run's largest difference, plus a floor for two
+# identical eager runs (parameters: in units of the learning rate; Adam moments and
+# losses: relative); never by more than TRAIN_AGREEMENT_TOL.
+GRAPH_SPREAD = 2.0
+GRAPH_FLOOR = {"params": 1e-3, "moments": 1e-6, "losses": 1e-6}
 
 
 def log(msg: str) -> None:
@@ -951,14 +970,215 @@ def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy
     return row
 
 
-def phase_train_cli(device: torch.device, workdir: Path) -> dict:
-    """The training loop through the train entry, at size S with the async vector env:
-    train, checkpoint, resume from the checkpoint at policy step 64, evaluate the last
-    checkpoint through the eval entry."""
-    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
-    from sheeprl_tpu_torch.cli import evaluate, run
+def k1_launches(events, calls: int) -> dict:
+    """K1 launches per call among the profiler's CUDA kernel ``events``: forward kernels,
+    backward kernels (one per backward call) and the two-launch plan's sum kernels."""
+    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {
+        "fwd": sum("layernorm_gru_fwd" in n for n in names) / calls,
+        "bwd": sum("layernorm_gru_bwd" in n and "bwd_sum" not in n for n in names) / calls,
+        "bwd_sum": sum("layernorm_gru_bwd_sum" in n for n in names) / calls,
+    }
+
+
+def _profiled_k1(fn, calls: int) -> dict | None:
+    """K1 launches per call of ``fn`` by ``torch.profiler``; None where it saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+        return None
+    return k1_launches(prof.events(), calls)
+
+
+def _param_diffs(ma: dict, mb: dict) -> dict:
+    """Per module: every |a - b| of its parameters, flat."""
+    return {
+        name: torch.cat([(x.float() - y.float()).abs().flatten() for x, y in zip(ma[name].state_dict().values(), mb[name].state_dict().values())])
+        for name in ma
+    }
+
+
+def _moment_diff(oa: dict, ob: dict) -> float:
+    """The largest relative-norm difference of any Adam moment leaf."""
+    return max(
+        ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+        for name in oa for key in ("mu", "nu") for a, b in zip(oa[name][key], ob[name][key])
+    )
+
+
+def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_steps: int = 8) -> dict:
+    """The size-S train step captured as a CUDA graph (``utils/graphs.py``) and replayed
+    through the loop's block (``utils/blocks.py``), against the eager step, at
+    bf16-mixed. From the same weights, batches and draws (a generator seeded alike), 4
+    graphed steps against 4 eager steps, twice eager: parameters, Adam moments and losses
+    within the spread of the two eager runs (``GRAPH_SPREAD``), and never looser than
+    ``TRAIN_AGREEMENT_TOL``. K1 launches per replay by the profiler, equal to the eager
+    step's and to the capture's count. Then, discrete actor only, in turns (eager, graph,
+    graph, eager): gradient steps/s, device ms per step, busy share, peak memory."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_captured_step, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments, update_moments
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, target_flags
 
     set_tf32(True)
+    cfg = compose(overrides=[*TRAIN_OVERRIDES, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda"])
+    env_, actions_dim, (wm, actor, critic, target, _) = _build_s_agent(cfg, device, seed=31)
+    env_.close()
+    is_continuous = actor.is_continuous
+    label = f"[train-graph] {'continuous' if is_continuous else 'discrete'}"
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    modules = {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target}
+    runs = [modules] + [{k: copy.deepcopy(v) for k, v in modules.items()} for _ in range(2)]
+    gen = torch.Generator(device=device).manual_seed(6)
+    batches = []
+    for _ in range(4):
+        batch = _train_batch(cfg, actions_dim, device, gen)
+        if is_continuous:
+            batch["actions"] = torch.rand(T, B, int(sum(actions_dim)), generator=gen, device=device) * 2 - 1
+        batches.append(batch)
+    flags = target_flags(0, 4, 2)
+
+    # the quantile levels on the card: update_moments makes no host sync
+    levels = torch.tensor([0.05, 0.95], device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        update_moments(init_moments(device), torch.randn(H, T * B, 1, device=device, generator=gen), levels=levels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    step, init = make_train_step(*modules.values(), cfg, ["rgb"], [])
+    opt, moments = init(), init_moments(device)
+    start = time.perf_counter()
+    make_step = make_captured_step(step, modules, opt, moments, T, B, torch.Generator(device=device).manual_seed(8))
+    captured, draw = make_step({"table": torch.zeros(1, dtype=torch.int64, device=device), "batch": {k: torch.zeros_like(v) for k, v in batches[0].items()}})
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - start
+    dispatcher = BlockDispatcher(captured, draw, target_update_freq=2)
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    first = {k: v[:1] for k, v in stacked.items()}
+    dispatcher.dispatch(stacked, 0)
+    graphed = {}
+    dispatcher.drain(type("Last", (), {"update": lambda self, k, v: graphed.__setitem__(k, v)})())
+
+    eager = []
+    for mods in runs[1:]:
+        step_e, init_e = make_train_step(*mods.values(), cfg, ["rgb"], [])
+        opt_e, mom_e = init_e(), init_moments(device)
+        g = torch.Generator(device=device).manual_seed(8)
+        for i, flag in enumerate(flags):
+            mom_e, met_e = step_e(opt_e, mom_e, batches[i], bool(flag), draws=step_e.sample_draws(T, B, g, device))
+        eager.append((mods, opt_e, mom_e, {k: v.item() for k, v in met_e.items()}, step_e))
+    torch.cuda.synchronize()
+    algo = cfg.algo
+    lrs = {"world_model": algo.world_model.optimizer.lr, "actor": algo.actor.optimizer.lr, "critic": algo.critic.optimizer.lr, "target_critic": algo.critic.optimizer.lr}
+    (m1, o1, mom1, met1, step1), (m2, o2, _, met2, _) = eager
+    tol = TRAIN_AGREEMENT_TOL
+    bad, params = [], {}
+    d_spread, d_off = _param_diffs(m2, m1), _param_diffs(modules, m1)
+    for name, lr in lrs.items():
+        # an entry may lie off the first eager run by GRAPH_SPREAD x the second run's
+        # largest difference (a floor for two identical eager runs), never by more than
+        # [train-agreement]'s 0.1 lr; at most its share of entries may exceed that
+        limit = min(GRAPH_SPREAD * d_spread[name].max().item() + GRAPH_FLOOR["params"] * lr, tol["step_of_lr"] * lr)
+        share = (d_off[name] > limit).float().mean().item()
+        params[name] = {"off_max_of_lr": d_off[name].max().item() / lr, "spread_max_of_lr": d_spread[name].max().item() / lr,
+                        "limit_of_lr": limit / lr, "share_over_limit": share}
+        if share > tol["off_share"]:
+            bad.append(f"{name} parameters: {params[name]}")
+    spread = {"moments": _moment_diff(o2, o1)}
+    off = {"moments": _moment_diff(opt, o1)}
+    losses = [k for k in met1 if k.startswith("Loss/")]
+    spread["losses"] = max(abs(met2[k] - met1[k]) / max(abs(met1[k]), 1e-6) for k in losses)
+    off["losses"] = max(abs(graphed[k] - met1[k]) / max(abs(met1[k]), 1e-6) for k in losses)
+    if off["moments"] > min(GRAPH_SPREAD * spread["moments"] + GRAPH_FLOOR["moments"], tol["moments_rtol"]):
+        bad.append(f"Adam moments {off['moments']} (eager spread {spread['moments']})")
+    if off["losses"] > min(GRAPH_SPREAD * spread["losses"] + GRAPH_FLOOR["losses"], tol["metrics_rtol"]):
+        bad.append(f"losses {off['losses']} (eager spread {spread['losses']})")
+    if not all(math.isfinite(v) for v in graphed.values()):
+        bad.append("non-finite metrics")
+
+    # K1 launches per step: the capture's count, the profiler's over real replays and
+    # over eager steps
+    want = {"fwd": T + H, "bwd": T + H if is_continuous else T, "bwd_sum": H if is_continuous else 0}
+    per_replay = captured.launches_per_replay
+    if (per_replay["layernorm_gru"], per_replay["layernorm_gru_bwd"]) != (want["fwd"], want["bwd"]):
+        bad.append(f"the capture counted {per_replay}, expected {want}")
+    replay_k1 = _profiled_k1(lambda: dispatcher.dispatch(first, 4), 2)
+    eager_k1 = _profiled_k1(lambda: step1(o1, mom1, batches[0], True, generator=gen), 1)
+    if replay_k1 is None:
+        log(f"{label}: K1 launches per replay not measured (the profiler recorded no CUDA kernels)")
+    elif replay_k1 != want or eager_k1 != want:
+        bad.append(f"K1 launches per step by the profiler: replay {replay_k1}, eager {eager_k1}, expected {want}")
+    row = {
+        "actor": "continuous" if is_continuous else "discrete", "precision": "bf16-mixed", "capture_seconds": capture_s,
+        "params": params, "off": off, "eager_spread": spread, "graph_spread_factor": GRAPH_SPREAD, "floor": GRAPH_FLOOR,
+        "k1_per_replay_profiler": replay_k1, "k1_per_eager_step_profiler": eager_k1, "k1_per_replay_capture": per_replay,
+    }
+    log(label + " parity " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"{label}: the graphed step disagrees with the eager step: {bad}")
+    dispatcher.drain(None)
+    if is_continuous:
+        return row
+
+    # in turns: eager, graph, graph, eager
+    count = 5
+    timings = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = time.perf_counter()
+        if mode == "graph":
+            dispatcher.dispatch({k: v.expand(timed_steps, *v.shape[1:]) for k, v in first.items()}, count)
+            dispatcher.drain(None)  # the last metrics: waits for the whole chain
+            count += timed_steps
+        else:
+            for _ in range(timed_steps):
+                mom1, met_t = step1(o1, mom1, batches[0], True, generator=gen)
+            torch.stack(list(met_t.values())).cpu()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated(device)
+        if mode == "graph":
+            prof = profile_calls(lambda: dispatcher.dispatch(first, count), 1, f"{label} graph step", {"mode": "graph"})
+            dispatcher.drain(None)
+            count += 1
+        else:
+            prof = profile_calls(lambda: step1(o1, mom1, batches[0], True, generator=gen), 1, f"{label} eager step", {"mode": "eager"})
+        device_ms = prof.get("device_ms_per_call")
+        timings.append({
+            "mode": mode, "grad_steps_per_s": timed_steps / seconds, "device_ms_per_step": device_ms,
+            "kernels_per_step": prof.get("kernels_per_call"), "busy_share_profiled": prof.get("device_busy_share"),
+            # the profiled step's device time over the timed (unprofiled) window's time per step
+            "busy_share_timed": device_ms * timed_steps / seconds / 1e3 if device_ms else None,
+            # a graphed step's activations live in the graph's private pool: reserved,
+            # not allocated; the reserved bytes hold every phase's cache so far
+            "peak_allocated_bytes": peak, "reserved_bytes": torch.cuda.memory_reserved(device),
+        })
+    row["turns"] = timings
+    log(label + " turns " + json.dumps(timings))
+    return row
+
+
+def phase_train_cli(device: torch.device, workdir: Path, device_replay: bool = False) -> dict:
+    """The training loop through the train entry, at size S with the async vector env:
+    train, checkpoint, resume from the checkpoint at policy step 64, evaluate the last
+    checkpoint through the eval entry. The loop replays its captured train step: each
+    replay launches the step's 64 backward kernels, and the capture's two warm-up steps
+    launch theirs eagerly, so the backward's count is 64 x (gradient steps + 2).
+    ``device_replay``: ``buffer.device=True``, the batches gathered from the ring on the
+    card."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate, run
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    set_tf32(True)
+    tag = "[train-cli buffer.device]" if device_replay else "[train-cli]"
     overrides = [
         *TRAIN_OVERRIDES,
         f"device={device.type}",
@@ -968,35 +1188,38 @@ def phase_train_cli(device: torch.device, workdir: Path) -> dict:
         "algo.total_steps=256",
         "checkpoint.every=64",
         "metric.log_every=64",
+        f"buffer.device={device_replay}",
     ]
+    T = 64
     out = {}
     zero_launches()
     first = run(overrides)
     fwd, bwd = launches()
-    if first.grad_steps < 32 or fwd == 0 or bwd == 0 or first.checkpoint is None:
-        raise AssertionError(f"train-cli: {first.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)}, checkpoint {first.checkpoint}")
-    out["train"] = {"grad_steps": first.grad_steps, "fwd": fwd, "bwd": bwd}
-    log(f"[train-cli] train: {first.policy_steps} policy steps, {first.grad_steps} gradient steps in {first.seconds:.2f} s "
-        f"({first.policy_steps / first.seconds:.1f} policy steps/s; {first.train_seconds:.2f} s in gradient steps, "
+    if first.grad_steps < 32 or fwd == 0 or bwd != T * (first.grad_steps + WARMUP_STEPS) or first.checkpoint is None:
+        raise AssertionError(f"{tag}: {first.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)}, checkpoint {first.checkpoint}")
+    out["train"] = {"grad_steps": first.grad_steps, "fwd": fwd, "bwd": bwd, "policy_steps_per_s": first.policy_steps / first.seconds,
+                    "seconds": first.seconds, "train_seconds": first.train_seconds, "env_seconds": first.env_seconds}
+    log(f"{tag} train: {first.policy_steps} policy steps, {first.grad_steps} gradient steps in {first.seconds:.2f} s "
+        f"({first.policy_steps / first.seconds:.1f} policy steps/s; {first.train_seconds:.2f} s dispatching gradient steps, "
         f"{first.env_seconds:.2f} s acting and stepping envs), layernorm_gru launches fwd {fwd} bwd {bwd}")
     ckpts = CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints()
     mid = next(p for p in ckpts if p.name == "ckpt_64")
     zero_launches()
     resumed = run([*overrides, f"checkpoint.resume_from={mid}"])
     fwd, bwd = launches()
-    if resumed.grad_steps <= 0 or bwd == 0 or resumed.checkpoint is None:
-        raise AssertionError(f"train-cli resume: {resumed.grad_steps} gradient steps, launches {(fwd, bwd)}")
+    if resumed.grad_steps <= 0 or bwd != T * (resumed.grad_steps + WARMUP_STEPS) or resumed.checkpoint is None:
+        raise AssertionError(f"{tag} resume: {resumed.grad_steps} gradient steps, launches {(fwd, bwd)}")
     out["resume"] = {"grad_steps": resumed.grad_steps, "fwd": fwd, "bwd": bwd}
-    log(f"[train-cli] resume from {mid.name}: {resumed.policy_steps - 64} policy steps, {resumed.grad_steps} gradient steps "
+    log(f"{tag} resume from {mid.name}: {resumed.policy_steps - 64} policy steps, {resumed.grad_steps} gradient steps "
         f"in {resumed.seconds:.2f} s, layernorm_gru launches fwd {fwd} bwd {bwd}")
     zero_launches()
     start = time.perf_counter()
     result = evaluate([f"checkpoint_path={resumed.checkpoint}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
     fwd, bwd = launches()
     if fwd != result.steps or bwd != 0 or not math.isfinite(result.reward):
-        raise AssertionError(f"train-cli eval: {result.steps} steps, launches {(fwd, bwd)}, reward {result.reward}")
+        raise AssertionError(f"{tag} eval: {result.steps} steps, launches {(fwd, bwd)}, reward {result.reward}")
     out["eval"] = {"steps": result.steps, "fwd": fwd}
-    log(f"[train-cli] eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
+    log(f"{tag} eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
         f"{time.perf_counter() - start:.2f} s, layernorm_gru launches fwd {fwd}")
     return out
 
@@ -1029,8 +1252,11 @@ def main() -> int:
     phase_batched(device)
     phase_train_agreement(device)
     train = [phase_train(device, "bf16-mixed"), phase_train(device, "32-true"), phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1)]
+    graphed = [phase_train_graph(device), phase_train_graph(device, env="continuous_dummy")]
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_train_cli(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_device = phase_train_cli(device, Path(tmp), device_replay=True)
     scan = phase_rssm_scan(device)
     line = {"kernels": []}
     for name, source, source_line, k, n in (
@@ -1057,6 +1283,8 @@ def main() -> int:
         )
     log(f"[done] {time.perf_counter() - t0:.1f} s; eval launches {ev['launches']}; train steps/s "
         + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train)
+        + "; graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in graphed[0]["turns"])
+        + f"; train-cli policy steps/s host replay {cli['train']['policy_steps_per_s']:.1f}, device replay {cli_device['train']['policy_steps_per_s']:.1f}"
         + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
     print(smi)
     print(json.dumps(line))

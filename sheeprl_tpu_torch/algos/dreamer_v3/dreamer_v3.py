@@ -24,10 +24,16 @@ categorical samples (``argmax(logits + gumbel)``, as ``jax.random.categorical``)
 standard-normal (or uniform, for ``trunc_normal``) noise for a continuous actor. The
 loop makes it in bulk on the device from a generator; the parity tests make it from
 JAX's own keys.
+
+The loop runs each iteration's gradient steps as one block (``utils/blocks.py``) of the
+step captured once as a CUDA graph on a card (``utils/graphs.py``; eager on the CPU),
+over batches gathered on the device from its replay ring (``buffer.device``,
+``data/device_buffer.py``) or prefetched from the host buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from pathlib import Path
@@ -39,11 +45,11 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, build_agent, make_player_step, parse_actions_dim
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, init_moments, prepare_obs, test, update_moments
-from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
+from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer, make_optimizer
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
-from sheeprl_tpu_torch.data.prefetch import make_replay_prefetcher
+from sheeprl_tpu_torch.data.device_buffer import make_device_replay
 from sheeprl_tpu_torch.distributions import (
     BernoulliSafeMode,
     Independent,
@@ -51,9 +57,9 @@ from sheeprl_tpu_torch.distributions import (
     OneHotCategorical,
     SymlogDistribution,
     TwoHotEncodingDistribution,
-    gumbel_noise,
 )
 from sheeprl_tpu_torch.utils.env import make_vector_env
+from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator, record_episode_stats
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -69,6 +75,28 @@ class TrainDraws(NamedTuple):
     img_actor: Tuple[torch.Tensor, ...]  # per action head: [horizon, T*B, d]
 
 
+def draw_shapes(
+    T: int, B: int, horizon: int, stoch: int, discrete: int, actions_dim: Sequence[int], actor_noise: str
+) -> TrainDraws:
+    """The shape of every draw of one step, as a ``TrainDraws`` of shapes."""
+    heads = list(actions_dim) if actor_noise == "gumbel" else [int(sum(actions_dim))]
+    return TrainDraws(
+        wm_prior=(T, B, stoch, discrete),
+        wm_post=(T, B, stoch, discrete),
+        actor0=tuple((T * B, d) for d in heads),
+        img_prior=(horizon, T * B, stoch, discrete),
+        img_actor=tuple((horizon, T * B, d) for d in heads),
+    )
+
+
+def zero_draws(shapes: TrainDraws, device: torch.device) -> TrainDraws:
+    """A ``TrainDraws`` of float32 zeros of ``shapes`` (``draw_shapes``)."""
+    return TrainDraws(*(
+        tuple(torch.zeros(s, device=device) for s in f) if isinstance(f[0], tuple) else torch.zeros(f, device=device)
+        for f in shapes
+    ))
+
+
 def sample_draws(
     T: int,
     B: int,
@@ -79,26 +107,33 @@ def sample_draws(
     actor_noise: str,
     generator: Optional[torch.Generator],
     device: torch.device,
+    out: Optional[TrainDraws] = None,
 ) -> TrainDraws:
     """Every draw of one step, made in bulk. ``actor_noise`` is ``gumbel`` (discrete
-    heads), ``normal`` or ``uniform`` (continuous heads)."""
-    like = torch.empty((), device=device)
+    heads), ``normal`` or ``uniform`` (continuous heads). With ``out`` (a ``TrainDraws``
+    of float32 tensors of these shapes) the draws are written into it in place, as a
+    captured step's static inputs are; the values are the same either way."""
+    if out is None:
+        out = zero_draws(draw_shapes(T, B, horizon, stoch, discrete, actions_dim, actor_noise), device)
+    tiny = torch.finfo(torch.float32).tiny
 
-    def noise(*shape):
-        if actor_noise == "gumbel":
-            return gumbel_noise(shape, like, generator)
-        if actor_noise == "normal":
-            return torch.randn(shape, generator=generator, device=device)
-        return torch.rand(shape, generator=generator, device=device) * (1 - 2e-5) + 1e-5
+    def fill(t: torch.Tensor, kind: str) -> None:
+        if kind == "gumbel":  # -log(-log(u)), as gumbel_noise
+            t.uniform_(generator=generator).clamp_(tiny, 1.0).log_().neg_().log_().neg_()
+        elif kind == "normal":
+            t.normal_(generator=generator)
+        else:
+            t.uniform_(generator=generator).mul_(1 - 2e-5).add_(1e-5)
 
-    heads = list(actions_dim) if actor_noise == "gumbel" else [int(sum(actions_dim))]
-    return TrainDraws(
-        wm_prior=gumbel_noise((T, B, stoch, discrete), like, generator),
-        wm_post=gumbel_noise((T, B, stoch, discrete), like, generator),
-        actor0=tuple(noise(T * B, d) for d in heads),
-        img_prior=gumbel_noise((horizon, T * B, stoch, discrete), like, generator),
-        img_actor=tuple(noise(horizon, T * B, d) for d in heads),
-    )
+    # one generator stream, in field order
+    fill(out.wm_prior, "gumbel")
+    fill(out.wm_post, "gumbel")
+    for t in out.actor0:
+        fill(t, actor_noise)
+    fill(out.img_prior, "gumbel")
+    for t in out.img_actor:
+        fill(t, actor_noise)
+    return out
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -113,8 +148,15 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     updates the four modules' parameters and ``opt_states`` in place and returns
     ``(new_moments, metrics)``. ``data`` holds ``[T, B, ...]`` tensors on the modules'
     device: the observation keys, ``actions``, ``rewards``, ``terminated`` and
-    ``is_first``. Without ``draws``, the step draws its noise from ``generator``. The
-    metrics are 0-d tensors on the device, read only when the loop logs."""
+    ``is_first``. ``update_target`` is a bool or a 0-d bool tensor on the device. Without
+    ``draws``, the step draws its noise from ``generator``;
+    ``train_step.sample_draws(T, B, generator, device, out=None)`` makes the draws of a
+    ``[T, B]`` batch and ``train_step.draw_shapes(T, B)`` gives their shapes. The metrics are 0-d tensors on the device, read only when the loop
+    logs.
+
+    The step is graph-safe: it makes no host-to-device copy and no host sync, and reads
+    every value that changes between steps (the optimizers' counts, the target flag, the
+    draws) from a tensor, so ``utils/graphs.py`` can capture it once and replay it."""
     wm_cfg = cfg.algo.world_model
     stoch, discrete = wm_cfg.stochastic_size, wm_cfg.discrete_size
     stoch_size = stoch * discrete
@@ -136,6 +178,8 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     actor_params = list(actor.parameters())
     critic_params = list(critic.parameters())
     target_params = list(target_critic.parameters())
+    # the return moments' quantile levels, made once on the device (not in the step)
+    levels = torch.tensor([moments_cfg.percentile.low, moments_cfg.percentile.high], device=wm_params[0].device)
 
     def init_opt_states() -> Dict[str, Any]:
         return {
@@ -153,7 +197,7 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         opt_states: Dict[str, Any],
         moments: Dict[str, torch.Tensor],
         data: Dict[str, torch.Tensor],
-        update_target: bool,
+        update_target: bool | torch.Tensor,
         draws: Optional[TrainDraws] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -249,6 +293,7 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
             max_=moments_cfg.max,
             percentile_low=moments_cfg.percentile.low,
             percentile_high=moments_cfg.percentile.high,
+            levels=levels,
         )
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
         _, dists = actor(traj.detach())
@@ -276,13 +321,54 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         metrics["Grads/critic"] = critic_opt.update(critic_params, _grads(value_loss, critic_params), opt_states["critic"])
         metrics["Loss/value_loss"] = value_loss.detach()
 
-        if update_target:  # EMA of the target critic towards the updated critic
-            with torch.no_grad():
-                torch._foreach_mul_(target_params, 1 - tau)
-                torch._foreach_add_(target_params, critic_params, alpha=tau)
+        # EMA of the target critic towards the updated critic where the flag is set: the
+        # blend is computed every step and kept only where it is, which gives the same
+        # bits as blending in place under a host-side ``if``
+        with torch.no_grad():
+            if not isinstance(update_target, torch.Tensor):
+                update_target = torch.full((), bool(update_target), device=device)
+            blended = torch._foreach_mul(target_params, 1 - tau)
+            torch._foreach_add_(blended, critic_params, alpha=tau)
+            for p, b in zip(target_params, blended):
+                p.copy_(torch.where(update_target.bool(), b, p))
         return new_moments, metrics
 
+    def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
+        return sample_draws(T, B, horizon, stoch, discrete, actions_dim, actor_noise, generator, device, out=out)
+
+    train_step.sample_draws = draws_of
+    train_step.draw_shapes = lambda T, B: draw_shapes(T, B, horizon, stoch, discrete, actions_dim, actor_noise)
     return train_step, init_opt_states
+
+
+def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_states, moments, T: int, B: int, generator):
+    """``make_step(example_inputs) -> (step, draw)`` for ``make_device_replay``: the
+    train step over static inputs, captured as a CUDA graph on a card
+    (``utils/graphs.py``). The inputs are the step table (``[2B + 1]`` int64: the replay
+    indices and the target flag, or ``[1]``: the flag), the batch (host replay) or the
+    ring's ``gather`` (device replay, read inside the step), and the draws, which
+    ``draw(draws)`` writes from ``generator`` before each step. Each step updates the
+    parameters, ``opt_states`` and ``moments`` in place and returns its metrics."""
+
+    def make_step(example: Dict[str, Any]):
+        gather = example.get("gather")
+        device = example["table"].device
+        inputs = {k: v for k, v in example.items() if k != "gather"}
+        inputs["draws"] = zero_draws(train_step.draw_shapes(T, B), device)
+
+        def fn(inp):
+            table = inp["table"]
+            batch = gather(table[:B], table[B : 2 * B]) if gather is not None else inp["batch"]
+            new_moments, metrics = train_step(opt_states, moments, batch, table[-1] != 0, draws=inp["draws"])
+            for k in moments:
+                moments[k].copy_(new_moments[k])
+            return metrics
+
+        state = [p for m in modules.values() for p in m.parameters()] + tree_tensors(opt_states) + tree_tensors(moments)
+        step = StepGraph(fn, inputs, state)
+        return step, lambda out: train_step.sample_draws(T, B, generator, device, out=out)
+
+    return make_step
 
 
 # ---------------------------------------------------------------------------------------
@@ -291,7 +377,6 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
 
 # (key, test on its value, what the reference does there that the port does not yet)
 _NOT_PORTED = (
-    ("buffer.device", bool, "device-resident replay"),
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, "the pipelined player"),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
     ("obs.enabled", bool, "the training monitor"),
@@ -320,31 +405,13 @@ def refuse_unported(cfg: Dict[str, Any]) -> None:
             raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
 
 
-def _to_device(tree: Any, device: torch.device) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree
-
-
-def update_target_flags(start_count: int, n: int, freq: int) -> List[bool]:
-    """Whether each of the next ``n`` gradient steps updates the target critic: the
-    step count after its increment is a multiple of ``freq`` (the reference's
-    ``make_train_block`` cadence with ``count_offset=1``)."""
-    freq = max(int(freq), 1)
-    return [(start_count + 1 + i) % freq == 0 for i in range(n)]
-
-
 class TrainResult(NamedTuple):
     log_dir: str
     policy_steps: int
     grad_steps: int  # gradient steps of this run (a resumed run counts its own)
     checkpoint: Optional[str]  # the last checkpoint written, if any
     seconds: float  # wall time of the loop
-    train_seconds: float  # wall time of the gradient steps (host side, until the last sync)
+    train_seconds: float  # wall time of dispatching the gradient steps (host side)
     env_seconds: float  # wall time of acting and env stepping
     test_reward: Optional[float]
 
@@ -394,7 +461,18 @@ def main(ctx, cfg) -> TrainResult:
     rb.seed(cfg.seed)
     batch_size = cfg.algo.per_rank_batch_size
     seq_len = cfg.algo.per_rank_sequence_length
-    prefetcher, rb_lock, sample_block = make_replay_prefetcher(rb, device, cfg, batch_size, seq_len)
+    # The gradient steps: the train step captured once as a CUDA graph on a card (eager
+    # on the CPU), replayed as one block per iteration over batches gathered on the
+    # device from its replay ring (buffer.device) or prefetched from the host buffer.
+    make_step = make_captured_step(train_step, modules, opt_states, moments, seq_len, batch_size, train_gen)
+    try:
+        dispatcher, mirror, prefetcher, run_block, rb_add = make_device_replay(
+            ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum, make_step, target_update_freq
+        )
+    except BaseException:  # a failed capture raises: stop the env workers first
+        envs.close()
+        raise
+    rb_lock = prefetcher.lock if prefetcher is not None else contextlib.nullcontext()
 
     aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
     aggregator.keep(AGGREGATOR_KEYS | set(cfg.metric.aggregator.get("metrics", {})))
@@ -410,10 +488,13 @@ def main(ctx, cfg) -> TrainResult:
     resume_from = cfg.checkpoint.get("resume_from")
     if resume_from:
         state = CheckpointManager.load(resume_from)  # on the host: the replay buffer stays there
+        # in place: the captured step reads these tensors where they are
         for name, module in modules.items():
             module.load_state_dict(state["params"][name])
-        opt_states = _to_device(state["opt_states"], device)
-        moments = _to_device(state["moments"], device)
+        for name, opt_state in opt_states.items():
+            Optimizer.load_state(opt_state, state["opt_states"][name])
+        for k, v in moments.items():
+            v.copy_(state["moments"][k])
         ratio.load_state_dict(state["ratio"])
         start_iter = state["iter_num"] + 1
         policy_step = state["policy_step"]
@@ -423,6 +504,8 @@ def main(ctx, cfg) -> TrainResult:
         learning_starts += start_iter
         if cfg.buffer.checkpoint and "rb" in state:
             rb.load_state_dict(state["rb"])
+            if mirror is not None:
+                mirror.load_from(rb)
 
     # Pending-row storage, as the reference: row t holds obs_t with the reward and flags
     # received on arriving at it (zeros and is_first=1 after a reset); the action taken
@@ -438,10 +521,6 @@ def main(ctx, cfg) -> TrainResult:
             row[k] = v.reshape(1, v.shape[0], -1)
         return row
 
-    def rb_add(data, **kwargs):
-        with rb_lock:
-            rb.add(data, validate_args=cfg.buffer.validate_args, **kwargs)
-
     obs, _ = envs.reset(seed=cfg.seed)
     player_state = player_state_init(num_envs)
     step_data = obs_row(obs)
@@ -452,10 +531,9 @@ def main(ctx, cfg) -> TrainResult:
     is_first_np = np.ones((num_envs, 1), dtype=np.float32)
     prefill_iters = max(learning_starts - 1, 0)
 
-    pending_metrics: List[Dict[str, torch.Tensor]] = []
-    run_grad_steps, window_grad_steps, last_path = 0, 0, None
+    run_grad_steps, last_path = 0, None
     env_seconds_total, train_seconds = 0.0, 0.0
-    run_start = window_start = time.perf_counter()
+    run_start = time.perf_counter()
     try:
         for iter_num in range(start_iter, num_iters + 1):
             env_time = 0.0
@@ -487,22 +565,16 @@ def main(ctx, cfg) -> TrainResult:
                     else:
                         env_actions = np.stack([a.argmax(-1) for a in acts_np], -1)
                 step_data["actions"] = stored_actions.reshape(1, num_envs, -1)
-                rb_add(step_data)
+                rb_add(step_data, validate_args=cfg.buffer.validate_args)
             env_time += time.perf_counter() - env_t0
 
             if iter_num >= learning_starts:
                 grad_steps = ratio((policy_step + policy_steps_per_iter - prefill_iters * policy_steps_per_iter))
                 if grad_steps > 0:
                     train_t0 = time.perf_counter()
-                    block = prefetcher.get(grad_steps, stage_next=iter_num < num_iters) if prefetcher else sample_block(grad_steps)
-                    flags = update_target_flags(cumulative_grad_steps, grad_steps, target_update_freq)
-                    for batch, update_target in zip(block, flags):
-                        moments, metrics = train_step(opt_states, moments, batch, update_target, generator=train_gen)
+                    run_block(grad_steps, cumulative_grad_steps, stage_next=iter_num < num_iters)
                     cumulative_grad_steps += grad_steps
-                    if logger is not None:  # the last step's metrics, read at the next log
-                        pending_metrics.append(metrics)
                     run_grad_steps += grad_steps
-                    window_grad_steps += grad_steps
                     train_seconds += time.perf_counter() - train_t0
 
             env_t0 = time.perf_counter()
@@ -533,7 +605,7 @@ def main(ctx, cfg) -> TrainResult:
                     reset_data["truncated"] = step_data["truncated"][:, done_idxs]
                     reset_data["actions"] = np.zeros((1, len(done_idxs), act_dim_sum), np.float32)
                     reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-                    rb_add(reset_data, indices=done_idxs)
+                    rb_add(reset_data, indices=done_idxs, validate_args=cfg.buffer.validate_args)
                     for k in ("rewards", "terminated", "truncated"):
                         step_data[k][:, done_idxs] = 0.0
                     step_data["is_first"][:, done_idxs] = 1.0
@@ -565,22 +637,18 @@ def main(ctx, cfg) -> TrainResult:
                 last_checkpoint = policy_step
 
             if logger is not None and (policy_step - last_log >= cfg.metric.log_every or iter_num == num_iters or cfg.dry_run):
-                for m in pending_metrics:  # one device-to-host copy per logged step
-                    values = torch.stack([v.float() for v in m.values()]).cpu().tolist()
-                    for name, value in zip(m, values):
-                        aggregator.update(name, value)
-                pending_metrics.clear()
+                # the window's only blocking copy: every block's last metrics at once
+                dispatcher.drain(aggregator)
                 metrics = aggregator.compute()
-                window = time.perf_counter() - window_start
-                if window_grad_steps:
-                    metrics["Time/sps_train"] = window_grad_steps / window
+                window_sps = dispatcher.pop_window_sps()
+                if window_sps is not None:
+                    metrics["Time/sps_train"] = window_sps
                 metrics["Time/sps_env_interaction"] = policy_steps_per_iter / env_time if env_time > 0 else 0.0
                 metrics["Params/replay_ratio"] = cumulative_grad_steps / policy_step if policy_step > 0 else 0.0
                 metrics.update({k: v for k, v in timer.to_dict().items()})
                 logger.log_metrics(metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step
-                window_start, window_grad_steps = time.perf_counter(), 0
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:

@@ -5,7 +5,7 @@ greedy test rollout and the env-action conversion."""
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +42,18 @@ def update_moments(
     max_: float = 1.0,
     percentile_low: float = 0.05,
     percentile_high: float = 0.95,
+    levels: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Percentile return normaliser (DreamerV3's ``Moments``): EMA of the ``x``
     quantiles (linear interpolation, as ``jnp.quantile``). Returns ``(offset,
-    invscale, new_state)``; no gradient flows through it."""
+    invscale, new_state)``; no gradient flows through it. ``levels``, the float32
+    tensor ``[percentile_low, percentile_high]`` on ``x``'s device, is made once by the
+    caller, so that a step makes no host-to-device copy; without it the levels are
+    made here."""
     x = x.detach().float().reshape(-1)
-    q = torch.quantile(x, torch.tensor([percentile_low, percentile_high], device=x.device, dtype=x.dtype))
+    if levels is None:
+        levels = torch.tensor([percentile_low, percentile_high], device=x.device, dtype=x.dtype)
+    q = torch.quantile(x, levels)
     new_low = decay * state["low"] + (1 - decay) * q[0]
     new_high = decay * state["high"] + (1 - decay) * q[1]
     invscale = torch.clamp_min(new_high - new_low, 1.0 / max_)

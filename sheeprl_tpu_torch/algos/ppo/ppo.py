@@ -8,6 +8,11 @@ with no epsilon), Adam's ``weight_decay`` as L2 added to the gradient before the
 scaling, AdamW's decay added after it, Adam's bias correction applied to both moments,
 and ``rmsprop_tf`` with ``eps`` inside the square root. The state (step count and the
 per-parameter moments) is a plain dict, saved with the checkpoint.
+
+The step count is a 0-d int64 tensor on the parameters' device, and Adam's bias
+corrections ``1 - b**count`` are computed on the device from it, so an update captured
+in a CUDA graph corrects each replay by its own count. ``load_state`` copies a saved
+state into a live one in place (an older checkpoint's count is a Python int).
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ class Optimizer:
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        state: Dict[str, Any] = {"count": 0}
+        device = params[0].device if len(params) else None
+        state: Dict[str, Any] = {"count": torch.zeros((), dtype=torch.int64, device=device)}
         if self.name in ("adam", "adamw", "rmsprop_tf"):
             state["nu"] = zeros()
         if self.name in ("adam", "adamw") or (self.name == "rmsprop_tf" and self.hp["centered"]):
@@ -51,7 +57,7 @@ class Optimizer:
         if self.max_grad_norm > 0:
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             torch._foreach_mul_(g, scale)
-        state["count"] += 1
+        state["count"].add_(1)
         count, lr, hp = state["count"], self.lr, self.hp
         if self.name in ("adam", "adamw"):
             b1, b2 = hp["betas"]
@@ -62,9 +68,10 @@ class Optimizer:
             torch._foreach_add_(mu, g, alpha=1 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, g, g, value=1 - b2)
-            denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - b2**count))
+            # the bias corrections in float32 on the device, as optax computes them
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - torch.pow(b2, count)))
             torch._foreach_add_(denom, hp["eps"])
-            upd = torch._foreach_div(torch._foreach_div(mu, 1 - b1**count), denom)
+            upd = torch._foreach_div(torch._foreach_div(mu, 1 - torch.pow(b1, count)), denom)
             if self.name == "adamw" and hp["weight_decay"]:
                 torch._foreach_add_(upd, params, alpha=hp["weight_decay"])
             torch._foreach_add_(params, upd, alpha=-lr)
@@ -93,6 +100,22 @@ class Optimizer:
             torch._foreach_add_(trace, upd)
             torch._foreach_add_(params, trace)
         return norm
+
+    @staticmethod
+    @torch.no_grad()
+    def load_state(state: Dict[str, Any], saved: Dict[str, Any]) -> None:
+        """Copy ``saved`` (a checkpointed state, on any device) into ``state`` in place,
+        so that tensors a captured graph reads keep their addresses. A saved ``count``
+        may be a Python int (checkpoints written before the count lived on the device)."""
+        if set(saved) != set(state):
+            raise ValueError(f"optimizer state keys {sorted(saved)} do not match {sorted(state)}")
+        state["count"].fill_(int(saved["count"]))
+        for key in state:
+            if key != "count":
+                if len(saved[key]) != len(state[key]):
+                    raise ValueError(f"optimizer state '{key}' holds {len(saved[key])} tensors, expected {len(state[key])}")
+                for dst, src in zip(state[key], saved[key]):
+                    dst.copy_(src)  # across devices: a checkpoint loads on the host
 
 
 def make_optimizer(opt_cfg: Dict[str, Any], max_grad_norm: float) -> Optimizer:

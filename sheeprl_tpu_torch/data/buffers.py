@@ -11,8 +11,9 @@ torch tensors.
 * ``EnvIndependentReplayBuffer``: one sub-buffer per env, so envs can add rows on their
   own (``indices``), as the DreamerV3 loop does at episode ends.
 
-Not ported: the reference's episode buffer, its index-only sampling for device-resident
-replay, the staleness gauges and its native gather (the numpy gather it falls back to is
+``EnvIndependentReplayBuffer.sample_idx`` draws (env, start) index pairs only, for the
+device-resident mirror (``data/device_buffer.py``). Not ported: the reference's episode
+buffer, the staleness gauges and its native gather (the numpy gather it falls back to is
 what runs here).
 """
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Type
+from typing import Any, Dict, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -219,14 +220,7 @@ class SequentialReplayBuffer(ReplayBuffer):
         if self._full and sequence_length > len(self):
             raise ValueError(f"Sequence length ({sequence_length}) longer than buffer ({len(self)})")
         batch_dim = batch_size * n_samples
-        if self._full:
-            # valid starts: sequences that do not cross the write cursor
-            first_range_end = self._pos - sequence_length + 1
-            second_range_end = self._buffer_size if first_range_end >= 0 else self._buffer_size + first_range_end
-            valid = np.concatenate([np.arange(0, max(first_range_end, 0)), np.arange(self._pos, second_range_end)]).astype(np.intp)
-            starts = valid[self._rng.integers(0, len(valid), size=batch_dim)]
-        else:
-            starts = self._rng.integers(0, self._pos - sequence_length + 1, size=batch_dim)
+        starts = self.sample_start_idxes(batch_dim, sequence_length)
         idxes = (starts[:, None] + np.arange(sequence_length, dtype=np.intp)[None, :]) % self._buffer_size  # [B*N, T]
         env_idxes = np.repeat(self._rng.integers(0, self._n_envs, size=batch_dim)[:, None], sequence_length, axis=1)
         out: Dict[str, np.ndarray] = {}
@@ -241,6 +235,18 @@ class SequentialReplayBuffer(ReplayBuffer):
                 nxt = nxt.reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
                 out[f"next_{k}"] = np.swapaxes(nxt, 1, 2)
         return out
+
+
+    def sample_start_idxes(self, batch_dim: int, sequence_length: int) -> np.ndarray:
+        """Uniform valid sequence starts (also what the device mirror's index sampling
+        draws, ``data/device_buffer.py``)."""
+        if self._full:
+            # valid starts: sequences that do not cross the write cursor
+            first_range_end = self._pos - sequence_length + 1
+            second_range_end = self._buffer_size if first_range_end >= 0 else self._buffer_size + first_range_end
+            valid = np.concatenate([np.arange(0, max(first_range_end, 0)), np.arange(self._pos, second_range_end)]).astype(np.intp)
+            return valid[self._rng.integers(0, len(valid), size=batch_dim)]
+        return self._rng.integers(0, self._pos - sequence_length + 1, size=batch_dim)
 
 
 class EnvIndependentReplayBuffer:
@@ -265,6 +271,7 @@ class EnvIndependentReplayBuffer:
         if memmap and memmap_dir is None:
             raise ValueError("memmap=True requires a `memmap_dir`.")
         self._n_envs = n_envs
+        self._buffer_size = buffer_size
         self._concat_along_axis = buffer_cls.batch_axis
         self._buf = [
             buffer_cls(
@@ -283,6 +290,14 @@ class EnvIndependentReplayBuffer:
     @property
     def buffer(self) -> Sequence[ReplayBuffer]:
         return self._buf
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
 
     @property
     def is_memmap(self) -> Sequence[bool]:
@@ -319,6 +334,31 @@ class EnvIndependentReplayBuffer:
             if counts[j] > 0
         ]
         return {k: np.concatenate([p[k] for p in parts], axis=self._concat_along_axis) for k in parts[0]}
+
+    def sample_idx(
+        self, batch_size: int, sequence_length: int, env_range: Optional[Sequence[int]] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Index-only sequence sampling for the device mirror: ``(env_ids [B], starts
+        [B])``, each env drawn uniformly among those (of ``env_range``) that hold a whole
+        sequence, and each start by that env's sub-buffer."""
+        candidates = range(self._n_envs) if env_range is None else env_range
+        valid = [
+            i
+            for i in candidates
+            if (self._buf[i].full and sequence_length <= len(self._buf[i]))
+            or (not self._buf[i].full and self._buf[i]._pos - sequence_length + 1 >= 1)
+        ]
+        if not valid:
+            raise ValueError(
+                f"Cannot sample a sequence of length {sequence_length}: no env buffer in {list(candidates)} holds "
+                f"enough data (per-env sizes: {[len(b) for b in self._buf]})."
+            )
+        env_ids = np.asarray(valid, np.intp)[self._rng.integers(0, len(valid), size=batch_size)]
+        starts = np.empty(batch_size, np.intp)
+        for i in np.unique(env_ids):
+            sel = env_ids == i
+            starts[sel] = self._buf[i].sample_start_idxes(int(sel.sum()), sequence_length)
+        return env_ids, starts
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffers": [b.state_dict() for b in self._buf]}

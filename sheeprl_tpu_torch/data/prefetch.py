@@ -3,8 +3,8 @@
 ``AsyncBatchPrefetcher`` keeps one sample request in flight on a worker thread: while
 the device runs the current iteration's gradient steps, the worker draws the next
 iteration's batches and copies them to the device. ``get(n)`` returns the staged block
-when it holds at least ``n`` steps (cutting off the extra ones) and queues the next
-request at once.
+(a dict of ``[n, T, B, ...]`` tensors) when it holds at least ``n`` steps (cutting off
+the extra ones) and queues the next request at once.
 
 Coherency: the worker samples under ``self.lock``; the training loop takes the same
 lock around every ``rb.add`` so the worker never reads a row mid-write. The staged block
@@ -17,8 +17,6 @@ import contextlib
 import queue
 import threading
 from typing import Any, Callable, Optional
-
-import numpy as np
 
 from sheeprl_tpu_torch.data.buffers import to_device
 
@@ -53,7 +51,7 @@ class AsyncBatchPrefetcher:
             self._pending_n = None
             if isinstance(block, Exception):
                 raise block
-            block = block[:n]
+            block = {k: v[:n] for k, v in block.items()}
         else:
             if self._pending_n is not None:
                 self._res.get()  # drop the too-small block in flight
@@ -81,14 +79,14 @@ class AsyncBatchPrefetcher:
 
 def make_replay_prefetcher(rb, device, cfg, batch_size: int, sequence_length: int):
     """The loop's sampler: ``sample_block(n)`` draws ``n`` gradient steps' worth of
-    ``[T, B, ...]`` batches, as a list of per-step dicts of tensors on ``device``.
+    ``[T, B, ...]`` batches, as a dict of ``[n, T, B, ...]`` tensors on ``device`` (one
+    copy per key).
     Wrapped in a prefetcher when ``algo.async_prefetch`` is on. Returns
     ``(prefetcher_or_None, rb_lock, sample_block)``; the loop takes ``rb_lock`` around
     every ``rb.add``."""
 
     def sample_block(n: int):
-        block = rb.sample(batch_size, sequence_length=sequence_length, n_samples=n)
-        return [to_device({k: np.ascontiguousarray(v[g]) for k, v in block.items()}, device) for g in range(n)]
+        return to_device(rb.sample(batch_size, sequence_length=sequence_length, n_samples=n), device)
 
     if cfg.algo.get("async_prefetch", True):
         prefetcher = AsyncBatchPrefetcher(sample_block)

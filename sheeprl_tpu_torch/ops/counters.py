@@ -1,7 +1,10 @@
 """The launch counters of the port's kernels, by kernel name.
 
 Each wrapper adds one to its own ``launches`` where it launches its kernel and nowhere
-else; a caller zeroes them all before a path and reads them all after it.
+else; a caller zeroes them all before a path and reads them all after it. A step
+captured in a CUDA graph (``utils/graphs.py``) launches its kernels on every replay, not
+in its wrappers: the capture takes back what the wrappers counted while it recorded
+them, and each replay adds those counts (``add_launches``).
 """
 
 from __future__ import annotations
@@ -24,3 +27,13 @@ def zero_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def set_launches(counts: dict) -> None:
+    for name, n in counts.items():
+        COUNTED[name].launches = n
+
+
+def add_launches(counts: dict) -> None:
+    for name, n in counts.items():
+        COUNTED[name].launches += n

@@ -336,7 +336,7 @@ def test_update_target_cadence_matches_train_block():
     import jax.numpy as jnp
 
     from sheeprl_tpu.utils.blocks import make_train_block
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import update_target_flags
+    from sheeprl_tpu_torch.utils.blocks import target_flags
 
     def step_fn(carry, batch, key, update_target):
         i, flags = carry
@@ -348,7 +348,7 @@ def test_update_target_cadence_matches_train_block():
         for n in (1, 3, 2, 4):
             carry = (jnp.asarray(0), jnp.zeros(n, bool))
             (_, flags), _ = block(carry, [jnp.zeros(1)] * n, jax_key(0), count)
-            assert update_target_flags(count, n, freq) == [bool(f) for f in np.asarray(flags)], (freq, count, n)
+            assert target_flags(count, n, freq).tolist() == [bool(f) for f in np.asarray(flags)], (freq, count, n)
             count += n
 
 

@@ -34,9 +34,11 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",
     "sheeprl_tpu_torch.benchmarks.gru_kernel_ab",
     "sheeprl_tpu_torch.benchmarks.step_kernel_ab",
+    "sheeprl_tpu_torch.benchmarks.train_bench",
     "sheeprl_tpu_torch.checkpoint.manager",
     "sheeprl_tpu_torch.config.core",
     "sheeprl_tpu_torch.data.buffers",
+    "sheeprl_tpu_torch.data.device_buffer",
     "sheeprl_tpu_torch.data.prefetch",
     "sheeprl_tpu_torch.distributions",
     "sheeprl_tpu_torch.envs.core",
@@ -50,7 +52,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.ops.rssm_step",
     "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.parallel.context",
+    "sheeprl_tpu_torch.utils.blocks",
     "sheeprl_tpu_torch.utils.env",
+    "sheeprl_tpu_torch.utils.graphs",
     "sheeprl_tpu_torch.utils.imports",
     "sheeprl_tpu_torch.utils.logger",
     "sheeprl_tpu_torch.utils.memmap",

@@ -27,6 +27,16 @@ RUN = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Two intra-op threads: the tiny agent gains nothing from more, and the suite's
+    other workers share the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch):
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.cli import evaluate, run
@@ -59,7 +69,7 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "override,word",
     [
-        ("buffer.device=True", "buffer.device"),
+        ("+fault.autoresume=True", "fault.autoresume"),
         ("+rollout.pipeline_depth=2", "rollout.pipeline_depth"),
         ("+env.pool.enabled=True", "env.pool.enabled"),
         ("+obs.enabled=True", "obs.enabled"),
@@ -77,12 +87,12 @@ def test_unported_keys_raise(tmp_path, monkeypatch, override, word):
 def test_module_entry_runs_the_cli():
     """``python -m sheeprl_tpu_torch`` reaches the train entry (here: a key it refuses)."""
     proc = subprocess.run(
-        [sys.executable, "-m", "sheeprl_tpu_torch", *RUN, "buffer.device=True", "log_root=/nonexistent/never-written"],
+        [sys.executable, "-m", "sheeprl_tpu_torch", *RUN, "+fault.autoresume=True", "log_root=/nonexistent/never-written"],
         cwd=REPO,
         capture_output=True,
         text=True,
         timeout=120,
         env={"PATH": "/usr/bin:/bin", "SHEEPRL_TPU_QUIET": "1", "HOME": str(REPO)},
     )
-    assert proc.returncode != 0 and "buffer.device" in proc.stderr, proc.stderr[-2000:]
+    assert proc.returncode != 0 and "fault.autoresume" in proc.stderr, proc.stderr[-2000:]
     assert torch.__version__  # the port's entry imports torch only
