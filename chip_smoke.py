@@ -48,13 +48,25 @@ result line:
    and once with ``buffer.device=True`` (batches gathered from the ring on the card);
    the backward kernel's launches count the replays (64 per gradient step, plus the
    capture's warm-up steps);
-10. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+10. dv2-train-agreement: one DreamerV2 training step of a small agent on the card against
+   the CPU (``SMALL_DV2``), under ``[train-agreement]``'s limits;
+11. dv2-train-graph: DreamerV2 at the published widths (``DV2_OVERRIDES``: dense 400 x 4,
+   ELU, CNN multiplier 48, H 600, stochastic 32 x 32, B 16 x T 50, horizon 15, rgb 64 x
+   64, discrete actor, bf16-mixed), captured and replayed as ``[train-graph]`` does:
+   parity with the eager step, K1 per replay (65 forward, 65 backward, 15 sum launches:
+   the imagination's backward runs) by the profiler, the capture and the plan, then
+   eager, graph, graph, eager;
+12. dv2-train-cli: DreamerV2's train entry at those widths (``DV2_CLI``) with
+   ``buffer.device=True`` and with ``buffer.type=episode``: train, resume, eval; K1-bwd
+   = 65 x (gradient steps + 2); then a ``[dv2-counts]`` line;
+13. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
    ``plain``'s (``RSSM_SCAN_TOL``).
 
-Every path (eval, batched, train, train-cli, rssm-scan) zeroes the kernels' launch
+The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600). Every path (eval,
+batched, train, train-cli, the DreamerV2 phases, rssm-scan) zeroes the kernels' launch
 counters just before it and reads them just after; a replayed graph adds its capture's
 counts on every replay (``utils/graphs.py``). The script then prints one JSON line describing
 every kernel, and last the line ``{"ok": true, "device": {...}}``. Exits 2 without
@@ -173,6 +185,49 @@ TRAIN_AGREEMENT_TOL = {"step_of_lr": 0.1, "off_share": 1e-3, "moments_rtol": 1e-
 # losses: relative); never by more than TRAIN_AGREEMENT_TOL.
 GRAPH_SPREAD = 2.0
 GRAPH_FLOOR = {"params": 1e-3, "moments": 1e-6, "losses": 1e-6}
+
+# DreamerV2 at the reference's published widths (exp=dreamer_v2: dense 400 x 4, ELU, CNN
+# multiplier 48, GRU H = 600, stochastic 32 x 32, B 16 x T 50, horizon 15, bf16-mixed) on
+# 64x64 rgb frames
+DV2_OVERRIDES = [
+    "exp=dreamer_v2",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+]
+# its train entry, with the sync vector env (four async workers each start by importing
+# the port: ~10 s a run): episodes of 66 stored rows (n_steps 64), a whole one per env before
+# the first gradient step (learning_starts 264 over 4 envs), 8 pretraining steps in place
+# of 100, 128 iterations, checkpoints every 128 policy steps
+DV2_CLI = [
+    "env.sync_env=True",
+    "env.wrapper.n_steps=64",
+    "algo.learning_starts=264",
+    "algo.per_rank_pretrain_steps=8",
+    "algo.total_steps=512",
+    "checkpoint.every=128",
+    "metric.log_every=128",
+]
+# a small DreamerV2 for the card-against-CPU training step
+SMALL_DV2 = [
+    "exp=dreamer_v2_dummy",
+    "env=discrete_dummy",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+    "algo.dense_units=64",
+    "algo.mlp_layers=2",
+    "algo.world_model.encoder.cnn_channels_multiplier=8",
+    "algo.world_model.recurrent_model.recurrent_state_size=128",
+    "algo.world_model.transition_model.hidden_size=64",
+    "algo.world_model.representation_model.hidden_size=64",
+    "algo.world_model.stochastic_size=8",
+    "algo.world_model.discrete_size=8",
+    "algo.per_rank_batch_size=4",
+    "algo.per_rank_sequence_length=16",
+    "algo.horizon=5",
+    "mesh.precision=32-true",
+]
 
 
 def log(msg: str) -> None:
@@ -641,16 +696,27 @@ def _s_config(extra=()):
 
 
 def _build_s_agent(cfg, device: torch.device, seed: int):
-    """The agent ``cfg`` describes, computing in its ``mesh.precision``."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, parse_actions_dim
+    """The agent ``cfg`` describes (its ``algo.name``'s), computing in its
+    ``mesh.precision``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import parse_actions_dim
     from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
     from sheeprl_tpu_torch.utils.env import make_env
 
     env = make_env(cfg, cfg.seed, 0, None)()
     is_continuous, actions_dim = parse_actions_dim(env.action_space)
     ctx = RunContext(device, seed, compute_dtype=compute_dtype(cfg.mesh.precision))
-    modules = build_agent(ctx, actions_dim, is_continuous, cfg, env.observation_space)
+    modules = _train_module(cfg.algo.name).build_agent(ctx, actions_dim, is_continuous, cfg, env.observation_space)
     return env, actions_dim, modules
+
+
+def _train_module(name: str):
+    """The training module of the algorithm ``name`` (``algos/<name>/<name>.py``): its
+    ``make_train_step`` gives a step of one call shape for every Dreamer,
+    ``step(opt, extra, batch, flag, **draws_or_generator) -> (extra, metrics)``, with
+    ``step.init_extra()`` the further state it carries."""
+    import importlib
+
+    return importlib.import_module(f"sheeprl_tpu_torch.algos.{name}.{name}")
 
 
 def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> float:
@@ -853,38 +919,35 @@ def _train_batch(cfg, actions_dim, device: torch.device, gen: torch.Generator) -
     }
 
 
-def phase_train_agreement(device: torch.device) -> dict:
+def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: str = "[train-agreement]") -> dict:
     """One training step of a small agent on the card against the same step on the CPU:
     same weights, batch and draws, float32, TF32 off."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step, sample_draws
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
     from sheeprl_tpu_torch.config.core import compose
 
     set_tf32(False)
-    cfg = compose(overrides=[*SMALL_TRAIN, "device=cpu"])
+    cfg = compose(overrides=[*overrides, "device=cpu"])
+    train = _train_module(cfg.algo.name)
     env, actions_dim, cpu_modules = _build_s_agent(cfg, torch.device("cpu"), seed=21)
     env.close()
     dev_modules = [copy.deepcopy(m).to(device) for m in cpu_modules[:4]]
     gen = torch.Generator().manual_seed(4)
     batch = _train_batch(cfg, actions_dim, torch.device("cpu"), gen)
-    wm_cfg = cfg.algo.world_model
     T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
-    draws = sample_draws(T, B, cfg.algo.horizon, wm_cfg.stochastic_size, wm_cfg.discrete_size, actions_dim, "gumbel", gen, torch.device("cpu"))
+    draws = None
     results = []
     for modules, dev in ((cpu_modules[:4], torch.device("cpu")), (dev_modules, device)):
-        step, init = make_train_step(*modules, cfg, ["rgb"], [])
+        step, init = train.make_train_step(*modules, cfg, ["rgb"], [])
+        if draws is None:
+            draws = step.sample_draws(T, B, gen, torch.device("cpu"))
         opt = init()
-        moments, metrics = step(
-            opt, init_moments(dev), {k: v.to(dev) for k, v in batch.items()}, True, draws=type(draws)(*(
-                tuple(t.to(dev) for t in d) if isinstance(d, tuple) else d.to(dev) for d in draws
-            ))
-        )
-        results.append((modules, opt, moments, metrics))
+        moved = type(draws)(*(tuple(t.to(dev) for t in d) if isinstance(d, tuple) else d.to(dev) for d in draws))
+        _, metrics = step(opt, step.init_extra(), {k: v.to(dev) for k, v in batch.items()}, True, draws=moved)
+        results.append((modules, opt, metrics))
     torch.cuda.synchronize()
-    (cm, copt, _, cmet), (dm, dopt, _, dmet) = results
+    (cm, copt, cmet), (dm, dopt, dmet) = results
     tol = TRAIN_AGREEMENT_TOL
-    algo = cfg.algo
-    lrs = (algo.world_model.optimizer.lr, algo.actor.optimizer.lr, algo.critic.optimizer.lr, algo.critic.optimizer.lr)
+    a = cfg.algo
+    lrs = (a.world_model.optimizer.lr, a.actor.optimizer.lr, a.critic.optimizer.lr, a.critic.optimizer.lr)
     # both start from the same weights, so the difference of the two parameter changes is
     # that of the new parameters; per module: its largest entry over lr, and the share of
     # entries off by more than the limit
@@ -908,13 +971,13 @@ def phase_train_agreement(device: torch.device) -> dict:
         bad.append(f"Adam moments {rel_moment}")
     if not all(torch.isfinite(v).all() for v in dmet.values()):
         bad.append("non-finite metrics")
-    log(f"[train-agreement] small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: parameter change "
+    log(f"{label} small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: parameter change "
         "(max |card - cpu| / lr, share > " + f"{tol['step_of_lr']} lr) " + json.dumps(steps) + f" (share <= {tol['off_share']}); "
         "Adam moments, the leaf furthest off (relative norm diff, leaf, its norm) " + json.dumps(moments)
         + f" (<= {tol['moments_rtol']}); metrics (cpu, card) " + json.dumps(metrics)
         + f" (rtol {tol['metrics_rtol']}, atol {tol['metrics_atol']})")
     if bad:
-        raise AssertionError(f"train-agreement: the card's training step disagrees with the CPU's: {bad}")
+        raise AssertionError(f"{label}: the card's training step disagrees with the CPU's: {bad}")
     return {"steps": steps, "moments": moments, "metrics": metrics}
 
 
@@ -1010,26 +1073,44 @@ def _moment_diff(oa: dict, ob: dict) -> float:
     )
 
 
-def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_steps: int = 8) -> dict:
-    """The size-S train step captured as a CUDA graph (``utils/graphs.py``) and replayed
-    through the loop's block (``utils/blocks.py``), against the eager step, at
-    bf16-mixed. From the same weights, batches and draws (a generator seeded alike), 4
-    graphed steps against 4 eager steps, twice eager: parameters, Adam moments and losses
-    within the spread of the two eager runs (``GRAPH_SPREAD``), and never looser than
-    ``TRAIN_AGREEMENT_TOL``. K1 launches per replay by the profiler, equal to the eager
-    step's and to the capture's count. Then, discrete actor only, in turns (eager, graph,
-    graph, eager): gradient steps/s, device ms per step, busy share, peak memory."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_captured_step, make_train_step
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments, update_moments
+def k1_per_step(cfg, is_continuous: bool) -> dict:
+    """K1 launches a training step makes, by the kernels' plan (``ops/gru.py::geometry``):
+    the forward at every unroll and imagination step; the backward at every unroll step,
+    and at every imagination step where the gradient crosses the imagination (a
+    continuous DreamerV3 actor; DreamerV2 always, its dynamics term); a second (sum)
+    launch for each backward whose plan is two launches."""
+    from sheeprl_tpu_torch.ops.gru import geometry
+
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    rec = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    imag_bwd = H if (is_continuous or cfg.algo.name == "dreamer_v2") else 0
+    two = lambda rows: geometry(rows, rec)["bwd_launches"] - 1  # noqa: E731
+    return {"fwd": T + H, "bwd": T + imag_bwd, "bwd_sum": T * two(B) + imag_bwd * two(T * B)}
+
+
+def phase_train_graph(
+    device: torch.device, env: str = "discrete_dummy", timed_steps: int = 8, overrides=TRAIN_OVERRIDES, tag: str = "[train-graph]"
+) -> dict:
+    """The train step of ``overrides`` (DreamerV3-S by default) captured as a CUDA graph
+    (``utils/graphs.py``) and replayed through the loop's block (``utils/blocks.py``),
+    against the eager step, at bf16-mixed. From the same weights, batches and draws (a
+    generator seeded alike), 4 graphed steps against 4 eager steps, twice eager:
+    parameters, Adam moments and losses within the spread of the two eager runs
+    (``GRAPH_SPREAD``), and never looser than ``TRAIN_AGREEMENT_TOL``. K1 launches per
+    replay by the profiler, equal to the eager step's, to the capture's count and to the
+    plan's (``k1_per_step``). Then, discrete actor only, in turns (eager, graph, graph,
+    eager): gradient steps/s, device ms and kernels per step, busy share, peak memory."""
+    from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
     from sheeprl_tpu_torch.config.core import compose
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, target_flags
 
     set_tf32(True)
-    cfg = compose(overrides=[*TRAIN_OVERRIDES, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda"])
+    cfg = compose(overrides=[*overrides, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda"])
+    train = _train_module(cfg.algo.name)
     env_, actions_dim, (wm, actor, critic, target, _) = _build_s_agent(cfg, device, seed=31)
     env_.close()
     is_continuous = actor.is_continuous
-    label = f"[train-graph] {'continuous' if is_continuous else 'discrete'}"
+    label = f"{tag} {'continuous' if is_continuous else 'discrete'}"
     T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
     modules = {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target}
     runs = [modules] + [{k: copy.deepcopy(v) for k, v in modules.items()} for _ in range(2)]
@@ -1040,25 +1121,28 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
         if is_continuous:
             batch["actions"] = torch.rand(T, B, int(sum(actions_dim)), generator=gen, device=device) * 2 - 1
         batches.append(batch)
-    flags = target_flags(0, 4, 2)
+    offset = 1 if cfg.algo.name == "dreamer_v3" else 0  # the target cadence's count_offset
+    flags = target_flags(0, 4, 2, offset)
 
-    # the quantile levels on the card: update_moments makes no host sync
-    levels = torch.tensor([0.05, 0.95], device=device)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        update_moments(init_moments(device), torch.randn(H, T * B, 1, device=device, generator=gen), levels=levels)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    if cfg.algo.name == "dreamer_v3":  # the quantile levels on the card: update_moments makes no host sync
+        from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments, update_moments
 
-    step, init = make_train_step(*modules.values(), cfg, ["rgb"], [])
-    opt, moments = init(), init_moments(device)
+        levels = torch.tensor([0.05, 0.95], device=device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            update_moments(init_moments(device), torch.randn(H, T * B, 1, device=device, generator=gen), levels=levels)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    step, init = train.make_train_step(*modules.values(), cfg, ["rgb"], [])
+    opt, extra = init(), step.init_extra()
     start = time.perf_counter()
-    make_step = make_captured_step(step, modules, opt, moments, T, B, torch.Generator(device=device).manual_seed(8))
+    make_step = make_captured_step(step, modules, opt, extra, T, B, torch.Generator(device=device).manual_seed(8))
     captured, draw = make_step({"table": torch.zeros(1, dtype=torch.int64, device=device), "batch": {k: torch.zeros_like(v) for k, v in batches[0].items()}})
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - start
-    dispatcher = BlockDispatcher(captured, draw, target_update_freq=2)
+    dispatcher = BlockDispatcher(captured, draw, target_update_freq=2, count_offset=offset)
     stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
     first = {k: v[:1] for k, v in stacked.items()}
     dispatcher.dispatch(stacked, 0)
@@ -1067,16 +1151,16 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
 
     eager = []
     for mods in runs[1:]:
-        step_e, init_e = make_train_step(*mods.values(), cfg, ["rgb"], [])
-        opt_e, mom_e = init_e(), init_moments(device)
+        step_e, init_e = train.make_train_step(*mods.values(), cfg, ["rgb"], [])
+        opt_e, ext_e = init_e(), step_e.init_extra()
         g = torch.Generator(device=device).manual_seed(8)
         for i, flag in enumerate(flags):
-            mom_e, met_e = step_e(opt_e, mom_e, batches[i], bool(flag), draws=step_e.sample_draws(T, B, g, device))
-        eager.append((mods, opt_e, mom_e, {k: v.item() for k, v in met_e.items()}, step_e))
+            ext_e, met_e = step_e(opt_e, ext_e, batches[i], bool(flag), draws=step_e.sample_draws(T, B, g, device))
+        eager.append((mods, opt_e, ext_e, {k: v.item() for k, v in met_e.items()}, step_e))
     torch.cuda.synchronize()
-    algo = cfg.algo
-    lrs = {"world_model": algo.world_model.optimizer.lr, "actor": algo.actor.optimizer.lr, "critic": algo.critic.optimizer.lr, "target_critic": algo.critic.optimizer.lr}
-    (m1, o1, mom1, met1, step1), (m2, o2, _, met2, _) = eager
+    a = cfg.algo
+    lrs = {"world_model": a.world_model.optimizer.lr, "actor": a.actor.optimizer.lr, "critic": a.critic.optimizer.lr, "target_critic": a.critic.optimizer.lr}
+    (m1, o1, ext1, met1, step1), (m2, o2, _, met2, _) = eager
     tol = TRAIN_AGREEMENT_TOL
     bad, params = [], {}
     d_spread, d_off = _param_diffs(m2, m1), _param_diffs(modules, m1)
@@ -1102,14 +1186,14 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
     if not all(math.isfinite(v) for v in graphed.values()):
         bad.append("non-finite metrics")
 
-    # K1 launches per step: the capture's count, the profiler's over real replays and
-    # over eager steps
-    want = {"fwd": T + H, "bwd": T + H if is_continuous else T, "bwd_sum": H if is_continuous else 0}
+    # K1 launches per step: the plan's, the capture's count, the profiler's over real
+    # replays and over eager steps
+    want = k1_per_step(cfg, is_continuous)
     per_replay = captured.launches_per_replay
     if (per_replay["layernorm_gru"], per_replay["layernorm_gru_bwd"]) != (want["fwd"], want["bwd"]):
         bad.append(f"the capture counted {per_replay}, expected {want}")
     replay_k1 = _profiled_k1(lambda: dispatcher.dispatch(first, 4), 2)
-    eager_k1 = _profiled_k1(lambda: step1(o1, mom1, batches[0], True, generator=gen), 1)
+    eager_k1 = _profiled_k1(lambda: step1(o1, ext1, batches[0], True, generator=gen), 1)
     if replay_k1 is None:
         log(f"{label}: K1 launches per replay not measured (the profiler recorded no CUDA kernels)")
     elif replay_k1 != want or eager_k1 != want:
@@ -1118,6 +1202,7 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
         "actor": "continuous" if is_continuous else "discrete", "precision": "bf16-mixed", "capture_seconds": capture_s,
         "params": params, "off": off, "eager_spread": spread, "graph_spread_factor": GRAPH_SPREAD, "floor": GRAPH_FLOOR,
         "k1_per_replay_profiler": replay_k1, "k1_per_eager_step_profiler": eager_k1, "k1_per_replay_capture": per_replay,
+        "k1_per_step_plan": want,
     }
     log(label + " parity " + json.dumps(row))
     if bad:
@@ -1139,7 +1224,7 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
             count += timed_steps
         else:
             for _ in range(timed_steps):
-                mom1, met_t = step1(o1, mom1, batches[0], True, generator=gen)
+                ext1, met_t = step1(o1, ext1, batches[0], True, generator=gen)
             torch.stack(list(met_t.values())).cpu()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
@@ -1149,7 +1234,7 @@ def phase_train_graph(device: torch.device, env: str = "discrete_dummy", timed_s
             dispatcher.drain(None)
             count += 1
         else:
-            prof = profile_calls(lambda: step1(o1, mom1, batches[0], True, generator=gen), 1, f"{label} eager step", {"mode": "eager"})
+            prof = profile_calls(lambda: step1(o1, ext1, batches[0], True, generator=gen), 1, f"{label} eager step", {"mode": "eager"})
         device_ms = prof.get("device_ms_per_call")
         timings.append({
             "mode": mode, "grad_steps_per_s": timed_steps / seconds, "device_ms_per_step": device_ms,
@@ -1224,6 +1309,63 @@ def phase_train_cli(device: torch.device, workdir: Path, device_replay: bool = F
     return out
 
 
+def phase_dv2_train_cli(device: torch.device, workdir: Path, buffer: str, overrides=DV2_OVERRIDES) -> dict:
+    """DreamerV2's train entry at ``overrides``' widths (``DV2_CLI``'s schedule): train, checkpoint, resume from the checkpoint at policy step 128,
+    evaluate the last checkpoint through the eval entry. ``buffer``: ``device``
+    (``buffer.device=True``, the batches gathered from the ring on the card) or
+    ``episode`` (``buffer.type=episode``, sampled on the host). The loop replays its
+    captured train step: each replay launches the plan's K1 backward count
+    (``k1_per_step``: the unroll's T and the imagination's horizon), and the capture's
+    warm-up steps theirs eagerly, so the backward's count is that x (gradient steps + 2);
+    the forward's adds the player's steps."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate, run
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    set_tf32(True)
+    tag = f"[dv2-train-cli {buffer}]"
+    overrides = [
+        *overrides, *DV2_CLI, f"device={device.type}", f"log_root={workdir / 'logs'}",
+        *(["buffer.device=True"] if buffer == "device" else ["buffer.type=episode"]),
+    ]
+    cfg = compose(overrides=overrides)
+    per_step, horizon = k1_per_step(cfg, is_continuous=False), cfg.algo.horizon
+    out = {"k1_per_step": per_step}
+    zero_launches()
+    first = run(overrides)
+    fwd, bwd = launches()
+    want = per_step["bwd"] * (first.grad_steps + WARMUP_STEPS)
+    if first.grad_steps < 16 or bwd != want or fwd < per_step["fwd"] * (first.grad_steps + WARMUP_STEPS) or first.checkpoint is None:
+        raise AssertionError(f"{tag}: {first.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)} (bwd expected {want}), checkpoint {first.checkpoint}")
+    out["train"] = {"grad_steps": first.grad_steps, "fwd": fwd, "bwd": bwd, "policy_steps_per_s": first.policy_steps / first.seconds,
+                    "seconds": first.seconds, "train_seconds": first.train_seconds, "env_seconds": first.env_seconds}
+    log(f"{tag} train: {first.policy_steps} policy steps, {first.grad_steps} gradient steps in {first.seconds:.2f} s "
+        f"({first.policy_steps / first.seconds:.1f} policy steps/s; {first.train_seconds:.2f} s dispatching gradient steps, "
+        f"{first.env_seconds:.2f} s acting and stepping envs), layernorm_gru launches fwd {fwd} bwd {bwd} = {per_step['bwd']} x "
+        f"({first.grad_steps} + {WARMUP_STEPS}) (the unroll's {per_step['bwd'] - horizon} and the imagination's "
+        f"{horizon} per step)")
+    mid = next(p for p in CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints() if p.name == "ckpt_128")
+    zero_launches()
+    resumed = run([*overrides, f"checkpoint.resume_from={mid}"])
+    fwd, bwd = launches()
+    if resumed.grad_steps <= 0 or bwd != per_step["bwd"] * (resumed.grad_steps + WARMUP_STEPS) or resumed.checkpoint is None:
+        raise AssertionError(f"{tag} resume: {resumed.grad_steps} gradient steps, launches {(fwd, bwd)}")
+    out["resume"] = {"grad_steps": resumed.grad_steps, "fwd": fwd, "bwd": bwd}
+    log(f"{tag} resume from {mid.name}: {resumed.policy_steps - 128} policy steps, {resumed.grad_steps} gradient steps "
+        f"in {resumed.seconds:.2f} s, layernorm_gru launches fwd {fwd} bwd {bwd}")
+    zero_launches()
+    start = time.perf_counter()
+    result = evaluate([f"checkpoint_path={resumed.checkpoint}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    fwd, bwd = launches()
+    if fwd != result.steps or bwd != 0 or not math.isfinite(result.reward):
+        raise AssertionError(f"{tag} eval: {result.steps} steps, launches {(fwd, bwd)}, reward {result.reward}")
+    out["eval"] = {"steps": result.steps, "fwd": fwd}
+    log(f"{tag} eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
+        f"{time.perf_counter() - start:.2f} s, layernorm_gru launches fwd {fwd}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
@@ -1235,29 +1377,53 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - start, 1)
+        return out
+
+    timed("build", phase_build)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
-    kernels = phase_kernels(device)
-    kernels_bwd = phase_kernels_bwd(device)
-    check_gru_geometry()
-    check_step_geometry()
-    step_fwd = phase_kernels_step(device)
-    step_bwd = phase_kernels_step_bwd(device)
-    phase_agreement(device)
+    kernels = timed("kernels", phase_kernels, device)
+    kernels_bwd = timed("kernels-bwd", phase_kernels_bwd, device)
+    timed("geometry", check_gru_geometry)
+    timed("step-geometry", check_step_geometry)
+    step_fwd = timed("kernels-step", phase_kernels_step, device)
+    step_bwd = timed("kernels-step-bwd", phase_kernels_step_bwd, device)
+    timed("agreement", phase_agreement, device)
     with tempfile.TemporaryDirectory() as tmp:
-        ev = phase_eval(device, Path(tmp))
-    phase_batched(device)
-    phase_train_agreement(device)
-    train = [phase_train(device, "bf16-mixed"), phase_train(device, "32-true"), phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1)]
-    graphed = [phase_train_graph(device), phase_train_graph(device, env="continuous_dummy")]
+        ev = timed("eval", phase_eval, device, Path(tmp))
+    timed("batched", phase_batched, device)
+    timed("train-agreement", phase_train_agreement, device)
+    # 4 timed eager steps a row: the DreamerV3 phases leave the DreamerV2 phases room in the time limit
+    train = timed("train", lambda: [
+        phase_train(device, "bf16-mixed", steps=4), phase_train(device, "32-true", steps=4),
+        phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1),
+    ])
+    graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4), phase_train_graph(device, env="continuous_dummy")])
     with tempfile.TemporaryDirectory() as tmp:
-        cli = phase_train_cli(device, Path(tmp))
+        cli = timed("train-cli", phase_train_cli, device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        cli_device = phase_train_cli(device, Path(tmp), device_replay=True)
-    scan = phase_rssm_scan(device)
+        cli_device = timed("train-cli-device", phase_train_cli, device, Path(tmp), device_replay=True)
+    timed("dv2-train-agreement", phase_train_agreement, device, SMALL_DV2, "[dv2-train-agreement]")
+    dv2_graph = timed("dv2-train-graph", phase_train_graph, device, overrides=DV2_OVERRIDES, tag="[dv2-train-graph]")
+    dv2_cli = {}
+    for buffer in ("device", "episode"):
+        with tempfile.TemporaryDirectory() as tmp:
+            dv2_cli[buffer] = timed(f"dv2-train-cli-{buffer}", phase_dv2_train_cli, device, Path(tmp), buffer)
+    log("[dv2-counts] " + json.dumps({
+        "k1_per_replay_capture": dv2_graph["k1_per_replay_capture"], "k1_per_replay_profiler": dv2_graph["k1_per_replay_profiler"],
+        "k1_per_step_plan": dv2_graph["k1_per_step_plan"],
+        "train_cli": {b: {k: c[k] for k in ("train", "resume", "eval")} for b, c in dv2_cli.items()},
+    }))
+    scan = timed("rssm-scan", phase_rssm_scan, device)
+    log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
@@ -1285,6 +1451,8 @@ def main() -> int:
         + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train)
         + "; graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in graphed[0]["turns"])
         + f"; train-cli policy steps/s host replay {cli['train']['policy_steps_per_s']:.1f}, device replay {cli_device['train']['policy_steps_per_s']:.1f}"
+        + "; DreamerV2 graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dv2_graph["turns"])
+        + "; DreamerV2 train-cli policy steps/s " + ", ".join(f"{b} {c['train']['policy_steps_per_s']:.1f}" for b, c in dv2_cli.items())
         + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
     print(smi)
     print(json.dumps(line))

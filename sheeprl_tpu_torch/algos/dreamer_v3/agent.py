@@ -43,6 +43,7 @@ from sheeprl_tpu_torch.models.blocks import (
     LayerNorm,
     LayerNormGRUCell,
     Linear,
+    _activation,
     set_compute_dtype,
 )
 from sheeprl_tpu_torch.utils.utils import symlog
@@ -70,16 +71,27 @@ def _channel_norm(norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class CNNEncoder(nn.Module):
-    """4-stage stride-2 conv trunk: 64x64 -> 4x4, channels ``m, 2m, 4m, 8m``, channel
-    LayerNorm + SiLU, flattened in ``H, W, C`` order."""
+    """4-stage stride-2 conv trunk (k=4), channels ``m, 2m, 4m, 8m``, optional channel
+    LayerNorm, then the activation; flattened in ``H, W, C`` order. ``padding=1``: 64x64
+    -> 4x4 (DreamerV3, Flax's SAME); ``padding=0``: 64x64 -> 2x2 (DreamerV2, VALID)."""
 
-    def __init__(self, in_channels: int, channels_multiplier: int = 32, stages: int = 4, layer_norm: bool = True, norm_eps: float = 1e-3):
+    def __init__(
+        self,
+        in_channels: int,
+        channels_multiplier: int = 32,
+        stages: int = 4,
+        layer_norm: bool = True,
+        norm_eps: float = 1e-3,
+        activation: str = "silu",
+        padding: int = 1,
+    ):
         super().__init__()
         chans = [in_channels] + [channels_multiplier * 2**i for i in range(stages)]
         self.convs = nn.ModuleList(
-            Conv2d(a, b, 4, stride=2, padding=1, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
+            Conv2d(a, b, 4, stride=2, padding=padding, bias=not layer_norm) for a, b in zip(chans[:-1], chans[1:])
         )
         self.norms = nn.ModuleList(LayerNorm(c, norm_eps) for c in chans[1:]) if layer_norm else None
+        self.act = _activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: [..., C, H, W] float in [-0.5, 0.5]
@@ -89,7 +101,7 @@ class CNNEncoder(nn.Module):
             x = conv(x)
             if self.norms is not None:
                 x = _channel_norm(self.norms[i], x)
-            x = F.silu(x)
+            x = self.act(x)
         return x.permute(0, 2, 3, 1).reshape(*lead, -1)
 
 
@@ -402,7 +414,11 @@ class WorldModel(nn.Module):
 
 class DreamerActor(nn.Module):
     """Policy head over latent states. The discrete head samples a straight-through
-    one-hot per action dimension; the continuous heads follow ``distribution``."""
+    one-hot per action dimension; the continuous heads follow ``distribution``
+    (``auto``: ``AUTO_CONTINUOUS``, one of ``CONTINUOUS``)."""
+
+    AUTO_CONTINUOUS = "scaled_normal"
+    CONTINUOUS = ("tanh_normal", "normal", "trunc_normal", "scaled_normal")
 
     def __init__(
         self,
@@ -417,11 +433,14 @@ class DreamerActor(nn.Module):
         min_std: float = 0.1,
         max_std: float = 1.0,
         action_clip: float = 1.0,
+        activation: str = "silu",
+        layer_norm: bool = True,
+        norm_eps: float = 1e-3,
     ):
         super().__init__()
         if distribution == "auto":
-            distribution = "scaled_normal" if is_continuous else "discrete"
-        supported = ("tanh_normal", "normal", "trunc_normal", "scaled_normal") if is_continuous else ("discrete",)
+            distribution = self.AUTO_CONTINUOUS if is_continuous else "discrete"
+        supported = self.CONTINUOUS if is_continuous else ("discrete",)
         if distribution not in supported:
             raise ValueError(f"distribution.type={distribution!r} not supported for this action space; use one of {supported}")
         self.distribution = distribution
@@ -432,7 +451,7 @@ class DreamerActor(nn.Module):
         self.min_std = min_std
         self.max_std = max_std
         self.action_clip = action_clip
-        self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation="silu", layer_norm=True, norm_eps=1e-3)
+        self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation=activation, layer_norm=layer_norm, norm_eps=norm_eps)
         if is_continuous:
             self.head = Linear(dense_units, 2 * sum(self.actions_dim))
         else:
@@ -484,11 +503,21 @@ class DreamerActor(nn.Module):
 
 
 class DreamerCritic(nn.Module):
-    """Two-hot value head."""
+    """Value head: ``bins`` two-hot logits (DreamerV3) or one Gaussian mean (``bins=1``,
+    DreamerV2)."""
 
-    def __init__(self, latent_size: int, dense_units: int = 512, mlp_layers: int = 2, bins: int = 255):
+    def __init__(
+        self,
+        latent_size: int,
+        dense_units: int = 512,
+        mlp_layers: int = 2,
+        bins: int = 255,
+        activation: str = "silu",
+        layer_norm: bool = True,
+        norm_eps: float = 1e-3,
+    ):
         super().__init__()
-        self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation="silu", layer_norm=True, norm_eps=1e-3)
+        self.mlp = MLP(latent_size, (dense_units,) * mlp_layers, activation=activation, layer_norm=layer_norm, norm_eps=norm_eps)
         self.head = Linear(dense_units, bins)
 
     def forward(self, state: torch.Tensor) -> torch.Tensor:

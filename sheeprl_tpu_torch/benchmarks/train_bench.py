@@ -109,7 +109,7 @@ def bench_train_only(
     steps: Optional[int] = None, extra: Sequence[str] = (),
 ) -> Dict:
     """Gradient steps per second of the train step alone (``mode``: graph or eager)."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_captured_step
+    from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher
 
     steps = int(os.environ.get("BENCH_STEPS", "30")) if steps is None else steps

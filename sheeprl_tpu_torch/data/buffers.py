@@ -10,18 +10,22 @@ torch tensors.
   output ``[n_samples, sequence_length, batch_size, ...]``.
 * ``EnvIndependentReplayBuffer``: one sub-buffer per env, so envs can add rows on their
   own (``indices``), as the DreamerV3 loop does at episode ends.
+* ``EpisodeBuffer``: whole episodes, assembled from each env's open chunks, the oldest
+  evicted first, sampled as sequences inside one episode (``prioritize_ends`` draws the
+  starts near an episode's end more often); the DreamerV2 loop's ``buffer.type=episode``.
 
 ``EnvIndependentReplayBuffer.sample_idx`` draws (env, start) index pairs only, for the
-device-resident mirror (``data/device_buffer.py``). Not ported: the reference's episode
-buffer, the staleness gauges and its native gather (the numpy gather it falls back to is
-what runs here).
+device-resident mirror (``data/device_buffer.py``). Not ported: the staleness gauges and
+the native gather (the numpy gather it falls back to is what runs here).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import uuid
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Tuple, Type
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -366,6 +370,184 @@ class EnvIndependentReplayBuffer:
     def load_state_dict(self, state: Dict[str, Any]) -> "EnvIndependentReplayBuffer":
         for b, s in zip(self._buf, state["buffers"]):
             b.load_state_dict(s)
+        return self
+
+
+class EpisodeBuffer:
+    """Whole-episode store. ``add`` appends each env's rows to its open episode; a row
+    whose ``terminated`` or ``truncated`` is set closes it, and a closed episode of at
+    least ``minimum_episode_length`` rows is stored, evicting the oldest episodes until
+    the store holds at most ``buffer_size`` rows. ``sample`` draws an episode per batch
+    element, then a sequence inside it; with ``prioritize_ends`` the start is drawn from a
+    range ``sequence_length`` longer and clipped to the last start, so sequences that
+    reach an episode's end come up more often. With ``memmap`` each stored episode lives
+    in files of its own under ``memmap_dir``, removed when it is evicted."""
+
+    batch_axis: int = 2
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: Optional[os.PathLike] = None,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"The minimum episode length must be greater than zero, got: {minimum_episode_length}")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(
+                f"The minimum episode length must be lower than the buffer size, got: bs={buffer_size} ml={minimum_episode_length}"
+            )
+        if memmap and memmap_dir is None:
+            raise ValueError("memmap=True requires a `memmap_dir`.")
+        self._buffer_size = buffer_size
+        self._minimum_episode_length = minimum_episode_length
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._prioritize_ends = prioritize_ends
+        self._memmap = memmap
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        if self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, Any]] = []
+        self._rng = np.random.default_rng()
+
+    @property
+    def buffer(self) -> Sequence[Dict[str, Any]]:
+        return self._buf
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._cum_lengths else 0
+
+    def seed(self, seed: Optional[int] = None) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
+        """Append ``[T, len(env_idxes), ...]`` rows (all envs without ``env_idxes``)."""
+        if validate_args:
+            if not isinstance(data, dict):
+                raise ValueError(f"`data` must be a dictionary of numpy arrays, got {type(data)}")
+            if "terminated" not in data or "truncated" not in data:
+                raise RuntimeError(f"data must contain `terminated` and `truncated` keys, got: {list(data)}")
+            if env_idxes is not None and (np.asarray(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"env indices must be in [0, {self._n_envs}), given {env_idxes}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for i, env in enumerate(env_idxes):
+            env_data = {k: np.asarray(v)[:, i] for k, v in data.items()}
+            done = np.logical_or(env_data["terminated"], env_data["truncated"]).reshape(-1)
+            ends = done.nonzero()[0].tolist()
+            if not ends:
+                self._open_episodes[env].append(env_data)
+                continue
+            start = 0
+            for end in ends + ([len(done) - 1] if ends[-1] != len(done) - 1 else []):
+                chunk = {k: v[start : end + 1] for k, v in env_data.items()}
+                if len(next(iter(chunk.values()))) > 0:
+                    self._open_episodes[env].append(chunk)
+                start = end + 1
+                last = self._open_episodes[env][-1] if self._open_episodes[env] else None
+                if last is not None and bool(np.logical_or(last["terminated"][-1], last["truncated"][-1]).any()):
+                    self._save_episode(self._open_episodes[env])
+                    self._open_episodes[env] = []
+
+    def _save_episode(self, chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        if not chunks:
+            raise RuntimeError("Invalid episode: an empty sequence was given.")
+        episode = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+        ends = np.logical_or(episode["terminated"], episode["truncated"]).reshape(-1)
+        ep_len = ends.shape[0]
+        if ends.nonzero()[0].size != 1 or not ends[-1]:
+            raise RuntimeError("The episode must contain exactly one done at its last step")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"Episode too short (min {self._minimum_episode_length}), got {ep_len} steps")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"Episode too long (max {self._buffer_size}), got {ep_len} steps")
+        while self._buf and len(self) + ep_len > self._buffer_size:
+            evicted = self._buf.pop(0)
+            self._cum_lengths = [c - self._cum_lengths[0] for c in self._cum_lengths[1:]]
+            if self._memmap:
+                dirname = os.path.dirname(next(iter(evicted.values())).filename)
+                for v in evicted.values():
+                    v.has_ownership = True
+                evicted.clear()
+                shutil.rmtree(dirname, ignore_errors=True)
+        self._buf.append(self._store(episode))
+        self._cum_lengths.append(len(self) + ep_len)
+
+    def _store(self, episode: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        if not self._memmap:
+            return episode
+        ep_dir = self._memmap_dir / f"episode_{uuid.uuid4().hex}"
+        return {k: MemmapArray.from_array(v, filename=ep_dir / f"{k}.memmap") for k, v in episode.items()}
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        n_samples: int = 1,
+        sequence_length: int = 1,
+    ) -> Dict[str, np.ndarray]:
+        """``[n_samples, sequence_length, batch_size, ...]`` sequences, each inside one
+        episode of at least ``sequence_length`` rows (one more with ``sample_next_obs``)."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be greater than 0")
+        lengths = np.diff([0] + self._cum_lengths)
+        min_len = sequence_length + (1 if sample_next_obs else 0)
+        valid = [ep for ep, ln in zip(self._buf, lengths) if ln >= min_len]
+        if not valid:
+            raise RuntimeError(f"No valid episodes in the buffer; add at least one episode of length >= {sequence_length}.")
+        batch_dim = batch_size * n_samples
+        ep_choice = self._rng.integers(0, len(valid), size=batch_dim)
+        offsets = np.arange(sequence_length, dtype=np.intp)
+        parts: Dict[str, list] = {k: [] for k in valid[0].keys()}
+        if sample_next_obs:
+            for k in self._obs_keys:
+                parts[f"next_{k}"] = []
+        for b in range(batch_dim):
+            ep = valid[ep_choice[b]]
+            ep_len = _np(ep["terminated"]).shape[0] - (1 if sample_next_obs else 0)
+            upper = ep_len - sequence_length + 1 + (sequence_length if self._prioritize_ends else 0)
+            idx = min(int(self._rng.integers(0, upper)), ep_len - sequence_length) + offsets
+            for k in ep.keys():
+                parts[k].append(_np(ep[k])[idx])
+                if sample_next_obs and k in self._obs_keys:
+                    parts[f"next_{k}"].append(_np(ep[k])[idx + 1])
+        out = {}
+        for k, v in parts.items():
+            stacked = np.stack(v, axis=0).reshape(n_samples, batch_size, sequence_length, *v[0].shape[1:])
+            out[k] = np.swapaxes(stacked, 1, 2)
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The stored episodes and the open ones by value, as tensors (memmap episodes
+        too), so that the checkpoint loads with ``torch.load(weights_only=True)``."""
+        as_tensors = lambda ep: {k: torch.from_numpy(_np(v).copy()) for k, v in ep.items()}  # noqa: E731
+        return {
+            "episodes": [as_tensors(ep) for ep in self._buf],
+            "cum_lengths": list(self._cum_lengths),
+            "open_episodes": [[as_tensors(c) for c in chunks] for chunks in self._open_episodes],
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EpisodeBuffer":
+        as_arrays = lambda ep: {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in ep.items()}  # noqa: E731
+        self._buf, self._cum_lengths = [], []
+        for ep in state["episodes"]:
+            ep = as_arrays(ep)
+            self._buf.append(self._store(ep))
+            self._cum_lengths.append(len(self) + next(iter(ep.values())).shape[0])
+        self._open_episodes = [[as_arrays(c) for c in chunks] for chunks in state["open_episodes"]]
         return self
 
 

@@ -20,10 +20,13 @@ and the loop refuses ``mesh.data > 1``.
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -143,10 +146,19 @@ class DeviceReplayMirror:
         return np.moveaxis(arr, 0, 1).reshape(self.capacity, self.n_envs, *self._row_shapes[key])
 
 
-def device_replay_enabled(cfg) -> bool:
+def device_replay_enabled(cfg, rb) -> bool:
     """Whether the loop replays from a device ring (``buffer.device``). One device only:
-    the ring is not sharded, so a config that asks for data parallelism raises."""
+    the ring is not sharded, so a config that asks for data parallelism raises. The ring
+    mirrors the sequential buffer only: with an ``EpisodeBuffer`` (DreamerV2's
+    ``buffer.type=episode``) the loop logs it and samples on the host, as the reference
+    does."""
     if not bool(cfg.buffer.get("device", False)):
+        return False
+    if not isinstance(rb, EnvIndependentReplayBuffer):
+        logging.getLogger(__name__).warning(
+            "buffer.device=True supports only buffer.type=sequential (the episode buffer stays on the host); "
+            "sampling on the host."
+        )
         return False
     data = (cfg.get("mesh") or {}).get("data")
     if data not in (None, -1, 1):
@@ -195,9 +207,12 @@ def make_mirror_for(rb, cnn_keys, mlp_keys, obs_space, extra_float_keys, device:
     return DeviceReplayMirror(rb.buffer_size, rb.n_envs, row_specs(cnn_keys, mlp_keys, obs_space, extra_float_keys), device)
 
 
-def make_device_replay(ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum: int, make_step, target_update_freq: int = 1):
+def make_device_replay(
+    ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum: int, make_step, target_update_freq: int = 1, count_offset: int = 1
+):
     """The loop's replay path, device or host: ``(dispatcher, mirror, prefetcher,
-    run_block, rb_add)``.
+    run_block, rb_add)``. ``target_update_freq`` and ``count_offset`` set the target
+    critic's cadence (``utils/blocks.py::target_flags``).
 
     ``make_step(example_inputs)`` builds the loop's captured step (``utils/graphs.py``)
     over static inputs and returns ``(step, draw)``; ``example_inputs`` is ``{"table",
@@ -212,11 +227,11 @@ def make_device_replay(ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum:
     batch_size = cfg.algo.per_rank_batch_size
     seq_len = cfg.algo.per_rank_sequence_length
     extra = [("actions", act_dim_sum), ("rewards", 1), ("terminated", 1), ("truncated", 1), ("is_first", 1)]
-    if device_replay_enabled(cfg):
+    if device_replay_enabled(cfg, rb):
         mirror = make_mirror_for(rb, cnn_keys, mlp_keys, obs_space, extra, device)
         table = torch.zeros(2 * batch_size + 1, dtype=torch.int64, device=device)  # envs, starts, flag
         step, draw = make_step({"table": table, "gather": mirror.make_gather_fn(seq_len)})
-        dispatcher = IndexedBlockDispatcher(step, draw, target_update_freq)
+        dispatcher = IndexedBlockDispatcher(step, draw, target_update_freq, count_offset=count_offset)
         prefetcher, rb_lock = None, contextlib.nullcontext()
 
         def run_block(n: int, start_count: int, stage_next: bool = True) -> None:
@@ -231,7 +246,7 @@ def make_device_replay(ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum:
         }
         table = torch.zeros(1, dtype=torch.int64, device=device)  # flag
         step, draw = make_step({"table": table, "batch": batch})
-        dispatcher = BlockDispatcher(step, draw, target_update_freq)
+        dispatcher = BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset)
         prefetcher, rb_lock, sample_block = make_replay_prefetcher(rb, device, cfg, batch_size, seq_len)
 
         def run_block(n: int, start_count: int, stage_next: bool = True) -> None:

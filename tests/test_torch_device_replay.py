@@ -194,15 +194,17 @@ def test_make_mirror_for_has_the_reference_layout():
 
 def test_device_replay_refuses_data_parallelism():
     from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.device_buffer import device_replay_enabled
 
     cfg = compose(overrides=[*TINY, "device=cpu"])
-    assert device_replay_enabled(cfg) is False
+    rb = EnvIndependentReplayBuffer(8, n_envs=2, buffer_cls=SequentialReplayBuffer)
+    assert device_replay_enabled(cfg, rb) is False
     cfg.buffer.device = True
-    assert device_replay_enabled(cfg) is True
+    assert device_replay_enabled(cfg, rb) is True
     cfg.mesh.data = 2
     with pytest.raises(NotImplementedError, match="mesh.data"):
-        device_replay_enabled(cfg)
+        device_replay_enabled(cfg, rb)
 
 
 RUN = [

@@ -23,6 +23,12 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.eval",
     "sheeprl_tpu_torch.__main__",
     "sheeprl_tpu_torch.algos",
+    "sheeprl_tpu_torch.algos.dreamer_loop",
+    "sheeprl_tpu_torch.algos.dreamer_v2.agent",
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v2.loss",
+    "sheeprl_tpu_torch.algos.dreamer_v2.utils",
     "sheeprl_tpu_torch.algos.dreamer_v3.agent",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "sheeprl_tpu_torch.algos.dreamer_v3.loss",

@@ -25,6 +25,7 @@ import torch
 
 from sheeprl_tpu_torch.ops.gru import (
     MAX_CLUSTER,
+    _cdiv,
     geometry,
     layernorm_gru,
     layernorm_gru_backward,
@@ -242,7 +243,7 @@ def bwd_rows(geo, batch, cta, group):
     rpc, rpg = geo["rows_per_cta"], geo["rows_per_group"]
     first = cta * rpc * rpg + group
     return [r for r in range(first, first + rpg * rpc, rpc) if r < batch]
-PLAN_HIDDEN = [64, 200, 512, 2048, 2056, 4096, 5000, 16384]
+PLAN_HIDDEN = [64, 200, 512, 600, 2048, 2056, 4096, 5000, 16384]
 
 
 @pytest.mark.parametrize("hidden", PLAN_HIDDEN)
@@ -316,7 +317,48 @@ def test_geometry_at_the_models_shapes():
     assert geometry(1, 16384)["bwd_launches"] == 1
 
 
-@pytest.mark.parametrize("batch,hidden", [(16, 512), (1024, 512), (129, 512), (16, 5000), (1, 16384)])
+def test_geometry_at_dreamer_v2s_width():
+    """DreamerV2's GRU (H = 600). The unroll's 16 rows: 2 units a thread would take 320
+    threads, over a CTA's 256, so 4 units a thread, 160 threads a row of which 150 own
+    units (the first plan whose row has a partly idle warp), one row per CTA, the backward
+    one launch of a cluster of 16 with 14,848 B of dynamic shared memory. The
+    imagination's 800 rows (T 50 x B 16): 7 rows a group, 120 backward CTAs in clusters of
+    8 (115 with rows), two launches and 15 partial rows."""
+    unroll, imagination = geometry(16, 600), geometry(800, 600)
+    assert (unroll["units"], unroll["vec"], unroll["threads_per_row"], unroll["rows_per_cta"], unroll["fwd_grid"]) == (4, 4, 160, 1, 16)
+    assert _cdiv(600, unroll["units"]) == 150 < unroll["threads_per_row"]
+    assert (unroll["bwd_launches"], unroll["cluster"], unroll["bwd_grid"], unroll["partial_rows"], unroll["bwd_smem"]) == (1, 16, 16, 0, 14848)
+    assert (imagination["units"], imagination["threads_per_row"], imagination["fwd_grid"]) == (4, 160, 800)
+    assert (imagination["rows_per_group"], imagination["bwd_grid"], imagination["cluster"]) == (7, 120, 8)
+    assert (imagination["bwd_launches"], imagination["partial_rows"]) == (2, 15)
+    assert _cdiv(800, imagination["rows_per_group"]) == 115
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [16, 800])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_at_dreamer_v2s_width(cuda_device, batch, dtype):
+    """Both kernels at H = 600 (the unroll's 16 rows and the imagination's 800) against
+    the plain version in float32, through autograd as the model calls them, twice giving
+    the same bits."""
+    proj, h, gamma, beta, g = _card_operands(batch, 600, cuda_device, seed=50)
+    args = (proj.to(dtype), h.to(dtype), gamma, beta)
+    fwd, bwd = layernorm_gru.launches, layernorm_gru_backward.launches
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    out = layernorm_gru(*leaves)
+    torch.autograd.backward(out, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (layernorm_gru.launches, layernorm_gru_backward.launches) == (fwd + 1, bwd + 1)
+    _assert_forward_close(out.detach(), args)
+    _assert_backward_close([t.grad for t in leaves], args, g.to(dtype))
+    with torch.inference_mode():
+        assert torch.equal(layernorm_gru(*args), out.detach())
+    again = layernorm_gru_backward(*args, g.to(dtype))
+    for name, a, b in zip(("dproj", "dh", "dgamma", "dbeta"), again, [t.grad for t in leaves]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("batch,hidden", [(16, 512), (1024, 512), (129, 512), (16, 5000), (1, 16384), (800, 600)])
 def test_backward_scratch_is_sized_from_the_geometry(batch, hidden):
     """The wrapper's scratch is ``partial_rows`` rows of [2][3H] float32, none for a
     one-launch call."""
@@ -337,7 +379,7 @@ def test_geometry_refuses_what_the_kernels_do_not_plan():
 
 
 CARD_BATCHES = [1, 8, 16, 17, 128, 129, 1024, 4096]
-CARD_HIDDEN = [64, 512, 4096, 5000, 16384]
+CARD_HIDDEN = [64, 512, 600, 4096, 5000, 16384]
 
 
 def _card_operands(batch, hidden, device, seed):

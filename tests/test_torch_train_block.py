@@ -130,7 +130,7 @@ def test_block_equals_sequential_train_steps(replay, actor):
     """G steps as one block (chunks 2 + 1) against G ``train_step`` calls with the draws
     of a generator seeded alike and the reference's target flags (freq 2, from a
     start count of 5): parameters, optimizer states, moments and the last metrics."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_captured_step
+    from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
     from sheeprl_tpu_torch.data import device_buffer as db
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, IndexedBlockDispatcher, target_flags
@@ -376,7 +376,7 @@ def test_cuda_graphed_block_equals_the_eager_steps(cuda_device, actor):
     its parameters lie as close to one eager run's as a second eager run's do (TF32 off;
     a kernel whose summation order is not fixed makes two eager runs differ), and its
     last metrics equal the eager step's to rtol 1e-4."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_captured_step
+    from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, target_flags
 
     torch.backends.cuda.matmul.allow_tf32 = False
