@@ -59,18 +59,37 @@ result line:
 12. dv2-train-cli: DreamerV2's train entry at those widths (``DV2_CLI``) with
    ``buffer.device=True`` and with ``buffer.type=episode``: train, resume, eval; K1-bwd
    = 65 x (gradient steps + 2); then a ``[dv2-counts]`` line;
-13. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+13. dv1-, p2e-dv1- and p2e-dv2-train-agreement: one step of a small DreamerV1, P2E-DV1 and
+   P2E-DV2 exploration agent on the card against the CPU, under ``[train-agreement]``'s
+   limits;
+14. dv1-train-graph and p2e-dv1-train-graph: DreamerV1 at its published widths
+   (``DV1_OVERRIDES``: dense 400 x 4, ELU, CNN 32, plain GRU H 200, stochastic 30, B 50 x
+   T 50, horizon 15, rgb 64 x 64, discrete, bf16-mixed), then the P2E-DV1 exploration
+   step at those widths with 10 ensembles of 400 x 4 that predict the 1024-wide
+   embedding (``P2E_DV1_OVERRIDES``), each as ``[train-graph]``: parity, no K1 launch;
+   eager, graph, graph, eager;
+15. p2e-dv2-train-graph: the P2E-DV2 exploration step at DreamerV2's widths with 10
+   ensembles of 400 x 4 (``P2E_DV2_OVERRIDES``), discrete (parity, K1 per replay 80
+   forward and 50 backward by the profiler, the capture and the plan, then the turns)
+   and continuous (parity, 80 forward, 80 backward, 30 sum launches);
+16. dv1-train-cli: DreamerV1's train entry (``DV1_CLI``): train, resume, eval; no K1;
+17. p2e-dv1-cli and p2e-dv2-cli: at the graph phases' widths (``P2E_DV1_OVERRIDES``,
+   ``P2E_DV2_OVERRIDES``), explore (train, resume), finetune from the exploration
+   checkpoint without and with ``buffer.load_from_exploration``, evaluate the exploration
+   and each finetuning run; K1-bwd = the step's plan x (gradient steps + 2) per run (50
+   exploring, 65 finetuning; none for P2E-DV1); then a ``[p2e-counts]`` line;
+18. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
    ``plain``'s (``RSSM_SCAN_TOL``).
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600). Every path (eval,
-batched, train, train-cli, the DreamerV2 phases, rssm-scan) zeroes the kernels' launch
-counters just before it and reads them just after; a replayed graph adds its capture's
-counts on every replay (``utils/graphs.py``). The script then prints one JSON line describing
-every kernel, and last the line ``{"ok": true, "device": {...}}``. Exits 2 without
-CUDA.
+batched, train, train-cli, the DreamerV2, DreamerV1 and P2E phases, rssm-scan) zeroes
+the kernels' launch counters just before it and reads them just after; a replayed graph
+adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
+one JSON line describing every kernel (K1's rows with its launches on every path that
+runs it), and last the line ``{"ok": true, "device": {...}}``. Exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -209,6 +228,48 @@ DV2_CLI = [
     "checkpoint.every=128",
     "metric.log_every=128",
 ]
+# DreamerV1 at its published widths (exp=dreamer_v1: dense 400 x 4, ELU, CNN multiplier
+# 32, plain GRU H = 200, stochastic 30, B 50 x T 50, horizon 15, bf16-mixed) on 64x64 rgb
+DV1_OVERRIDES = [
+    "exp=dreamer_v1",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+]
+# its train entry on 4 sync envs: 52 rows per env before the first gradient step (a
+# sequence is 50), 4 pretraining steps, 96 iterations, checkpoints every 128 policy steps
+DV1_CLI = [
+    "env.sync_env=True",
+    "algo.learning_starts=208",
+    "algo.per_rank_pretrain_steps=4",
+    "algo.total_steps=384",
+    "checkpoint.every=128",
+    "metric.log_every=128",
+]
+# P2E-DV2's exploration step at DreamerV2's widths, 10 ensembles of 400 x 4
+P2E_DV2_OVERRIDES = [
+    "exp=p2e_dv2_exploration",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+]
+# DreamerV2's schedule, with a 8,192-row replay (the exploration run checkpoints its
+# buffer, which the finetuning run loads: the exp's 10^6 rows would be copied each time)
+P2E_DV2_CLI = [*DV2_CLI, "buffer.size=8192"]
+# P2E-DV1's exploration step at DreamerV1's widths, 10 ensembles of 400 x 4 that predict
+# the 1024-wide observation embedding
+P2E_DV1_OVERRIDES = [
+    "exp=p2e_dv1_exploration",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+]
+# DreamerV1's schedule, with an 8,192-row replay (checkpointed by the exploration run and
+# loaded by the finetuning run, as P2E_DV2_CLI's)
+P2E_DV1_CLI = [*DV1_CLI, "buffer.size=8192"]
 # a small DreamerV2 for the card-against-CPU training step
 SMALL_DV2 = [
     "exp=dreamer_v2_dummy",
@@ -228,6 +289,26 @@ SMALL_DV2 = [
     "algo.horizon=5",
     "mesh.precision=32-true",
 ]
+# small DreamerV1, P2E-DV1 and P2E-DV2 (three ensembles) for the card-against-CPU step
+SMALL_DV1 = [
+    "exp=dreamer_v1_dummy",
+    "env=discrete_dummy",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+    "algo.dense_units=64",
+    "algo.mlp_layers=2",
+    "algo.world_model.encoder.cnn_channels_multiplier=8",
+    "algo.world_model.recurrent_model.recurrent_state_size=128",
+    "algo.world_model.transition_model.hidden_size=64",
+    "algo.world_model.representation_model.hidden_size=64",
+    "algo.world_model.stochastic_size=16",
+    "algo.per_rank_batch_size=4",
+    "algo.per_rank_sequence_length=16",
+    "algo.horizon=5",
+    "mesh.precision=32-true",
+]
+SMALL_P2E_DV1 = ["exp=p2e_dv1_dummy", *SMALL_DV1[1:], "algo.ensembles.n=3"]
+SMALL_P2E_DV2 = ["exp=p2e_dv2_dummy", *SMALL_DV2[1:], "algo.ensembles.n=3"]
 
 
 def log(msg: str) -> None:
@@ -329,9 +410,13 @@ def launch_floor_ms(device: torch.device) -> float:
 def gru_launches_per_call(fn, want: int, what: str, calls: int = 4) -> int | None:
     """Kernel launches per call of ``fn`` whose name holds ``layernorm_gru``, counted by
     ``torch.profiler`` over ``calls`` eager calls; it must be ``want`` (the plan's). None
-    where the profiler recorded no kernel at all (not measured)."""
+    where the profiler recorded no kernel at all (not measured). One call runs before the
+    profiler starts: a kernel's first launch loads its module, and the profiler has been
+    seen to miss a launch made then."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -695,28 +780,47 @@ def _s_config(extra=()):
     return compose(overrides=[*S_OVERRIDES, *extra])
 
 
-def _build_s_agent(cfg, device: torch.device, seed: int):
-    """The agent ``cfg`` describes (its ``algo.name``'s), computing in its
-    ``mesh.precision``."""
+def _algo_package(name: str) -> str:
+    """The package of an algorithm's modules: ``p2e_dv2`` for ``p2e_dv2_exploration``."""
+    return name.rsplit("_", 1)[0] if name.startswith("p2e_") else name
+
+
+def _train_parts(cfg, device: torch.device, seed: int):
+    """``(actions_dim, modules, make)`` of ``cfg``'s algorithm (any Dreamer or P2E
+    entry): its modules by their checkpoint names, built on ``device`` from ``seed`` in
+    its ``mesh.precision``, and ``make(modules) -> (step, init)``, its train step over a
+    set of such modules (image key ``rgb``), of one call shape for every algorithm."""
+    import importlib
+
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import parse_actions_dim
     from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
     from sheeprl_tpu_torch.utils.env import make_env
 
     env = make_env(cfg, cfg.seed, 0, None)()
     is_continuous, actions_dim = parse_actions_dim(env.action_space)
+    obs_space = env.observation_space
+    env.close()
     ctx = RunContext(device, seed, compute_dtype=compute_dtype(cfg.mesh.precision))
-    modules = _train_module(cfg.algo.name).build_agent(ctx, actions_dim, is_continuous, cfg, env.observation_space)
-    return env, actions_dim, modules
+    name, pkg = cfg.algo.name, _algo_package(cfg.algo.name)
+    built = importlib.import_module(f"sheeprl_tpu_torch.algos.{pkg}.agent").build_agent(ctx, actions_dim, is_continuous, cfg, obs_space)
+    train = importlib.import_module(f"sheeprl_tpu_torch.algos.{pkg}.{name}")
+    if pkg.startswith("p2e_"):
+        return actions_dim, built[0], lambda mods: train.make_train_step(mods, cfg, ["rgb"], [])
+    modules = dict(zip(("world_model", "actor", "critic", "target_critic"), built[:-1]))
+    return actions_dim, modules, lambda mods: train.make_train_step(*mods.values(), cfg, ["rgb"], [])
 
 
-def _train_module(name: str):
-    """The training module of the algorithm ``name`` (``algos/<name>/<name>.py``): its
-    ``make_train_step`` gives a step of one call shape for every Dreamer,
-    ``step(opt, extra, batch, flag, **draws_or_generator) -> (extra, metrics)``, with
-    ``step.init_extra()`` the further state it carries."""
-    import importlib
+def _lr(cfg, module: str) -> float:
+    """The learning rate of the optimizer that trains ``module`` (a target critic: its
+    critic's)."""
+    a = cfg.algo
+    if module in ("world_model", "ensembles"):
+        return a[module].optimizer.lr
+    return (a.actor if module.startswith("actor") else a.critic).optimizer.lr
 
-    return importlib.import_module(f"sheeprl_tpu_torch.algos.{name}.{name}")
+
+def _is_continuous(modules: dict) -> bool:
+    return (modules.get("actor") or modules["actor_task"]).is_continuous
 
 
 def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> float:
@@ -726,7 +830,8 @@ def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> flo
 
     set_tf32(False)
     cfg = _s_config(["device=cpu", "mesh.precision=32-true"])
-    env, actions_dim, (wm, actor, _, _, _) = _build_s_agent(cfg, torch.device("cpu"), seed=11)
+    actions_dim, modules, _ = _train_parts(cfg, torch.device("cpu"), seed=11)
+    wm, actor = modules["world_model"], modules["actor"]
     wm_d, actor_d = copy.deepcopy(wm).to(device), copy.deepcopy(actor).to(device)
     wm_cfg = cfg.algo.world_model
     stoch, discrete = wm_cfg.stochastic_size, wm_cfg.discrete_size
@@ -763,7 +868,6 @@ def phase_agreement(device: torch.device, steps: int = 4, batch: int = 2) -> flo
                 worst = max(worst, (a - b).abs().max().item())
     log(f"[agreement] size-S player at mesh.precision=32-true, {steps} steps x {batch} envs, {device} vs cpu: "
         f"max_abs_diff {worst:.3e} (atol=rtol=1e-3)")
-    env.close()
     return worst
 
 
@@ -776,12 +880,12 @@ def phase_eval(device: torch.device, workdir: Path) -> dict:
 
     set_tf32(True)  # the config's float32_matmul_precision=high sets the same for matmuls
     cfg = _s_config([f"device={device.type}"])
-    _, _, (wm, actor, critic, target_critic, _) = _build_s_agent(cfg, device, seed=cfg.seed)
-    params = {"world_model": wm.state_dict(), "actor": actor.state_dict(), "critic": critic.state_dict(), "target_critic": target_critic.state_dict()}
+    _, modules, _ = _train_parts(cfg, device, seed=cfg.seed)
+    params = {name: m.state_dict() for name, m in modules.items()}
     n_params = sum(v.numel() for sd in params.values() for v in sd.values())
     save_config(cfg, workdir / "run" / "config.yaml")
     ckpt = CheckpointManager(workdir / "run" / "checkpoints").save(1, {"params": params})
-    del wm, actor, critic, target_critic, params
+    del modules, params
 
     built = []
     real_build = dv3_eval.build_agent
@@ -823,8 +927,8 @@ def phase_batched(device: torch.device, n_envs: int = 16, steps: int = 64) -> di
 
     set_tf32(True)
     cfg = _s_config([f"device={device.type}"])
-    env, actions_dim, (wm, actor, _, _, _) = _build_s_agent(cfg, device, seed=3)
-    env.close()
+    actions_dim, modules, _ = _train_parts(cfg, device, seed=3)
+    wm, actor = modules["world_model"], modules["actor"]
     wm_cfg = cfg.algo.world_model
     rec, stoch = wm_cfg.recurrent_model.recurrent_state_size, wm_cfg.stochastic_size * wm_cfg.discrete_size
     step = make_player_step(wm, actor, actions_dim, wm_cfg.discrete_size)
@@ -926,17 +1030,15 @@ def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: st
 
     set_tf32(False)
     cfg = compose(overrides=[*overrides, "device=cpu"])
-    train = _train_module(cfg.algo.name)
-    env, actions_dim, cpu_modules = _build_s_agent(cfg, torch.device("cpu"), seed=21)
-    env.close()
-    dev_modules = [copy.deepcopy(m).to(device) for m in cpu_modules[:4]]
+    actions_dim, cpu_modules, make = _train_parts(cfg, torch.device("cpu"), seed=21)
+    dev_modules = {k: copy.deepcopy(m).to(device) for k, m in cpu_modules.items()}
     gen = torch.Generator().manual_seed(4)
     batch = _train_batch(cfg, actions_dim, torch.device("cpu"), gen)
     T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
     draws = None
     results = []
-    for modules, dev in ((cpu_modules[:4], torch.device("cpu")), (dev_modules, device)):
-        step, init = train.make_train_step(*modules, cfg, ["rgb"], [])
+    for modules, dev in ((cpu_modules, torch.device("cpu")), (dev_modules, device)):
+        step, init = make(modules)
         if draws is None:
             draws = step.sample_draws(T, B, gen, torch.device("cpu"))
         opt = init()
@@ -946,17 +1048,15 @@ def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: st
     torch.cuda.synchronize()
     (cm, copt, cmet), (dm, dopt, dmet) = results
     tol = TRAIN_AGREEMENT_TOL
-    a = cfg.algo
-    lrs = (a.world_model.optimizer.lr, a.actor.optimizer.lr, a.critic.optimizer.lr, a.critic.optimizer.lr)
     # both start from the same weights, so the difference of the two parameter changes is
     # that of the new parameters; per module: its largest entry over lr, and the share of
     # entries off by more than the limit
     steps = {}
-    for name, a, b, lr in zip(("world_model", "actor", "critic", "target_critic"), cm, dm, lrs):
-        sa, sb = a.state_dict(), b.state_dict()
+    for name in cm:
+        lr, sa, sb = _lr(cfg, name), cm[name].state_dict(), dm[name].state_dict()
         diff = torch.cat([(sb[k].float().cpu() - sa[k].float()).abs().flatten() for k in sa])
         steps[name] = ((diff.max() / lr).item(), (diff > tol["step_of_lr"] * lr).float().mean().item())
-    leaves = {name: [k for k, _ in m.named_parameters()] for name, m in zip(("world_model", "actor", "critic"), cm)}
+    leaves = {name: [k for k, _ in cm[name].named_parameters()] for name in copt}
     moments = {}  # per moment: the leaf whose card value lies furthest from the CPU's, by relative norm
     for key in ("mu", "nu"):
         moments[key] = max(
@@ -971,7 +1071,7 @@ def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: st
         bad.append(f"Adam moments {rel_moment}")
     if not all(torch.isfinite(v).all() for v in dmet.values()):
         bad.append("non-finite metrics")
-    log(f"{label} small agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: parameter change "
+    log(f"{label} small {cfg.algo.name} agent, one step at mesh.precision=32-true, TF32 off, {device} vs cpu: parameter change "
         "(max |card - cpu| / lr, share > " + f"{tol['step_of_lr']} lr) " + json.dumps(steps) + f" (share <= {tol['off_share']}); "
         "Adam moments, the leaf furthest off (relative norm diff, leaf, its norm) " + json.dumps(moments)
         + f" (<= {tol['moments_rtol']}); metrics (cpu, card) " + json.dumps(metrics)
@@ -985,16 +1085,14 @@ def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy
     """The size-S training step on the card at the config's matmul precision (TF32):
     steps/s, the kernels' launches per step (checked), peak memory, and one profiled
     step."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
     from sheeprl_tpu_torch.config.core import compose
 
     set_tf32(True)
     cfg = compose(overrides=[*TRAIN_OVERRIDES, f"env={env}", f"mesh.precision={precision}", "device=cuda"])
-    env_, actions_dim, (wm, actor, critic, target, _) = _build_s_agent(cfg, device, seed=31)
-    env_.close()
-    is_continuous = actor.is_continuous
-    step, init = make_train_step(wm, actor, critic, target, cfg, ["rgb"], [])
+    actions_dim, modules, make = _train_parts(cfg, device, seed=31)
+    is_continuous = _is_continuous(modules)
+    step, init = make(modules)
     gen = torch.Generator(device=device).manual_seed(6)
     batch = _train_batch(cfg, actions_dim, device, gen)
     if is_continuous:
@@ -1075,17 +1173,28 @@ def _moment_diff(oa: dict, ob: dict) -> float:
 
 def k1_per_step(cfg, is_continuous: bool) -> dict:
     """K1 launches a training step makes, by the kernels' plan (``ops/gru.py::geometry``):
-    the forward at every unroll and imagination step; the backward at every unroll step,
-    and at every imagination step where the gradient crosses the imagination (a
-    continuous DreamerV3 actor; DreamerV2 always, its dynamics term); a second (sum)
-    launch for each backward whose plan is two launches."""
+    the forward at every unroll step and every step of each imagination (P2E-DV2's
+    exploration step imagines twice, for the exploration and the task actor); the
+    backward at every unroll step, and at every step of an imagination that the
+    gradient crosses: DreamerV3's with a continuous actor, DreamerV2's (and P2E-DV2
+    finetuning's) always, its dynamics term, each of P2E-DV2 exploration's with a
+    continuous actor only (a discrete one's objective is REINFORCE on the stopped
+    trajectory); a second (sum) launch for each backward whose plan is two launches.
+    DreamerV1 and P2E-DV1 step a plain GRU: no K1."""
     from sheeprl_tpu_torch.ops.gru import geometry
 
+    name = cfg.algo.name
+    if name.startswith(("dreamer_v1", "p2e_dv1")):
+        return {"fwd": 0, "bwd": 0, "bwd_sum": 0}
     T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
     rec = cfg.algo.world_model.recurrent_model.recurrent_state_size
-    imag_bwd = H if (is_continuous or cfg.algo.name == "dreamer_v2") else 0
+    imaginations = 2 if name == "p2e_dv2_exploration" else 1
+    if name in ("dreamer_v2", "p2e_dv2_finetuning"):
+        imag_bwd = H
+    else:
+        imag_bwd = imaginations * H if is_continuous else 0
     two = lambda rows: geometry(rows, rec)["bwd_launches"] - 1  # noqa: E731
-    return {"fwd": T + H, "bwd": T + imag_bwd, "bwd_sum": T * two(B) + imag_bwd * two(T * B)}
+    return {"fwd": T + imaginations * H, "bwd": T + imag_bwd, "bwd_sum": T * two(B) + imag_bwd * two(T * B)}
 
 
 def phase_train_graph(
@@ -1106,13 +1215,10 @@ def phase_train_graph(
 
     set_tf32(True)
     cfg = compose(overrides=[*overrides, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda"])
-    train = _train_module(cfg.algo.name)
-    env_, actions_dim, (wm, actor, critic, target, _) = _build_s_agent(cfg, device, seed=31)
-    env_.close()
-    is_continuous = actor.is_continuous
+    actions_dim, modules, make = _train_parts(cfg, device, seed=31)
+    is_continuous = _is_continuous(modules)
     label = f"{tag} {'continuous' if is_continuous else 'discrete'}"
     T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
-    modules = {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target}
     runs = [modules] + [{k: copy.deepcopy(v) for k, v in modules.items()} for _ in range(2)]
     gen = torch.Generator(device=device).manual_seed(6)
     batches = []
@@ -1135,7 +1241,7 @@ def phase_train_graph(
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    step, init = train.make_train_step(*modules.values(), cfg, ["rgb"], [])
+    step, init = make(modules)
     opt, extra = init(), step.init_extra()
     start = time.perf_counter()
     make_step = make_captured_step(step, modules, opt, extra, T, B, torch.Generator(device=device).manual_seed(8))
@@ -1151,15 +1257,14 @@ def phase_train_graph(
 
     eager = []
     for mods in runs[1:]:
-        step_e, init_e = train.make_train_step(*mods.values(), cfg, ["rgb"], [])
+        step_e, init_e = make(mods)
         opt_e, ext_e = init_e(), step_e.init_extra()
         g = torch.Generator(device=device).manual_seed(8)
         for i, flag in enumerate(flags):
             ext_e, met_e = step_e(opt_e, ext_e, batches[i], bool(flag), draws=step_e.sample_draws(T, B, g, device))
         eager.append((mods, opt_e, ext_e, {k: v.item() for k, v in met_e.items()}, step_e))
     torch.cuda.synchronize()
-    a = cfg.algo
-    lrs = {"world_model": a.world_model.optimizer.lr, "actor": a.actor.optimizer.lr, "critic": a.critic.optimizer.lr, "target_critic": a.critic.optimizer.lr}
+    lrs = {name: _lr(cfg, name) for name in modules}
     (m1, o1, ext1, met1, step1), (m2, o2, _, met2, _) = eager
     tol = TRAIN_AGREEMENT_TOL
     bad, params = [], {}
@@ -1190,7 +1295,7 @@ def phase_train_graph(
     # replays and over eager steps
     want = k1_per_step(cfg, is_continuous)
     per_replay = captured.launches_per_replay
-    if (per_replay["layernorm_gru"], per_replay["layernorm_gru_bwd"]) != (want["fwd"], want["bwd"]):
+    if (per_replay.get("layernorm_gru", 0), per_replay.get("layernorm_gru_bwd", 0)) != (want["fwd"], want["bwd"]):
         bad.append(f"the capture counted {per_replay}, expected {want}")
     replay_k1 = _profiled_k1(lambda: dispatcher.dispatch(first, 4), 2)
     eager_k1 = _profiled_k1(lambda: step1(o1, ext1, batches[0], True, generator=gen), 1)
@@ -1366,6 +1471,94 @@ def phase_dv2_train_cli(device: torch.device, workdir: Path, buffer: str, overri
     return out
 
 
+def _run_counted(overrides: list, tag: str, per_step: dict, min_grad_steps: int):
+    """One run of the train entry with the launch counters zeroed just before it: K1-bwd
+    must equal the per-replay count x (gradient steps + the capture's warm-up steps), and
+    K1-fwd at least the replays' (the player adds one a step). Returns ``(result,
+    counts)``."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    zero_launches()
+    result = run(overrides)
+    fwd, bwd = launches()
+    want = per_step["bwd"] * (result.grad_steps + WARMUP_STEPS)
+    if result.grad_steps < min_grad_steps or bwd != want or fwd < per_step["fwd"] * (result.grad_steps + WARMUP_STEPS) or result.checkpoint is None:
+        raise AssertionError(f"{tag}: {result.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)} (bwd expected {want}), checkpoint {result.checkpoint}")
+    counts = {"grad_steps": result.grad_steps, "fwd": fwd, "bwd": bwd, "policy_steps_per_s": result.policy_steps / result.seconds,
+              "seconds": result.seconds, "train_seconds": result.train_seconds, "env_seconds": result.env_seconds}
+    log(f"{tag}: {result.policy_steps} policy steps, {result.grad_steps} gradient steps in {result.seconds:.2f} s "
+        f"({counts['policy_steps_per_s']:.1f} policy steps/s; {result.train_seconds:.2f} s dispatching gradient steps, "
+        f"{result.env_seconds:.2f} s acting and stepping envs), layernorm_gru launches fwd {fwd} bwd {bwd} = {per_step['bwd']} x "
+        f"({result.grad_steps} + {WARMUP_STEPS})")
+    return result, counts
+
+
+def _evaluate_counted(ckpt: str, workdir: Path, tag: str, k1: bool) -> dict:
+    """The eval entry on ``ckpt``: one K1-fwd a player step where the world model steps
+    K1 (``k1``), none else; no K1-bwd."""
+    from sheeprl_tpu_torch.cli import evaluate
+
+    zero_launches()
+    start = time.perf_counter()
+    result = evaluate([f"checkpoint_path={ckpt}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    fwd, bwd = launches()
+    if fwd != (result.steps if k1 else 0) or bwd != 0 or not math.isfinite(result.reward):
+        raise AssertionError(f"{tag} eval: {result.steps} steps, launches {(fwd, bwd)}, reward {result.reward}")
+    log(f"{tag} eval of {Path(ckpt).name}: reward {result.reward}, {result.steps} player steps in "
+        f"{time.perf_counter() - start:.2f} s, layernorm_gru launches fwd {fwd}")
+    return {"steps": result.steps, "fwd": fwd}
+
+
+def phase_dv1_train_cli(device: torch.device, workdir: Path) -> dict:
+    """DreamerV1's train entry at its published widths (``DV1_CLI``'s schedule): train,
+    checkpoint, resume from the checkpoint at policy step 128, evaluate the last
+    checkpoint. Its plain GRU launches no K1."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+
+    set_tf32(True)
+    tag = "[dv1-train-cli]"
+    overrides = [*DV1_OVERRIDES, *DV1_CLI, f"device={device.type}", f"log_root={workdir / 'logs'}"]
+    none = {"fwd": 0, "bwd": 0, "bwd_sum": 0}
+    first, out_train = _run_counted(overrides, f"{tag} train", none, 8)
+    mid = next(p for p in CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints() if p.name == "ckpt_128")
+    resumed, out_resume = _run_counted([*overrides, f"checkpoint.resume_from={mid}"], f"{tag} resume from {mid.name}", none, 1)
+    return {"train": out_train, "resume": out_resume, "eval": _evaluate_counted(resumed.checkpoint, workdir, tag, k1=False)}
+
+
+def phase_p2e_cli(device: torch.device, workdir: Path, version: int, overrides: list, schedule: list) -> dict:
+    """P2E on DreamerV``version`` through the train and eval entries at ``overrides``'
+    widths and ``schedule``: explore (train, checkpoint with the replay buffer, resume
+    from the checkpoint at policy step 128), then finetune from the exploration
+    checkpoint once without and once with ``buffer.load_from_exploration``; evaluate
+    the exploration run's and each finetuning run's last checkpoint. Each run's K1-bwd
+    equals its step's plan (``k1_per_step``: the exploration step's, then DreamerV2's)
+    x (gradient steps + 2); DreamerV1's plain GRU launches none."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.config.core import compose
+
+    set_tf32(True)
+    tag = f"[p2e-dv{version}-cli]"
+    base = [*overrides, *schedule, f"device={device.type}", f"log_root={workdir / 'logs'}", "buffer.checkpoint=True"]
+    out = {}
+    per_step = k1_per_step(compose(overrides=base), is_continuous=False)
+    explored, out["explore"] = _run_counted(base, f"{tag} explore", per_step, 8)
+    mid = next(p for p in CheckpointManager(Path(explored.log_dir) / "checkpoints").list_checkpoints() if p.name == "ckpt_128")
+    _, out["explore_resume"] = _run_counted([*base, f"checkpoint.resume_from={mid}"], f"{tag} explore resume from {mid.name}", per_step, 1)
+    out["explore_eval"] = _evaluate_counted(explored.checkpoint, workdir, f"{tag} explore", k1=version == 2)
+    for load in (False, True):
+        tuned_args = [*base, f"algo.name=p2e_dv{version}_finetuning", f"checkpoint.exploration_ckpt_path={explored.checkpoint}", f"buffer.load_from_exploration={load}"]
+        fine_step = k1_per_step(compose(overrides=tuned_args), is_continuous=False)
+        tuned, out[f"finetune_load_{load}"] = _run_counted(tuned_args, f"{tag} finetune load_from_exploration={load}", fine_step, 8)
+        state = CheckpointManager.load(tuned.checkpoint)
+        if state.get("actor_type") != "task" or set(state["params"]) != set(CheckpointManager.load(explored.checkpoint)["params"]):
+            raise AssertionError(f"{tag} finetune: actor_type {state.get('actor_type')}, modules {sorted(state['params'])}")
+        out[f"finetune_load_{load}"]["k1_per_step"] = fine_step
+        out[f"finetune_load_{load}_eval"] = _evaluate_counted(tuned.checkpoint, workdir, f"{tag} finetune", k1=version == 2)
+    out["k1_per_step"] = per_step
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
@@ -1422,9 +1615,43 @@ def main() -> int:
         "k1_per_step_plan": dv2_graph["k1_per_step_plan"],
         "train_cli": {b: {k: c[k] for k in ("train", "resume", "eval")} for b, c in dv2_cli.items()},
     }))
+    timed("dv1-train-agreement", phase_train_agreement, device, SMALL_DV1, "[dv1-train-agreement]")
+    timed("p2e-dv1-train-agreement", phase_train_agreement, device, SMALL_P2E_DV1, "[p2e-dv1-train-agreement]")
+    timed("p2e-dv2-train-agreement", phase_train_agreement, device, SMALL_P2E_DV2, "[p2e-dv2-train-agreement]")
+    dv1_graph = timed("dv1-train-graph", phase_train_graph, device, timed_steps=4, overrides=DV1_OVERRIDES, tag="[dv1-train-graph]")
+    p2e_dv1_graph = timed(
+        "p2e-dv1-train-graph", phase_train_graph, device, timed_steps=4, overrides=P2E_DV1_OVERRIDES, tag="[p2e-dv1-train-graph]"
+    )
+    p2e_graph = timed("p2e-dv2-train-graph", lambda: [
+        phase_train_graph(device, timed_steps=4, overrides=P2E_DV2_OVERRIDES, tag="[p2e-dv2-train-graph]"),
+        phase_train_graph(device, env="continuous_dummy", overrides=P2E_DV2_OVERRIDES, tag="[p2e-dv2-train-graph]"),
+    ])
+    with tempfile.TemporaryDirectory() as tmp:
+        dv1_cli = timed("dv1-train-cli", phase_dv1_train_cli, device, Path(tmp))
+    p2e_cli = {}
+    for version, overrides, schedule in ((1, P2E_DV1_OVERRIDES, P2E_DV1_CLI), (2, P2E_DV2_OVERRIDES, P2E_DV2_CLI)):
+        with tempfile.TemporaryDirectory() as tmp:
+            p2e_cli[version] = timed(f"p2e-dv{version}-cli", phase_p2e_cli, device, Path(tmp), version, overrides, schedule)
+    log("[p2e-counts] " + json.dumps({
+        "p2e_dv2_exploration": {
+            g["actor"]: {k: g[k] for k in ("k1_per_replay_capture", "k1_per_replay_profiler", "k1_per_eager_step_profiler", "k1_per_step_plan")}
+            for g in p2e_graph
+        },
+        "dv1_train_graph_k1_per_replay_capture": dv1_graph["k1_per_replay_capture"],
+        "p2e_dv1_train_graph_k1_per_replay_capture": p2e_dv1_graph["k1_per_replay_capture"],
+        "train_cli": {f"p2e_dv{v}": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in runs.items() if "grad_steps" in r}
+                      for v, runs in p2e_cli.items()},
+        "dv1_train_cli": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in dv1_cli.items() if "grad_steps" in r},
+    }))
     scan = timed("rssm-scan", phase_rssm_scan, device)
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
+    # K1's launches on every path that runs it, each counted from zero around its run
+    k1_paths = {
+        "dv3_train_cli": cli["train"], "dv2_train_cli_device": dv2_cli["device"]["train"],
+        "p2e_dv2_explore": p2e_cli[2]["explore"], "p2e_dv2_finetune_load": p2e_cli[2]["finetune_load_True"],
+        "p2e_dv2_finetune": p2e_cli[2]["finetune_load_False"],
+    }
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -1447,12 +1674,17 @@ def main() -> int:
                 "library_ms": None,
             }
         )
+        if name.startswith("layernorm_gru"):
+            line["kernels"][-1]["launches_by_path"] = {p: r["fwd" if name.endswith("fwd") else "bwd"] for p, r in k1_paths.items()}
     log(f"[done] {time.perf_counter() - t0:.1f} s; eval launches {ev['launches']}; train steps/s "
         + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train)
         + "; graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in graphed[0]["turns"])
         + f"; train-cli policy steps/s host replay {cli['train']['policy_steps_per_s']:.1f}, device replay {cli_device['train']['policy_steps_per_s']:.1f}"
         + "; DreamerV2 graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dv2_graph["turns"])
         + "; DreamerV2 train-cli policy steps/s " + ", ".join(f"{b} {c['train']['policy_steps_per_s']:.1f}" for b, c in dv2_cli.items())
+        + "; DreamerV1 graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dv1_graph["turns"])
+        + "; P2E-DV1 graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in p2e_dv1_graph["turns"])
+        + "; P2E-DV2 graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in p2e_graph[0]["turns"])
         + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
     print(smi)
     print(json.dumps(line))

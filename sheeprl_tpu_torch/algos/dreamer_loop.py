@@ -1,10 +1,12 @@
-"""The Dreamer training loop and the pieces of the train step that DreamerV3
-(``algos/dreamer_v3/dreamer_v3.py``) and DreamerV2 (``algos/dreamer_v2/dreamer_v2.py``)
-share.
+"""The Dreamer training loop and the pieces of the train step that the Dreamers
+(``algos/dreamer_v{1,2,3}``) and Plan2Explore (``algos/p2e_dv{1,2}``) share.
 
 The step's pieces: ``grads`` (one loss's gradient over one module's parameters),
-``zero_draws`` and ``fill_draws`` (a step's noise, made in bulk on the device, in place)
-and ``capture_step``/``make_captured_step`` (the step over static inputs, captured as a
+``zero_draws`` and ``fill_draws`` (a step's noise, made in bulk on the device, in place),
+the actor's draws (``actor_noise_kind``, ``actor_draw_shapes``, ``act``), the decoders'
+and heads' unit-variance Gaussian likelihoods (``gaussian_lp``, ``observation_lp``), the
+player's exploration schedule, ``evaluate_actor`` (the greedy test episode of the
+DreamerV1/V2 and P2E evaluations) and ``capture_step``/``make_captured_step`` (the step over static inputs, captured as a
 CUDA graph on a card by ``utils/graphs.py``, eager on the CPU).
 
 The loop, ``run_loop(ctx, cfg, setup)``: act in the vector env, store the rows, run each
@@ -12,8 +14,9 @@ iteration's gradient steps as one block of the captured step (``utils/blocks.py`
 batches gathered on the device from its replay ring (``buffer.device``,
 ``data/device_buffer.py``) or prefetched from the host buffer, log, checkpoint, resume
 and test. An algorithm hands it its modules, optimizer states, captured step, player and
-buffer as a ``LoopParts``. ``refuse_unported`` names the config keys of the reference's
-loop that the port does not have.
+buffer as a ``LoopParts``; a P2E finetuning run also the exploration run's checkpoint to
+start from and the task player to switch to. ``refuse_unported`` names the config keys of
+the reference's loop that the port does not have.
 """
 
 from __future__ import annotations
@@ -28,18 +31,19 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, parse_actions_dim
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, prepare_obs, test
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, TestResult, prepare_obs, test
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import make_device_replay
-from sheeprl_tpu_torch.utils.env import make_vector_env
+from sheeprl_tpu_torch.distributions import Independent, Normal
+from sheeprl_tpu_torch.utils.env import make_env, make_vector_env
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator, record_episode_stats
 from sheeprl_tpu_torch.utils.timer import Timer
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, exploration_amount
 
 
 def grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -121,6 +125,87 @@ def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_stat
     return capture_step(run, state, train_step.draw_shapes, train_step.sample_draws, T, B, generator)
 
 
+def actor_noise_kind(actor) -> str:
+    """The noise a DreamerV2-style actor samples from: Gumbel noise per discrete head,
+    the truncated normal's uniform noise, or normal noise."""
+    if not actor.is_continuous:
+        return "gumbel"
+    return "uniform" if actor.distribution == "trunc_normal" else "normal"
+
+
+def actor_draw_shapes(horizon: int, rows: int, actions_dim: Sequence[int], actor_noise: str) -> Tuple[Tuple[int, ...], ...]:
+    """The shapes of an imagination's action draws: one per discrete head, or one for the
+    continuous action."""
+    heads = list(actions_dim) if actor_noise == "gumbel" else [int(sum(actions_dim))]
+    return tuple((horizon, rows, d) for d in heads)
+
+
+def act(actor, latent: torch.Tensor, noise) -> torch.Tensor:
+    """The actor's sampled action from ``latent`` under the injected ``noise``,
+    concatenated over the heads."""
+    acts = actor(latent, draws=noise)[0] if actor.is_continuous else actor(latent, gumbels=noise)[0]
+    return torch.cat(acts, -1)
+
+
+def gaussian_lp(mean: torch.Tensor, x: torch.Tensor, dims: int) -> torch.Tensor:
+    """The log-density of ``x`` under a unit-variance Gaussian at ``mean``, summed over the
+    last ``dims`` dims."""
+    return Independent(Normal(mean, torch.ones_like(mean)), dims).log_prob(x)
+
+
+def observation_lp(recon: Dict[str, torch.Tensor], data: Dict[str, torch.Tensor], cnn_keys, mlp_keys) -> torch.Tensor:
+    """The decoders' unit-variance Gaussian log-likelihood of the batch's observations
+    (images as ``x / 255 - 0.5``), summed over the keys: ``[T, B]``."""
+    T, B = data["rewards"].shape[:2]
+    lp = 0.0
+    for k in cnn_keys:
+        target = data[k].float() / 255.0 - 0.5
+        lp = lp + gaussian_lp(recon[k], target.reshape(T, B, -1, *target.shape[-2:]), 3)
+    for k in mlp_keys:
+        lp = lp + gaussian_lp(recon[k], data[k], 1)
+    return lp
+
+
+def exploration_schedule(actor_cfg):
+    """The player's exploration amount at a policy step, from ``algo.actor``."""
+    return lambda step: exploration_amount(
+        actor_cfg.get("expl_amount", 0.0), actor_cfg.get("expl_decay", 0.0), actor_cfg.get("expl_min", 0.0), step
+    )
+
+
+def evaluate_actor(ctx, cfg: Dict[str, Any], ckpt_path: str, build, make_player, actor_key: str, stoch_size: int) -> TestResult:
+    """One greedy test episode of the checkpoint's world model with its ``actor_key``
+    actor. ``build(ctx, actions_dim, is_continuous, cfg, obs_space)`` returns the
+    algorithm's modules by name; ``make_player`` is its ``make_player_step``; the player
+    state's stochastic part is ``stoch_size`` wide."""
+    log_dir = get_log_dir(cfg)
+    env = make_env(cfg, cfg.seed, 0, log_dir, "test")()
+    obs_space, act_space = env.observation_space, env.action_space
+    env.close()
+    is_continuous, actions_dim = parse_actions_dim(act_space)
+
+    modules = build(ctx, actions_dim, is_continuous, cfg, obs_space)
+    world_model, actor = modules["world_model"], modules[actor_key]
+    params = CheckpointManager.load(ckpt_path, map_location=ctx.device)["params"]
+    world_model.load_state_dict(params["world_model"])
+    actor.load_state_dict(params[actor_key])
+    world_model.eval()
+    actor.eval()
+
+    rec_size = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    act_dim_sum = int(sum(actions_dim))
+
+    def player_state_init(n: int) -> PlayerState:
+        zeros = lambda d: torch.zeros((n, d), device=ctx.device)  # noqa: E731
+        return PlayerState(zeros(rec_size), zeros(stoch_size), zeros(act_dim_sum))
+
+    result = test(make_player(world_model, actor, actions_dim, is_continuous), player_state_init, ctx, cfg, log_dir)
+    print(f"Test/cumulative_reward: {result.reward}")
+    print(f"Test/episode_steps: {result.steps}")
+    print(f"Test/player_steps_per_second: {result.steps / result.seconds}")
+    return result
+
+
 # (key, test on its value, what the reference does there that the port does not yet)
 _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, "the pipelined player"),
@@ -174,6 +259,13 @@ class LoopParts(NamedTuple):
     count_offset: int  # the target-critic cadence's (utils/blocks.py::target_flags)
     clip_reward: Callable[[np.ndarray], np.ndarray]  # applied where env.clip_rewards is set
     exploration: Optional[Callable[[int], float]]  # the player's exploration amount at a policy step
+    # A checkpoint's state a run that does not resume starts from (P2E finetuning: the
+    # exploration run's): its modules and optimizer states load in place, its replay
+    # buffer where buffer.load_from_exploration, and the player acts from the first step.
+    start_state: Optional[Dict[str, Any]] = None
+    # The player the loop switches to at its first training iteration and tests with
+    # (P2E finetuning: the task actor's); the choice is checkpointed as ``actor_type``.
+    task_player: Optional[Callable] = None
 
 
 def sequential_buffer(cfg, num_envs: int, obs_keys: Sequence[str], log_dir: str) -> EnvIndependentReplayBuffer:
@@ -188,12 +280,12 @@ def sequential_buffer(cfg, num_envs: int, obs_keys: Sequence[str], log_dir: str)
     )
 
 
-def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
+def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS) -> TrainResult:
     """The Dreamer training loop: act in the vector env, store the rows, run each
     iteration's gradient steps as one block of the captured step, log, checkpoint,
     resume and test. ``setup(obs_space, actions_dim, is_continuous, log_dir, train_gen)``
     builds the algorithm's part (``LoopParts``); ``train_gen`` is the generator of the
-    step's draws."""
+    step's draws; ``aggregator_keys`` names the metrics the loop logs."""
     refuse_unported(cfg)
     device = ctx.device
     log_dir = get_log_dir(cfg)
@@ -210,7 +302,8 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     num_envs = cfg.env.num_envs
-    stoch_size = cfg.algo.world_model.stochastic_size * cfg.algo.world_model.discrete_size
+    # DreamerV1's Gaussian state has no classes
+    stoch_size = cfg.algo.world_model.stochastic_size * cfg.algo.world_model.get("discrete_size", 1)
     rec_size = cfg.algo.world_model.recurrent_model.recurrent_state_size
     player_gen, train_gen = ctx.rng(), ctx.rng()
 
@@ -227,16 +320,19 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
         # the device from its replay ring (buffer.device) or prefetched from the host.
         dispatcher, mirror, prefetcher, run_block, rb_add = make_device_replay(
             ctx, cfg, rb, cnn_keys, mlp_keys, obs_space, act_dim_sum, parts.make_step,
-            cfg.algo.critic.per_rank_target_network_update_freq, parts.count_offset,
+            cfg.algo.critic.get("per_rank_target_network_update_freq", 1), parts.count_offset,
         )
     except BaseException:  # a failed capture raises: stop the env workers first
         envs.close()
         raise
     modules, opt_states, player_step = parts.modules, parts.opt_states, parts.player_step
+    # with a task player: which player acts (checkpointed); the player starts with the
+    # config's actor (``algo.player.actor_type``)
+    actor_type = cfg.algo.player.get("actor_type", "exploration") if parts.task_player is not None else "exploration"
     rb_lock = prefetcher.lock if prefetcher is not None else contextlib.nullcontext()
 
     aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
-    aggregator.keep(AGGREGATOR_KEYS | set(cfg.metric.aggregator.get("metrics", {})))
+    aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
     ckpt_manager = CheckpointManager(Path(log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
 
@@ -247,8 +343,9 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
 
     start_iter, policy_step, last_log, last_checkpoint, cumulative_grad_steps = 1, 0, 0, 0, 0
     resume_from = cfg.checkpoint.get("resume_from")
-    if resume_from:
-        state = CheckpointManager.load(resume_from)  # on the host: the replay buffer stays there
+    # on the host: the replay buffer stays there
+    state = CheckpointManager.load(resume_from) if resume_from else parts.start_state
+    if state is not None:
         # in place: the captured step reads these tensors where they are
         for name, module in modules.items():
             module.load_state_dict(state["params"][name])
@@ -257,6 +354,7 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
         for name, tensors in parts.extra_state.items():
             for k, v in tensors.items():
                 v.copy_(state[name][k])
+    if resume_from:
         ratio.load_state_dict(state["ratio"])
         start_iter = state["iter_num"] + 1
         policy_step = state["policy_step"]
@@ -264,10 +362,16 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
         last_checkpoint = state.get("last_checkpoint", 0)
         cumulative_grad_steps = state.get("cumulative_grad_steps", 0)
         learning_starts += start_iter
-        if cfg.buffer.checkpoint and "rb" in state:
-            rb.load_state_dict(state["rb"])
-            if mirror is not None:
-                mirror.load_from(rb)
+        actor_type = state.get("actor_type", actor_type)
+    if state is not None and "rb" in state and (cfg.buffer.checkpoint if resume_from else cfg.buffer.get("load_from_exploration")):
+        rb.load_state_dict(state["rb"])
+        if mirror is not None:
+            mirror.load_from(rb)
+    if parts.task_player is not None and actor_type == "task":
+        player_step = parts.task_player
+    # the first iterations act at random, unless the run starts from trained modules
+    random_prefill = state is None
+    state, parts = None, parts._replace(start_state=None)  # loaded: let the buffer's copy go
 
     # Pending-row storage, as the reference: row t holds obs_t with the reward and flags
     # received on arriving at it (zeros and is_first=1 after a reset); the action taken
@@ -301,7 +405,7 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
             env_time = 0.0
             env_t0 = time.perf_counter()
             with timer("Time/env_interaction_time"):
-                if iter_num <= learning_starts and not resume_from:
+                if iter_num <= learning_starts and random_prefill:
                     sampled = np.stack([act_space.sample() for _ in range(num_envs)])
                     if is_continuous:
                         stored_actions = env_actions = sampled.astype(np.float32)
@@ -332,6 +436,8 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
             env_time += time.perf_counter() - env_t0
 
             if iter_num >= learning_starts:
+                if parts.task_player is not None and actor_type != "task":
+                    actor_type, player_step = "task", parts.task_player
                 grad_steps = ratio((policy_step + policy_steps_per_iter - prefill_iters * policy_steps_per_iter))
                 if grad_steps > 0:
                     train_t0 = time.perf_counter()
@@ -393,6 +499,8 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
                     "last_checkpoint": policy_step,
                     "cumulative_grad_steps": cumulative_grad_steps,
                 }
+                if parts.task_player is not None:
+                    ckpt_state["actor_type"] = actor_type
                 if cfg.buffer.checkpoint:
                     with rb_lock:
                         ckpt_state["rb"] = rb.state_dict()
@@ -423,7 +531,7 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts]) -> TrainResult:
     seconds = time.perf_counter() - run_start
     test_reward = None
     if cfg.algo.run_test:
-        test_reward = test(player_step, player_state_init, ctx, cfg, log_dir).reward
+        test_reward = test(parts.task_player or player_step, player_state_init, ctx, cfg, log_dir).reward
         if logger is not None:
             logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step)
     if logger is not None:

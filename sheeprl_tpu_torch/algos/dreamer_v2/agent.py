@@ -50,6 +50,7 @@ from sheeprl_tpu_torch.models.blocks import (
     _activation,
     set_compute_dtype,
 )
+from sheeprl_tpu_torch.utils.utils import exploration_amount
 
 __all__ = [
     "ActorV2",
@@ -431,15 +432,6 @@ class ActorV2(DreamerActor):
 def CriticV2(latent_size: int, dense_units: int = 400, mlp_layers: int = 4, activation: str = "elu", layer_norm: bool = False) -> DreamerCritic:
     """The DreamerV2 value head: a dense stack and one Gaussian mean."""
     return DreamerCritic(latent_size, dense_units, mlp_layers, 1, activation, layer_norm, NORM_EPS)
-
-
-def exploration_amount(expl_amount: float, expl_decay: float, expl_min: float, step: int) -> float:
-    """The exploration schedule: ``max(amount * 0.5 ** (step / decay), min)`` (Hafner's,
-    as the JAX package reads the reference's)."""
-    amount = expl_amount
-    if expl_decay:
-        amount *= 0.5 ** (float(step) / expl_decay)
-    return max(amount, expl_min)
 
 
 def add_exploration_noise(

@@ -46,19 +46,25 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_loop import (
     LoopParts,
     TrainResult,
+    act,
+    actor_draw_shapes,
+    actor_noise_kind,
+    exploration_schedule,
     fill_draws,
+    gaussian_lp,
     grads,
     make_captured_step,
+    observation_lp,
     run_loop,
     sequential_buffer,
     zero_draws,
 )
-from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent, exploration_amount, make_player_step
+from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent, make_player_step
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
 from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
-from sheeprl_tpu_torch.distributions import BernoulliSafeMode, Independent, Normal, OneHotCategorical
+from sheeprl_tpu_torch.distributions import BernoulliSafeMode, Independent, OneHotCategorical
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 
@@ -71,19 +77,122 @@ class TrainDraws(NamedTuple):
 
 def draw_shapes(T: int, B: int, horizon: int, stoch: int, discrete: int, actions_dim: Sequence[int], actor_noise: str) -> TrainDraws:
     """The shape of every draw of one step, as a ``TrainDraws`` of shapes."""
-    heads = list(actions_dim) if actor_noise == "gumbel" else [int(sum(actions_dim))]
     return TrainDraws(
         wm_prior=(T, B, stoch, discrete),
         wm_post=(T, B, stoch, discrete),
-        img_actor=tuple((horizon, T * B, d) for d in heads),
+        img_actor=actor_draw_shapes(horizon, T * B, actions_dim, actor_noise),
         img_prior=(horizon, T * B, stoch, discrete),
     )
 
 
-def _gaussian_lp(mean: torch.Tensor, x: torch.Tensor, dims: int) -> torch.Tensor:
-    """The log-density of ``x`` under a unit-variance Gaussian at ``mean``, summed over the
-    last ``dims`` dims."""
-    return Independent(Normal(mean, torch.ones_like(mean)), dims).log_prob(x)
+@torch.no_grad()
+def hard_copy(targets: Sequence[torch.Tensor], sources: Sequence[torch.Tensor], flag: bool | torch.Tensor) -> None:
+    """The hard target copy, before the update, where ``flag`` (a bool or a 0-d tensor on
+    the device) is set: a blend kept only where it is, the same bits as a copy under a
+    host-side ``if``, and graph-safe."""
+    if not isinstance(flag, torch.Tensor):
+        flag = torch.full((), bool(flag), device=sources[0].device)
+    for t, s in zip(targets, sources):
+        t.copy_(torch.where(flag.bool(), s, t))
+
+
+def unroll_v2(world_model, data: Dict[str, torch.Tensor], gumbels: Tuple[torch.Tensor, torch.Tensor], cnn_keys, mlp_keys):
+    """The RSSM over the batch from a zero state (``is_first[0] = 1``, and each step fed
+    the previous action, a zero one first). Returns the posteriors and recurrent states
+    ``[T, B, .]`` and the posterior and prior logits ``[T, B, stoch, discrete]``."""
+    T, B = data["rewards"].shape[:2]
+    device = data["rewards"].device
+    rssm = world_model.rssm
+    is_first = data["is_first"].clone()
+    is_first[0] = 1.0
+    batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
+    embed = world_model.encode({k: data[k] for k in [*cnn_keys, *mlp_keys]})  # [T, B, E]
+    post = torch.zeros(B, rssm.stochastic_size * rssm.discrete_size, device=device)
+    rec = torch.zeros(B, rssm.recurrent_state_size, device=device)
+    recs, posts, post_logits, prior_logits = [], [], [], []
+    for t in range(T):
+        rec, post, _, post_l, prior_l = world_model.dynamic(
+            post, rec, batch_actions[t], embed[t], is_first[t], gumbels=(gumbels[0][t], gumbels[1][t])
+        )
+        recs.append(rec)
+        posts.append(post)
+        post_logits.append(post_l)
+        prior_logits.append(prior_l)
+    shape = (T, B, rssm.stochastic_size, rssm.discrete_size)
+    return torch.stack(posts), torch.stack(recs), torch.stack(post_logits).reshape(shape), torch.stack(prior_logits).reshape(shape)
+
+
+def world_model_loss_v2(world_model, wm_cfg, data, unrolled, cnn_keys, mlp_keys, gamma: float, detach_heads: bool = False):
+    """DreamerV2's world-model loss over an unroll (``unroll_v2``'s): ``(loss, metrics)``.
+    ``detach_heads``: the reward and continue heads read the latents with their gradient
+    stopped (P2E)."""
+    posts, recs, post_logits, prior_logits = unrolled
+    latents = torch.cat([posts, recs], -1)  # [T, B, L]
+    head_in = latents.detach() if detach_heads else latents
+    reward_lp = gaussian_lp(world_model.reward(head_in), data["rewards"], 1)
+    continue_lp = None
+    if wm_cfg.use_continues:
+        continue_lp = Independent(BernoulliSafeMode(world_model.continues(head_in)), 1).log_prob((1.0 - data["terminated"]) * gamma)
+    loss, metrics = reconstruction_loss(
+        observation_lp(world_model.decode(latents), data, cnn_keys, mlp_keys),
+        reward_lp,
+        prior_logits,
+        post_logits,
+        wm_cfg.kl_balancing_alpha,
+        wm_cfg.kl_free_nats,
+        wm_cfg.kl_free_avg,
+        wm_cfg.kl_regularizer,
+        continue_lp,
+        wm_cfg.discount_scale_factor,
+    )
+    with torch.no_grad():
+        metrics["State/post_entropy"] = Independent(OneHotCategorical(post_logits), 1).entropy().mean()
+        metrics["State/prior_entropy"] = Independent(OneHotCategorical(prior_logits), 1).entropy().mean()
+    return loss, metrics
+
+
+def imagine_v2(world_model, actor, prior: torch.Tensor, rec: torch.Tensor, actor_noise, prior_noise, horizon: int):
+    """DreamerV2's imagination from ``(prior, rec)`` ``[N, .]``: at each step the actor acts
+    on the latent with its gradient stopped and the world model steps. Returns the
+    trajectory ``[H + 1, N, L]`` (the start first) and the actions ``[H + 1, N, A]``, a
+    zero action first: ``actions[i + 1]`` is the one taken at ``traj[i]``."""
+    latent = torch.cat([prior, rec], -1)
+    traj, actions = [latent], []
+    for i in range(horizon):
+        action = act(actor, latent.detach(), tuple(n[i] for n in actor_noise))
+        prior, rec = world_model.imagination(prior, rec, action, gumbel=prior_noise[i])
+        latent = torch.cat([prior, rec], -1)
+        traj.append(latent)
+        actions.append(action)
+    return torch.stack(traj), torch.stack([torch.zeros_like(actions[0]), *actions])
+
+
+def continues_v2(world_model, traj: torch.Tensor, terminated: torch.Tensor, use_continues: bool, gamma: float, like: torch.Tensor):
+    """The imagined continues: the batch's own first (``(1 - terminated) * gamma``), then
+    the continue head's probabilities, where ``use_continues``; else ``gamma``."""
+    if not use_continues:
+        return torch.ones_like(like) * gamma
+    true_continue0 = (1.0 - terminated).reshape(-1, 1) * gamma
+    return torch.cat([true_continue0[None], torch.sigmoid(world_model.continues(traj))[1:]], 0)
+
+
+def reinforce_terms(actor, traj: torch.Tensor, imagined_actions: torch.Tensor):
+    """The actor's log-probability of the actions it took at ``traj[:-2]`` (gradient
+    stopped at its inputs) ``[H - 1, N, 1]``, and its entropy there ``[H - 1, N, 1]``."""
+    _, dists = actor(traj[:-2].detach())
+    taken = imagined_actions[1:-1].detach()
+    if actor.is_continuous:
+        return dists[0].log_prob(taken).sum(-1, keepdim=True), dists[0].entropy().sum(-1)[..., None]
+    logpis, offset = [], 0
+    for d, n in zip(dists, actor.actions_dim):
+        logpis.append(d.log_prob(taken[..., offset : offset + n]))
+        offset += n
+    return sum(logpis)[..., None], sum(d.entropy() for d in dists)[..., None]
+
+
+def critic_loss_v2(critic, traj: torch.Tensor, lambda_values: torch.Tensor, discount: torch.Tensor) -> torch.Tensor:
+    """The critic's Gaussian regression of the lambda-returns on ``traj[:-1]``."""
+    return -torch.mean(discount[:-1, ..., 0] * gaussian_lp(critic(traj[:-1]), lambda_values, 1))
 
 
 def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Sequence[str], mlp_keys: Sequence[str]):
@@ -108,9 +217,8 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     ent_coef = cfg.algo.actor.ent_coef
     objective_mix = cfg.algo.actor.objective_mix
     use_continues = wm_cfg.use_continues
-    is_continuous = actor.is_continuous
     actions_dim = tuple(actor.actions_dim)
-    actor_noise = "gumbel" if not is_continuous else ("uniform" if actor.distribution == "trunc_normal" else "normal")
+    actor_noise = actor_noise_kind(actor)
     cnn_keys, mlp_keys = list(cnn_keys), list(mlp_keys)
 
     wm_opt = make_optimizer(wm_cfg.optimizer, wm_cfg.clip_gradients)
@@ -128,9 +236,6 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
             "critic": critic_opt.init(critic_params),
         }
 
-    def act(latent, noise):
-        return actor(latent, draws=noise) if is_continuous else actor(latent, gumbels=noise)
-
     def train_step(
         opt_states: Dict[str, Any],
         extra: Dict[str, torch.Tensor],
@@ -144,112 +249,38 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         if draws is None:
             draws = draws_of(T, B, generator, device)
 
-        # the hard target copy, before the update, where the flag is set (a blend kept
-        # only where it is: the same bits as a copy under a host-side ``if``)
-        with torch.no_grad():
-            if not isinstance(update_target, torch.Tensor):
-                update_target = torch.full((), bool(update_target), device=device)
-            for t, c in zip(target_params, critic_params):
-                t.copy_(torch.where(update_target.bool(), c, t))
-
-        batch_obs = {k: data[k] for k in cnn_keys + mlp_keys}
-        is_first = data["is_first"].clone()
-        is_first[0] = 1.0
-        batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
+        hard_copy(target_params, critic_params, update_target)
 
         # ------------------------------------------------ world model
-        embed = world_model.encode(batch_obs)  # [T, B, E]
-        post = torch.zeros(B, stoch_size, device=device)
-        rec = torch.zeros(B, rec_size, device=device)
-        recs, posts, post_logits, prior_logits = [], [], [], []
-        for t in range(T):
-            rec, post, _, post_l, prior_l = world_model.dynamic(
-                post, rec, batch_actions[t], embed[t], is_first[t], gumbels=(draws.wm_prior[t], draws.wm_post[t])
-            )
-            recs.append(rec)
-            posts.append(post)
-            post_logits.append(post_l)
-            prior_logits.append(prior_l)
-        recs, posts = torch.stack(recs), torch.stack(posts)
-        latents = torch.cat([posts, recs], -1)  # [T, B, L]
-        recon = world_model.decode(latents)
-        obs_lp = 0.0
-        for k in cnn_keys:
-            target = data[k].float() / 255.0 - 0.5
-            obs_lp = obs_lp + _gaussian_lp(recon[k], target.reshape(T, B, -1, *target.shape[-2:]), 3)
-        for k in mlp_keys:
-            obs_lp = obs_lp + _gaussian_lp(recon[k], data[k], 1)
-        reward_lp = _gaussian_lp(world_model.reward(latents), data["rewards"], 1)
-        continue_lp = None
-        if use_continues:
-            continue_lp = Independent(BernoulliSafeMode(world_model.continues(latents)), 1).log_prob((1.0 - data["terminated"]) * gamma)
-        post_logits_s = torch.stack(post_logits).reshape(T, B, stoch, discrete)
-        prior_logits_s = torch.stack(prior_logits).reshape(T, B, stoch, discrete)
-        rec_loss, metrics = reconstruction_loss(
-            obs_lp,
-            reward_lp,
-            prior_logits_s,
-            post_logits_s,
-            wm_cfg.kl_balancing_alpha,
-            wm_cfg.kl_free_nats,
-            wm_cfg.kl_free_avg,
-            wm_cfg.kl_regularizer,
-            continue_lp,
-            wm_cfg.discount_scale_factor,
-        )
-        with torch.no_grad():
-            metrics["State/post_entropy"] = Independent(OneHotCategorical(post_logits_s), 1).entropy().mean()
-            metrics["State/prior_entropy"] = Independent(OneHotCategorical(prior_logits_s), 1).entropy().mean()
+        unrolled = unroll_v2(world_model, data, (draws.wm_prior, draws.wm_post), cnn_keys, mlp_keys)
+        rec_loss, metrics = world_model_loss_v2(world_model, wm_cfg, data, unrolled, cnn_keys, mlp_keys, gamma)
         metrics["Grads/world_model"] = wm_opt.update(wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
-        del rec_loss, recon, embed
+        posts, recs = unrolled[:2]
+        del rec_loss, unrolled
 
         # ------------------------------------------------ imagination + actor
-        prior = posts.detach().reshape(T * B, stoch_size)
-        rec = recs.detach().reshape(T * B, rec_size)
-        latent = torch.cat([prior, rec], -1)
-        traj, imagined_actions = [latent], []
-        for i in range(horizon):
-            action = torch.cat(act(latent.detach(), tuple(n[i] for n in draws.img_actor))[0], -1)
-            prior, rec = world_model.imagination(prior, rec, action, gumbel=draws.img_prior[i])
-            latent = torch.cat([prior, rec], -1)
-            traj.append(latent)
-            imagined_actions.append(action)
-        traj = torch.stack(traj)  # [H+1, TB, L]
-        # index 0 is the zero action: imagined_actions[i + 1] is the action taken at traj[i]
-        imagined_actions = torch.stack([torch.zeros_like(imagined_actions[0]), *imagined_actions])
-
+        traj, imagined_actions = imagine_v2(
+            world_model, actor, posts.detach().reshape(T * B, stoch_size), recs.detach().reshape(T * B, rec_size),
+            draws.img_actor, draws.img_prior, horizon,
+        )
         target_values = target_critic(traj)  # [H+1, TB, 1]
         rewards_img = world_model.reward(traj)
-        if use_continues:
-            true_continue0 = (1.0 - data["terminated"]).reshape(T * B, 1) * gamma
-            continues = torch.cat([true_continue0[None], torch.sigmoid(world_model.continues(traj))[1:]], 0)
-        else:
-            continues = torch.ones_like(rewards_img) * gamma
+        continues = continues_v2(world_model, traj, data["terminated"], use_continues, gamma, rewards_img)
         lambda_values = compute_lambda_values(rewards_img[:-1], target_values[:-1], continues[:-1], target_values[-1:], lmbda)
         discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], 0), 0).detach()
 
-        _, dists = actor(traj[:-2].detach())
+        logpi, entropy = reinforce_terms(actor, traj, imagined_actions)
         dynamics = lambda_values[1:]
-        advantage = (lambda_values[1:] - target_values[:-2]).detach()
-        if is_continuous:
-            reinforce = dists[0].log_prob(imagined_actions[1:-1].detach()).sum(-1, keepdim=True) * advantage
-            entropy = dists[0].entropy().sum(-1)
-        else:
-            logpis, offset_a = [], 0
-            for i, d in enumerate(dists):
-                logpis.append(d.log_prob(imagined_actions[1:-1, ..., offset_a : offset_a + actions_dim[i]].detach()))
-                offset_a += actions_dim[i]
-            reinforce = sum(logpis)[..., None] * advantage
-            entropy = sum(d.entropy() for d in dists)
+        reinforce = logpi * (lambda_values[1:] - target_values[:-2]).detach()
         objective = objective_mix * reinforce + (1 - objective_mix) * dynamics
-        policy_loss = -torch.mean(discount[:-2] * (objective + ent_coef * entropy[..., None]))
+        policy_loss = -torch.mean(discount[:-2] * (objective + ent_coef * entropy))
         metrics["Grads/actor"] = actor_opt.update(actor_params, grads(policy_loss, actor_params), opt_states["actor"])
         metrics["Loss/policy_loss"] = policy_loss.detach()
         traj, lambda_values = traj.detach(), lambda_values.detach()
         del policy_loss, objective, dynamics, target_values, rewards_img
 
         # ------------------------------------------------ critic
-        value_loss = -torch.mean(discount[:-1, ..., 0] * _gaussian_lp(critic(traj[:-1]), lambda_values, 1))
+        value_loss = critic_loss_v2(critic, traj, lambda_values, discount)
         metrics["Grads/critic"] = critic_opt.update(critic_params, grads(value_loss, critic_params), opt_states["critic"])
         metrics["Loss/value_loss"] = value_loss.detach()
         return extra, metrics
@@ -292,7 +323,6 @@ def main(ctx, cfg) -> TrainResult:
         cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
         train_step, init_opt_states = make_train_step(*modules.values(), cfg, cnn_keys, mlp_keys)
         opt_states, extra = init_opt_states(), train_step.init_extra()
-        expl = cfg.algo.actor
         return LoopParts(
             modules=modules,
             opt_states=opt_states,
@@ -304,9 +334,7 @@ def main(ctx, cfg) -> TrainResult:
             rb=make_buffer(cfg, cfg.env.num_envs, cnn_keys + mlp_keys, log_dir),
             count_offset=0,
             clip_reward=np.tanh,
-            exploration=lambda step: exploration_amount(
-                expl.get("expl_amount", 0.0), expl.get("expl_decay", 0.0), expl.get("expl_min", 0.0), step
-            ),
+            exploration=exploration_schedule(cfg.algo.actor),
         )
 
     return run_loop(ctx, cfg, setup)

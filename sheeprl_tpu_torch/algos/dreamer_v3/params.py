@@ -8,10 +8,12 @@ port's ``state_dict`` for each of ``world_model``, ``actor``, ``critic`` and
 Names map by rule (``_torch_key``): the Flax child ``Dense_<i>`` is ``dense.<i>``,
 ``LayerNorm_<i>`` is ``norms.<i>``, ``Conv_<i>`` is ``convs.<i>``, ``ConvTranspose_<i>`` is
 ``deconvs.<i>``, ``MLP_0`` is ``mlp``, ``head_<k>`` is ``heads.<k>``, the GRU cell's
-``Dense_0`` is ``linear``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is
-dropped. Layouts convert as well:
+``Dense_0`` is ``linear``, Flax's ``GRUCell`` input layer ``in`` (a Python keyword) is
+``in_``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is dropped. Layouts
+convert as well:
 
-* Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
+* Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``; a stacked one ``[N,
+  in, out]`` (P2E's ensembles, ``algos/p2e::StackedLinear``) stays as it is;
 * Conv kernel HWIO -> ``Conv2d.weight`` OIHW;
 * ConvTranspose kernel ``[kh, kw, in, out]`` -> ``ConvTranspose2d.weight``
   ``[in, out, kh, kw]``, flipped in both spatial axes: Flax's transposed conv
@@ -39,6 +41,7 @@ _RULES = (
     (re.compile(r"(^|/)layers_0/"), r"\1"),
     (re.compile(r"(^|/)MLP_0/"), r"\1mlp/"),
     (re.compile(r"(^|/)rnn/Dense_0/"), r"\1rnn/linear/"),
+    (re.compile(r"(^|/)in/"), r"\1in_/"),
     (re.compile(r"(^|/)Dense_(\d+)/"), r"\1dense/\2/"),
     (re.compile(r"(^|/)LayerNorm_(\d+)/"), r"\1norms/\2/"),
     (re.compile(r"(^|/)ConvTranspose_(\d+)/"), r"\1deconvs/\2/"),
@@ -72,6 +75,8 @@ def _convert(path: str, value: np.ndarray) -> np.ndarray:
         return value
     if value.ndim == 2:
         return value.T
+    if value.ndim == 3:
+        return value
     if value.ndim == 4:
         parent = path.split("/")[-2]
         if parent.startswith("Conv_"):

@@ -61,11 +61,22 @@ def check_configs(cfg: DotDict) -> None:
         raise ValueError("algo.cnn_keys.encoder and algo.mlp_keys.encoder must be lists")
     if cfg.metric.get("log_level", 1) not in (0, 1):
         raise ValueError(f"Invalid metric.log_level: {cfg.metric.log_level}")
+    # DreamerV1, DreamerV2 and their P2E variants pin the decoder to one 64x64 frame
+    if str(algo.get("name", "")).startswith(("dreamer_v1", "dreamer_v2", "p2e_dv1", "p2e_dv2")) and cnn_keys:
+        if int(cfg.env.get("screen_size") or 64) != 64 or int(cfg.env.get("frame_stack") or 1) > 1:
+            raise ValueError(
+                f"{algo['name']} pixel observations require env.screen_size=64 and "
+                f"env.frame_stack<=1 (the decoder geometry is pinned to one 64x64 frame); "
+                f"got screen_size={cfg.env.get('screen_size')}, "
+                f"frame_stack={cfg.env.get('frame_stack')}."
+            )
     # A sequence-sampling loop's prefill must leave every env's sub-buffer at least one
-    # sequence long, or the first gradient step fails mid-run.
+    # sequence long, or the first gradient step fails mid-run. A resumed run and a P2E
+    # finetuning run that loads the exploration run's buffer start with rows.
     seq_len = int(algo.get("per_rank_sequence_length", 0) or 0)
     learning_starts = int(algo.get("learning_starts", 0) or 0)
-    if seq_len > 1 and learning_starts > 0 and not cfg.checkpoint.get("resume_from") and not cfg.get("dry_run", False):
+    buffer_prefilled = bool(cfg.checkpoint.get("resume_from")) or bool(cfg.get("buffer", {}).get("load_from_exploration", False))
+    if seq_len > 1 and learning_starts > 0 and not buffer_prefilled and not cfg.get("dry_run", False):
         steps_per_iter = max(cfg.env.num_envs * max(cfg.env.action_repeat, 1), 1)
         rows_per_env = learning_starts // steps_per_iter
         if rows_per_env < seq_len:
@@ -79,8 +90,14 @@ def check_configs(cfg: DotDict) -> None:
 
 
 def run_algorithm(cfg: DotDict) -> Any:
-    """Registry lookup, run context, entry-point call; returns what the entry returns."""
+    """Registry lookup, run context, entry-point call; returns what the entry returns. For
+    a P2E finetuning entry, the exploration run's config is first merged into ``cfg``
+    (``algos/p2e::load_exploration_config``): the entry builds what that run built."""
     entry = get_algorithm(cfg.algo.name)
+    if "finetuning" in cfg.algo.name and "p2e" in entry["module"]:
+        from sheeprl_tpu_torch.algos.p2e import load_exploration_config
+
+        load_exploration_config(cfg)
     ctx = make_run_context(cfg)
     return entry["entrypoint"](ctx, cfg)
 

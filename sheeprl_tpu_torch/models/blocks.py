@@ -109,18 +109,24 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(self.compute_dtype)
+        return flax_layer_norm(x, self.weight, self.bias, self.eps, self.compute_dtype)
+
+
+def flax_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """``LayerNorm``'s arithmetic over the last axis of ``x``; ``weight`` and ``bias``
+    broadcast against ``x``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight)
+    return (y + bias).to(dtype)
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Set the compute dtype of every layer in ``module`` (Flax's ``dtype=``); the
     parameters stay as they are."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv2d, ConvTranspose2d, LayerNorm)):
+        if hasattr(type(m), "compute_dtype"):  # Linear, Conv2d, ConvTranspose2d, LayerNorm and their stacked kin
             m.compute_dtype = dtype
     return module
 

@@ -1,7 +1,8 @@
 """Core math utilities (counterpart of ``sheeprl_tpu/utils/utils.py``).
 
 Ported: ``symlog``/``symexp``, the two-hot encoder and decoder of the DreamerV3 reward
-and value heads, and the replay-ratio governor ``Ratio``.
+and value heads, the replay-ratio governor ``Ratio``, and the DreamerV1/V2 players'
+exploration schedule ``exploration_amount``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,15 @@ def two_hot_decoder(t: torch.Tensor, support_range: int) -> torch.Tensor:
         raise ValueError("support size must be odd")
     support = torch.linspace(-support_range, support_range, num_buckets, dtype=t.dtype, device=t.device)
     return (t * support).sum(-1, keepdim=True)
+
+
+def exploration_amount(expl_amount: float, expl_decay: float, expl_min: float, step: int) -> float:
+    """The exploration schedule: ``max(amount * 0.5 ** (step / decay), min)`` (Hafner's,
+    as the JAX package reads the reference's)."""
+    amount = expl_amount
+    if expl_decay:
+        amount *= 0.5 ** (float(step) / expl_decay)
+    return max(amount, expl_min)
 
 
 class Ratio:

@@ -24,6 +24,11 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.__main__",
     "sheeprl_tpu_torch.algos",
     "sheeprl_tpu_torch.algos.dreamer_loop",
+    "sheeprl_tpu_torch.algos.dreamer_v1.agent",
+    "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
+    "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v1.loss",
+    "sheeprl_tpu_torch.algos.dreamer_v1.utils",
     "sheeprl_tpu_torch.algos.dreamer_v2.agent",
     "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
@@ -35,6 +40,17 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.params",
     "sheeprl_tpu_torch.algos.dreamer_v3.utils",
+    "sheeprl_tpu_torch.algos.p2e",
+    "sheeprl_tpu_torch.algos.p2e_dv1.agent",
+    "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv1.utils",
+    "sheeprl_tpu_torch.algos.p2e_dv2.agent",
+    "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv2.utils",
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.benchmarks",
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",
