@@ -11,7 +11,9 @@ result line:
 2. kernels: with TF32 off for matmuls and cuDNN, hold each kernel against its plain
    PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
    atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
-   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2), two calls of each
+   the plain forward on f32 inputs: f32 atol 2e-4, bf16 atol 6e-2 or, where the plain
+   version on the same bf16 inputs lies further off, its distance plus 2e-4; and against
+   the same bf16 values in float32 within 6e-2), two calls of each
    giving the same bits, beside each row the least a one-kernel call takes from a CUDA
    graph (``launch_floor_ms``: a one-element ``zero_()``); their launch plan held equal
    to the wrapper's at every row (``[kernels] layernorm_gru geometry``); and the fused RSSM
@@ -77,14 +79,29 @@ result line:
    ``P2E_DV2_OVERRIDES``), explore (train, resume), finetune from the exploration
    checkpoint without and with ``buffer.load_from_exploration``, evaluate the exploration
    and each finetuning run; K1-bwd = the step's plan x (gradient steps + 2) per run (50
-   exploring, 65 finetuning; none for P2E-DV1); then a ``[p2e-counts]`` line;
-18. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+   exploring, 65 finetuning; none for P2E-DV1);
+18. dv3-decoupled-train-agreement and dv3-decoupled-train-graph: DreamerV3 with the
+   decoupled RSSM (``algo.world_model.decoupled_rssm=True``), a small agent card against
+   CPU, then size S (``DV3_DECOUPLED_OVERRIDES``) as ``[train-graph]``: parity, K1 per
+   replay 79 forward and 64 backward by the profiler, the capture and the plan, the turns;
+19. minedojo-actor: DreamerV3's and DreamerV2's masked MineDojo actors on the card
+   against the CPU (synthetic masks, injected draws);
+20. p2e-dv3-train-agreement and p2e-dv3-train-graph: a small P2E-DV3 exploration step
+   card against CPU, then the step at the published XL widths (``P2E_DV3_OVERRIDES``:
+   dense 1024 x 5, CNN 96, H 4096, 8 ensembles, B 16 x T 64, horizon 15, bf16-mixed):
+   discrete (parity, K1 per replay 94 forward, 64 backward and 64 sum launches: K1's wide
+   plan, every backward call two launches; the turns) and continuous (parity, 94/94/94);
+21. p2e-dv3-cli: the P2E-DV3 entries at size-S widths (``P2E_DV3_CLI_OVERRIDES``): explore,
+   resume, finetune without and with the exploration buffer, evaluate each; K1-bwd = 64 x
+   (gradient steps + 2) per run; then the ``[p2e-counts]`` line;
+22. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
    ``plain``'s (``RSSM_SCAN_TOL``).
 
-The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600). Every path (eval,
+The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
+(16, 4096) and (1024, 4096). Every path (eval,
 batched, train, train-cli, the DreamerV2, DreamerV1 and P2E phases, rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
@@ -309,6 +326,40 @@ SMALL_DV1 = [
 ]
 SMALL_P2E_DV1 = ["exp=p2e_dv1_dummy", *SMALL_DV1[1:], "algo.ensembles.n=3"]
 SMALL_P2E_DV2 = ["exp=p2e_dv2_dummy", *SMALL_DV2[1:], "algo.ensembles.n=3"]
+# DreamerV3 with the decoupled RSSM: a small agent for the card-against-CPU step, and size S
+DECOUPLED = ["algo.world_model.decoupled_rssm=True"]
+SMALL_DV3_DECOUPLED = [*SMALL_TRAIN, *DECOUPLED]
+DV3_DECOUPLED_OVERRIDES = [*TRAIN_OVERRIDES, *DECOUPLED]
+# a small P2E-DV3 (three ensembles, the two exploration critics of algo/p2e_dv3.yaml)
+SMALL_P2E_DV3 = ["exp=p2e_dv3_dummy", *(o for o in SMALL_TRAIN[1:] if not o.startswith("algo=")), "algo.ensembles.n=3"]
+# P2E-DV3's exploration step at the published XL widths of algo/dreamer_v3.yaml (dense
+# 1024 x 5, CNN multiplier 96, GRU H = 4096, stochastic 32 x 32), B 16 x T 64, horizon 15,
+# 8 ensembles of 1024 x 5, two exploration critics, bf16-mixed, 64x64 rgb: K1's wide plan
+P2E_DV3_OVERRIDES = [
+    "exp=p2e_dv3_exploration",
+    "env=discrete_dummy",
+    "env.screen_size=64",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[]",
+]
+# its train entry at size S, the widths of exp/p2e_dv3_expl_dmc_cartpole_swingup_sparse.yaml
+# (dense 512 x 2, GRU H = 512, CNN 32): an XL checkpoint holds every module of the XL step
+# with its Adam state, and the phase writes a dozen. DreamerV2's CLI schedule with an
+# 8,192-row replay, one gradient step per 8 policy steps (DreamerV3's ratio of 1 would be
+# ~250 steps a run)
+P2E_DV3_CLI_OVERRIDES = [
+    *P2E_DV3_OVERRIDES,
+    "algo.dense_units=512",
+    "algo.mlp_layers=2",
+    "algo.world_model.encoder.cnn_channels_multiplier=32",
+    "algo.world_model.recurrent_model.recurrent_state_size=512",
+    "algo.world_model.transition_model.hidden_size=512",
+    "algo.world_model.representation_model.hidden_size=512",
+]
+P2E_DV3_CLI = [*DV2_CLI, "buffer.size=8192", "algo.replay_ratio=0.125"]
+# MineDojo's functional action space: 19 action types (the reference's ACTION_MAP) and the
+# craft and item argument heads
+MINEDOJO_HEADS = (19, 244, 634)
 
 
 def log(msg: str) -> None:
@@ -489,9 +540,10 @@ def phase_kernels(device: torch.device) -> dict:
 
 
 def phase_kernels_bwd(device: torch.device) -> dict:
-    """K1-bwd: the backward kernel against autograd through the plain forward on the
-    same values in float32, at the slice's shapes, f32 and bf16 inputs; two calls must
-    give the same bits."""
+    """K1-bwd: the backward kernel against autograd through the plain forward, at the
+    slice's shapes, f32 and bf16 inputs: on the float32 inputs (``BWD_TOL``, or no further
+    off than the plain version on the same bf16 inputs plus the float32 limit) and on the
+    same bf16 values in float32 (``BWD_TOL``); two calls must give the same bits."""
     from sheeprl_tpu_torch.benchmarks.gru_kernel_ab import KERNEL_SHAPES
     from sheeprl_tpu_torch.ops.gru import geometry, layernorm_gru_backward, layernorm_gru_backward_reference
 
@@ -513,10 +565,21 @@ def phase_kernels_bwd(device: torch.device) -> dict:
             for name, a, b in zip(("dproj", "dh", "dgamma", "dbeta"), out, again):
                 if not torch.equal(a, b):
                     raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: two calls differ in {name}")
-            err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+            # against the float32 inputs, each gradient within BWD_TOL or no further off
+            # than the plain version on the same inputs (plus the float32 limit): the bf16
+            # inputs' rounding, summed over B rows into dgamma/dbeta, sets that distance
+            plain = layernorm_gru_backward_reference(*args)
+            rounded = layernorm_gru_backward_reference(*(a.float() for a in args))
+            errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(out, ref)]
+            plain_errs = [(p.float() - r.float()).abs().max().item() for p, r in zip(plain, ref)]
+            limits = [max(BWD_TOL[dtype], e + BWD_TOL[torch.float32]) for e in plain_errs]
+            same_values = max((o.float() - r).abs().max().item() for o, r in zip(out, rounded))
+            err = max(errs)
             want = [dtype, dtype, torch.float32, torch.float32]
-            if [o.dtype for o in out] != want or not math.isfinite(err) or err > BWD_TOL[dtype]:
-                raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: max_abs_err {err} > {BWD_TOL[dtype]}")
+            if [o.dtype for o in out] != want or not all(map(math.isfinite, errs)) or any(e > lim for e, lim in zip(errs, limits)):
+                raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: errors {errs} over {limits}")
+            if not same_values <= BWD_TOL[dtype]:
+                raise AssertionError(f"layernorm_gru_bwd {batch}x{hidden} {dtype}: {same_values} off the same values in float32")
             ms = graph_ms(lambda: layernorm_gru_backward(*args))
             plain_ms = graph_ms(lambda: layernorm_gru_backward_reference(*args))
             call_ms = eager_ms(lambda: layernorm_gru_backward(*args))
@@ -532,7 +595,9 @@ def phase_kernels_bwd(device: torch.device) -> dict:
                 "H": hidden,
                 "dtype": str(dtype).replace("torch.", ""),
                 "max_abs_err": err,
-                "tol": BWD_TOL[dtype],
+                "tol": max(limits),
+                "plain_max_abs_err": max(plain_errs),
+                "max_abs_err_same_values": same_values,
                 "bit_identical": True,
                 "launches_per_call": per_call,
                 "kernel_ms": ms,
@@ -1056,12 +1121,13 @@ def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: st
         lr, sa, sb = _lr(cfg, name), cm[name].state_dict(), dm[name].state_dict()
         diff = torch.cat([(sb[k].float().cpu() - sa[k].float()).abs().flatten() for k in sa])
         steps[name] = ((diff.max() / lr).item(), (diff > tol["step_of_lr"] * lr).float().mean().item())
-    leaves = {name: [k for k, _ in cm[name].named_parameters()] for name in copt}
+    cflat, dflat = _flat_opt(cm, copt), _flat_opt(dm, dopt)
+    leaves = {name: [k for k, _ in module.named_parameters()] for name, (module, _) in cflat.items()}
     moments = {}  # per moment: the leaf whose card value lies furthest from the CPU's, by relative norm
     for key in ("mu", "nu"):
         moments[key] = max(
             (((q.cpu() - p).norm() / p.norm().clamp_min(1e-30)).item(), f"{name}.{leaf}", p.norm().item())
-            for name in leaves for leaf, p, q in zip(leaves[name], copt[name][key], dopt[name][key])
+            for name in leaves for leaf, p, q in zip(leaves[name], cflat[name][1][key], dflat[name][1][key])
         )
     rel_moment = max(rel for rel, _, _ in moments.values())
     metrics = {k: (cmet[k].item(), dmet[k].item()) for k in cmet if k.startswith(("Loss/", "Grads/"))}
@@ -1079,6 +1145,60 @@ def phase_train_agreement(device: torch.device, overrides=SMALL_TRAIN, label: st
     if bad:
         raise AssertionError(f"{label}: the card's training step disagrees with the CPU's: {bad}")
     return {"steps": steps, "moments": moments, "metrics": metrics}
+
+
+def phase_minedojo_actor(device: torch.device, rows: int = 1024) -> dict:
+    """Both MineDojo actors on the card against the CPU, at float32 with TF32 off:
+    DreamerV3-S's (latent 1536, dense 512 x 2) and DreamerV2's widths (latent 1624, dense
+    400 x 4, ELU) over ``rows`` latents, ``MINEDOJO_HEADS``, synthetic masks (each entry
+    allowed with probability 1/2, one allowed at least) and injected Gumbel draws: the
+    same sampled one-hots, each head's logits within atol = rtol = 1e-3, every sample
+    within its masks."""
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import MinedojoActorV2, xavier_normal_init
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import MinedojoActor, flax_default_init
+
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(12)
+    out = {}
+    for name, actor, init in (
+        ("MinedojoActor", MinedojoActor(1536, MINEDOJO_HEADS, False, dense_units=512, mlp_layers=2), flax_default_init),
+        ("MinedojoActorV2", MinedojoActorV2(1624, MINEDOJO_HEADS, False, dense_units=400, mlp_layers=4), xavier_normal_init),
+    ):
+        init(actor, gen)
+        latent = torch.randn(rows, actor.mlp.dense[0].in_features, generator=gen)
+        masks = {}
+        for key, n in zip(("mask_action_type", "mask_craft_smelt", "mask_equip_place", "mask_destroy"), (*MINEDOJO_HEADS, MINEDOJO_HEADS[2])):
+            m = torch.rand(rows, n, generator=gen) < 0.5
+            m[torch.arange(rows), torch.randint(0, n, (rows,), generator=gen)] = True
+            masks[key] = m
+        # a quarter of the rows each: craft, equip, place, destroy allowed alone, so that
+        # every argument mask is read
+        masks["mask_action_type"][: rows // 4] = torch.nn.functional.one_hot(
+            torch.tensor([15, 16, 17, 18]).repeat_interleave(rows // 16), MINEDOJO_HEADS[0]
+        ).bool()
+        gumbels = tuple(-torch.log(-torch.log(torch.rand(rows, d, generator=gen).clamp_min(1e-20))) for d in MINEDOJO_HEADS)
+        card = copy.deepcopy(actor).to(device)
+        with torch.inference_mode():
+            acts_c, dists_c = actor(latent, mask=masks, gumbels=gumbels)
+            acts_d, dists_d = card(latent.to(device), mask={k: v.to(device) for k, v in masks.items()}, gumbels=tuple(g.to(device) for g in gumbels))
+            torch.cuda.synchronize()
+        worst = 0.0
+        for i, (a, b, dc, dd) in enumerate(zip(acts_c, acts_d, dists_c, dists_d)):
+            if not torch.equal(a.argmax(-1), b.argmax(-1).cpu()):
+                raise AssertionError(f"[minedojo-actor] {name} head {i}: the card sampled other actions")
+            torch.testing.assert_close(dd.logits.cpu(), dc.logits, atol=1e-3, rtol=1e-3, msg=lambda m: f"[minedojo-actor] {name} head {i}: {m}")
+            finite = torch.isfinite(dc.logits) & (dc.logits > torch.finfo(torch.float32).min / 2)
+            worst = max(worst, (dd.logits.cpu() - dc.logits)[finite].abs().max().item())
+        kind = acts_d[0].argmax(-1).cpu()
+        allowed = masks["mask_action_type"].gather(1, kind[:, None]).all()
+        craft = masks["mask_craft_smelt"].gather(1, acts_d[1].argmax(-1).cpu()[:, None])[kind == 15].all()
+        equip = masks["mask_equip_place"].gather(1, acts_d[2].argmax(-1).cpu()[:, None])[(kind == 16) | (kind == 17)].all()
+        destroy = masks["mask_destroy"].gather(1, acts_d[2].argmax(-1).cpu()[:, None])[kind == 18].all()
+        if not (allowed and craft and equip and destroy):
+            raise AssertionError(f"[minedojo-actor] {name}: a sample outside its masks ({allowed}, {craft}, {equip}, {destroy})")
+        out[name] = {"rows": rows, "heads": list(MINEDOJO_HEADS), "max_abs_diff_logits": worst}
+    log("[minedojo-actor] card vs cpu, float32, TF32 off, injected Gumbel draws, synthetic masks: " + json.dumps(out))
+    return out
 
 
 def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy", steps: int = 8, warmup: int = 2) -> dict:
@@ -1163,23 +1283,45 @@ def _param_diffs(ma: dict, mb: dict) -> dict:
     }
 
 
+def _opt_items(opt_states: dict):
+    """``(name, state)`` for every optimizer of a step; P2E-DV3's exploration critics
+    (``critics_exploration``, one state per critic) as ``critics_exploration.<critic>``."""
+    for name, state in opt_states.items():
+        if "count" in state:
+            yield name, state
+        else:
+            yield from ((f"{name}.{k}", s) for k, s in state.items())
+
+
+def _flat_opt(modules: dict, opt_states: dict) -> dict:
+    """``{name: (module, optimizer state)}`` over ``_opt_items``."""
+    out = {}
+    for name, state in _opt_items(opt_states):
+        top, _, critic = name.partition(".")
+        out[name] = (modules[top][critic]["module"] if critic else modules[top], state)
+    return out
+
+
 def _moment_diff(oa: dict, ob: dict) -> float:
     """The largest relative-norm difference of any Adam moment leaf."""
+    sa, sb = dict(_opt_items(oa)), dict(_opt_items(ob))
     return max(
         ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-        for name in oa for key in ("mu", "nu") for a, b in zip(oa[name][key], ob[name][key])
+        for name in sa for key in ("mu", "nu") for a, b in zip(sa[name][key], sb[name][key])
     )
 
 
 def k1_per_step(cfg, is_continuous: bool) -> dict:
     """K1 launches a training step makes, by the kernels' plan (``ops/gru.py::geometry``):
-    the forward at every unroll step and every step of each imagination (P2E-DV2's
-    exploration step imagines twice, for the exploration and the task actor); the
+    the forward at every unroll step and every step of each imagination (P2E-DV2's and
+    P2E-DV3's exploration steps imagine twice, for the exploration and the task actor); the
     backward at every unroll step, and at every step of an imagination that the
-    gradient crosses: DreamerV3's with a continuous actor, DreamerV2's (and P2E-DV2
-    finetuning's) always, its dynamics term, each of P2E-DV2 exploration's with a
-    continuous actor only (a discrete one's objective is REINFORCE on the stopped
-    trajectory); a second (sum) launch for each backward whose plan is two launches.
+    gradient crosses: DreamerV3's (and P2E-DV3 finetuning's) with a continuous actor,
+    DreamerV2's (and P2E-DV2 finetuning's) always, its dynamics term, each of the P2E-DV2
+    and P2E-DV3 exploration steps' with a continuous actor only (a discrete one's
+    objective is REINFORCE on the stopped trajectory); a second (sum) launch for each
+    backward whose plan is two launches (every one at H = 4096). The decoupled RSSM
+    unrolls the same T prior steps.
     DreamerV1 and P2E-DV1 step a plain GRU: no K1."""
     from sheeprl_tpu_torch.ops.gru import geometry
 
@@ -1188,7 +1330,7 @@ def k1_per_step(cfg, is_continuous: bool) -> dict:
         return {"fwd": 0, "bwd": 0, "bwd_sum": 0}
     T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
     rec = cfg.algo.world_model.recurrent_model.recurrent_state_size
-    imaginations = 2 if name == "p2e_dv2_exploration" else 1
+    imaginations = 2 if name in ("p2e_dv2_exploration", "p2e_dv3_exploration") else 1
     if name in ("dreamer_v2", "p2e_dv2_finetuning"):
         imag_bwd = H
     else:
@@ -1545,7 +1687,7 @@ def phase_p2e_cli(device: torch.device, workdir: Path, version: int, overrides: 
     explored, out["explore"] = _run_counted(base, f"{tag} explore", per_step, 8)
     mid = next(p for p in CheckpointManager(Path(explored.log_dir) / "checkpoints").list_checkpoints() if p.name == "ckpt_128")
     _, out["explore_resume"] = _run_counted([*base, f"checkpoint.resume_from={mid}"], f"{tag} explore resume from {mid.name}", per_step, 1)
-    out["explore_eval"] = _evaluate_counted(explored.checkpoint, workdir, f"{tag} explore", k1=version == 2)
+    out["explore_eval"] = _evaluate_counted(explored.checkpoint, workdir, f"{tag} explore", k1=version >= 2)
     for load in (False, True):
         tuned_args = [*base, f"algo.name=p2e_dv{version}_finetuning", f"checkpoint.exploration_ckpt_path={explored.checkpoint}", f"buffer.load_from_exploration={load}"]
         fine_step = k1_per_step(compose(overrides=tuned_args), is_continuous=False)
@@ -1554,7 +1696,7 @@ def phase_p2e_cli(device: torch.device, workdir: Path, version: int, overrides: 
         if state.get("actor_type") != "task" or set(state["params"]) != set(CheckpointManager.load(explored.checkpoint)["params"]):
             raise AssertionError(f"{tag} finetune: actor_type {state.get('actor_type')}, modules {sorted(state['params'])}")
         out[f"finetune_load_{load}"]["k1_per_step"] = fine_step
-        out[f"finetune_load_{load}_eval"] = _evaluate_counted(tuned.checkpoint, workdir, f"{tag} finetune", k1=version == 2)
+        out[f"finetune_load_{load}_eval"] = _evaluate_counted(tuned.checkpoint, workdir, f"{tag} finetune", k1=version >= 2)
     out["k1_per_step"] = per_step
     return out
 
@@ -1594,9 +1736,9 @@ def main() -> int:
         ev = timed("eval", phase_eval, device, Path(tmp))
     timed("batched", phase_batched, device)
     timed("train-agreement", phase_train_agreement, device)
-    # 4 timed eager steps a row: the DreamerV3 phases leave the DreamerV2 phases room in the time limit
+    # 2 timed eager steps a row: the DreamerV3 phases leave the later ones room in the time limit
     train = timed("train", lambda: [
-        phase_train(device, "bf16-mixed", steps=4), phase_train(device, "32-true", steps=4),
+        phase_train(device, "bf16-mixed", steps=2), phase_train(device, "32-true", steps=2),
         phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1),
     ])
     graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4), phase_train_graph(device, env="continuous_dummy")])
@@ -1632,11 +1774,23 @@ def main() -> int:
     for version, overrides, schedule in ((1, P2E_DV1_OVERRIDES, P2E_DV1_CLI), (2, P2E_DV2_OVERRIDES, P2E_DV2_CLI)):
         with tempfile.TemporaryDirectory() as tmp:
             p2e_cli[version] = timed(f"p2e-dv{version}-cli", phase_p2e_cli, device, Path(tmp), version, overrides, schedule)
+    timed("dv3-decoupled-train-agreement", phase_train_agreement, device, SMALL_DV3_DECOUPLED, "[dv3-decoupled-train-agreement]")
+    dec_graph = timed(
+        "dv3-decoupled-train-graph", phase_train_graph, device, timed_steps=2, overrides=DV3_DECOUPLED_OVERRIDES, tag="[dv3-decoupled-train-graph]"
+    )
+    timed("minedojo-actor", phase_minedojo_actor, device)
+    timed("p2e-dv3-train-agreement", phase_train_agreement, device, SMALL_P2E_DV3, "[p2e-dv3-train-agreement]")
+    p2e_dv3_graph = timed("p2e-dv3-train-graph", lambda: [
+        phase_train_graph(device, timed_steps=2, overrides=P2E_DV3_OVERRIDES, tag="[p2e-dv3-train-graph]"),
+        phase_train_graph(device, env="continuous_dummy", overrides=P2E_DV3_OVERRIDES, tag="[p2e-dv3-train-graph]"),
+    ])
+    with tempfile.TemporaryDirectory() as tmp:
+        p2e_cli[3] = timed("p2e-dv3-cli", phase_p2e_cli, device, Path(tmp), 3, P2E_DV3_CLI_OVERRIDES, P2E_DV3_CLI)
+    graph_counts = ("k1_per_replay_capture", "k1_per_replay_profiler", "k1_per_eager_step_profiler", "k1_per_step_plan")
     log("[p2e-counts] " + json.dumps({
-        "p2e_dv2_exploration": {
-            g["actor"]: {k: g[k] for k in ("k1_per_replay_capture", "k1_per_replay_profiler", "k1_per_eager_step_profiler", "k1_per_step_plan")}
-            for g in p2e_graph
-        },
+        "p2e_dv2_exploration": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_graph},
+        "p2e_dv3_exploration_xl": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_dv3_graph},
+        "dv3_decoupled_s": {k: dec_graph[k] for k in graph_counts},
         "dv1_train_graph_k1_per_replay_capture": dv1_graph["k1_per_replay_capture"],
         "p2e_dv1_train_graph_k1_per_replay_capture": p2e_dv1_graph["k1_per_replay_capture"],
         "train_cli": {f"p2e_dv{v}": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in runs.items() if "grad_steps" in r}
@@ -1647,10 +1801,15 @@ def main() -> int:
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
     # K1's launches on every path that runs it, each counted from zero around its run
+    per_replay = lambda g: {"fwd": g["k1_per_replay_capture"]["layernorm_gru"], "bwd": g["k1_per_replay_capture"]["layernorm_gru_bwd"]}  # noqa: E731
     k1_paths = {
         "dv3_train_cli": cli["train"], "dv2_train_cli_device": dv2_cli["device"]["train"],
         "p2e_dv2_explore": p2e_cli[2]["explore"], "p2e_dv2_finetune_load": p2e_cli[2]["finetune_load_True"],
         "p2e_dv2_finetune": p2e_cli[2]["finetune_load_False"],
+        "dv3_decoupled_s_per_replay": per_replay(dec_graph),
+        "p2e_dv3_xl_discrete_per_replay": per_replay(p2e_dv3_graph[0]), "p2e_dv3_xl_continuous_per_replay": per_replay(p2e_dv3_graph[1]),
+        "p2e_dv3_explore": p2e_cli[3]["explore"], "p2e_dv3_finetune_load": p2e_cli[3]["finetune_load_True"],
+        "p2e_dv3_finetune": p2e_cli[3]["finetune_load_False"],
     }
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
@@ -1685,6 +1844,8 @@ def main() -> int:
         + "; DreamerV1 graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dv1_graph["turns"])
         + "; P2E-DV1 graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in p2e_dv1_graph["turns"])
         + "; P2E-DV2 graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in p2e_graph[0]["turns"])
+        + "; decoupled DreamerV3-S graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dec_graph["turns"])
+        + "; P2E-DV3 XL graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.3f}" for t in p2e_dv3_graph[0]["turns"])
         + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
     print(smi)
     print(json.dumps(line))

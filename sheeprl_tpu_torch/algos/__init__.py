@@ -1,6 +1,6 @@
 """Algorithm registry population (counterpart of ``sheeprl_tpu/algos/__init__.py``).
-Ported so far: DreamerV3, DreamerV2, DreamerV1, and P2E on DreamerV1 and DreamerV2
-(exploration and finetuning), their train and evaluation entries."""
+Ported so far: DreamerV3, DreamerV2, DreamerV1, and P2E on each of them (exploration and
+finetuning), their train and evaluation entries."""
 
 from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as _dv1  # noqa: F401
 from sheeprl_tpu_torch.algos.dreamer_v1 import evaluate as _dv1_eval  # noqa: F401
@@ -14,3 +14,6 @@ from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_finetuning as _p2e_dv1_fine 
 from sheeprl_tpu_torch.algos.p2e_dv2 import evaluate as _p2e_dv2_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as _p2e_dv2_expl  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_finetuning as _p2e_dv2_fine  # noqa: F401
+from sheeprl_tpu_torch.algos.p2e_dv3 import evaluate as _p2e_dv3_eval  # noqa: F401
+from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as _p2e_dv3_expl  # noqa: F401
+from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_finetuning as _p2e_dv3_fine  # noqa: F401

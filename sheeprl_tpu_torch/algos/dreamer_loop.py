@@ -79,6 +79,28 @@ def fill_draws(out: NamedTuple, kinds: Sequence[str], generator: Optional[torch.
     return out
 
 
+@torch.no_grad()
+def copy_tree_(live: Dict[str, Any], new: Dict[str, Any]) -> None:
+    """Copy ``new``'s tensors into ``live``'s in place, key by key through nested dicts
+    (P2E-DV3's return moments: ``{"task": {...}, "expl": {name: {...}}}``)."""
+    for k, v in live.items():
+        if isinstance(v, torch.Tensor):
+            v.copy_(new[k])
+        else:
+            copy_tree_(v, new[k])
+
+
+def load_opt_states(live: Dict[str, Any], saved: Dict[str, Any]) -> None:
+    """Load checkpointed optimizer states into ``live`` in place, name by name: an
+    optimizer's state (it holds a ``count``) by ``Optimizer.load_state``, a dict of them
+    (P2E-DV3's exploration critics) entry by entry."""
+    for name, state in live.items():
+        if "count" in state:
+            Optimizer.load_state(state, saved[name])
+        else:
+            load_opt_states(state, saved[name])
+
+
 def capture_step(run, state: Sequence[torch.Tensor], draw_shapes, sample_draws, T: int, B: int, generator):
     """``make_step(example_inputs) -> (step, draw)`` for ``make_device_replay``: a train
     step over static inputs, captured as a CUDA graph on a card (``utils/graphs.py``).
@@ -117,8 +139,7 @@ def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_stat
 
     def run(batch, update_target, draws):
         new_extra, metrics = train_step(opt_states, extra, batch, update_target, draws=draws)
-        for k in extra:
-            extra[k].copy_(new_extra[k])
+        copy_tree_(extra, new_extra)
         return metrics
 
     state = [p for m in modules.values() for p in m.parameters()] + tree_tensors(opt_states) + tree_tensors(extra)
@@ -225,10 +246,13 @@ _NOT_PORTED = (
 )
 
 
-def refuse_unported(cfg: Dict[str, Any]) -> None:
+def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
     """Raise, naming the key, when the config asks for a loop feature of the reference
-    that the port does not have: such a key is never silently ignored."""
+    that the port does not have: such a key is never silently ignored. ``handled``: keys
+    the algorithm reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``)."""
     for key, asks, what in _NOT_PORTED:
+        if key in handled:
+            continue
         node: Any = cfg
         for part in key.split("."):
             node = node.get(part) if isinstance(node, dict) else None
@@ -280,13 +304,14 @@ def sequential_buffer(cfg, num_envs: int, obs_keys: Sequence[str], log_dir: str)
     )
 
 
-def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS) -> TrainResult:
+def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS, handled: Sequence[str] = ()) -> TrainResult:
     """The Dreamer training loop: act in the vector env, store the rows, run each
     iteration's gradient steps as one block of the captured step, log, checkpoint,
     resume and test. ``setup(obs_space, actions_dim, is_continuous, log_dir, train_gen)``
     builds the algorithm's part (``LoopParts``); ``train_gen`` is the generator of the
-    step's draws; ``aggregator_keys`` names the metrics the loop logs."""
-    refuse_unported(cfg)
+    step's draws; ``aggregator_keys`` names the metrics the loop logs; ``handled`` the
+    keys of ``refuse_unported``'s list that the algorithm reads itself."""
+    refuse_unported(cfg, handled)
     device = ctx.device
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")
@@ -349,11 +374,8 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
         # in place: the captured step reads these tensors where they are
         for name, module in modules.items():
             module.load_state_dict(state["params"][name])
-        for name, opt_state in opt_states.items():
-            Optimizer.load_state(opt_state, state["opt_states"][name])
-        for name, tensors in parts.extra_state.items():
-            for k, v in tensors.items():
-                v.copy_(state[name][k])
+        load_opt_states(opt_states, state["opt_states"])
+        copy_tree_(parts.extra_state, state)
     if resume_from:
         ratio.load_state_dict(state["ratio"])
         start_iter = state["iter_num"] + 1

@@ -29,6 +29,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     CNNDecoderV2,
     CriticV2,
     EncoderV2,
+    MinedojoActorV2,
     MLPDecoderV2,
     PlayerState,
     add_exploration_noise,
@@ -36,6 +37,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     parse_actions_dim,
     xavier_normal_init,
 )
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import is_minedojo
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.models.blocks import MLP, Linear, set_compute_dtype
 from sheeprl_tpu_torch.utils.utils import exploration_amount
@@ -271,8 +273,6 @@ def build_agent(
     over float32 parameters.
 
     Returns ``(world_model, actor, critic, latent_size)``."""
-    if "minedojo" in str(cfg.env.get("wrapper", {}).get("_target_", "")).lower():
-        raise NotImplementedError("MinedojoActorV2 is not ported yet")
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
@@ -297,7 +297,7 @@ def build_agent(
         image_size=cfg.env.screen_size,
     )
     latent_size = wm_cfg.stochastic_size + wm_cfg.recurrent_model.recurrent_state_size
-    actor = ActorV2(
+    actor = (MinedojoActorV2 if is_minedojo(cfg) else ActorV2)(
         latent_size,
         actions_dim,
         is_continuous,

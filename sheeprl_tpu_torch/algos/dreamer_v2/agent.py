@@ -18,7 +18,8 @@ pieces (the conv trunk, the actor and critic heads) they reuse:
 Initialisation is the reference's: Xavier-normal kernels (both fans count the conv's
 receptive field, as ``torch.nn.init.xavier_normal_``), zero biases, unit LayerNorms.
 Randomness: every sampling method takes an optional ``torch.Generator`` and injected
-draws, as the DreamerV3 modules do. ``MinedojoActorV2`` is not ported yet.
+draws, as the DreamerV3 modules do. On MineDojo the actor is ``MinedojoActorV2``, the
+DreamerV3 ``MinedojoActor``'s masked heads on this family's trunk (no unimix).
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     CNNEncoder,
     DreamerActor,
     DreamerCritic,
+    MinedojoMasks,
     PlayerState,
     _channel_norm,
     compute_stochastic_state,
+    is_minedojo,
     parse_actions_dim,
 )
 from sheeprl_tpu_torch.distributions import gumbel_noise
@@ -54,6 +57,7 @@ from sheeprl_tpu_torch.utils.utils import exploration_amount
 
 __all__ = [
     "ActorV2",
+    "MinedojoActorV2",
     "CNNDecoderV2",
     "CNNEncoderV2",
     "CriticV2",
@@ -429,6 +433,11 @@ class ActorV2(DreamerActor):
         )
 
 
+class MinedojoActorV2(MinedojoMasks, ActorV2):
+    """The MineDojo policy of DreamerV2 (and DreamerV1): ``ActorV2``'s trunk and heads,
+    masked as ``MinedojoActor``'s."""
+
+
 def CriticV2(latent_size: int, dense_units: int = 400, mlp_layers: int = 4, activation: str = "elu", layer_norm: bool = False) -> DreamerCritic:
     """The DreamerV2 value head: a dense stack and one Gaussian mean."""
     return DreamerCritic(latent_size, dense_units, mlp_layers, 1, activation, layer_norm, NORM_EPS)
@@ -506,8 +515,6 @@ def build_agent(
     ``ctx.compute_dtype`` over float32 parameters.
 
     Returns ``(world_model, actor, critic, target_critic, latent_size)``."""
-    if "minedojo" in str(cfg.env.get("wrapper", {}).get("_target_", "")).lower():
-        raise NotImplementedError("MinedojoActorV2 is not ported yet")
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
@@ -533,7 +540,7 @@ def build_agent(
         image_size=cfg.env.screen_size,
     )
     latent_size = wm_cfg.stochastic_size * wm_cfg.discrete_size + wm_cfg.recurrent_model.recurrent_state_size
-    actor = ActorV2(
+    actor = (MinedojoActorV2 if is_minedojo(cfg) else ActorV2)(
         latent_size,
         actions_dim,
         is_continuous,

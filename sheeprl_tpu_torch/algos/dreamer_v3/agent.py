@@ -14,8 +14,13 @@ PyTorch's habit, the port keeps the reference's at its public functions:
   reason.
 
 Randomness: every sampling method takes an optional ``torch.Generator`` and an optional
-injected one-hot draw (see ``sheeprl_tpu_torch/distributions``). ``DecoupledRSSM`` and
-``MinedojoActor`` are not ported yet.
+injected one-hot draw (see ``sheeprl_tpu_torch/distributions``).
+
+``DecoupledRSSM`` (``algo.world_model.decoupled_rssm``) reads the posterior from the
+embedding alone, so a train step samples the whole ``[T, B]`` posterior in one call and
+unrolls only the prior chain. ``MinedojoActor`` (an env whose wrapper's ``_target_``
+names minedojo) masks its three heads by the observation's ``mask*`` entries, the
+argument heads by the action type it sampled.
 """
 
 from __future__ import annotations
@@ -256,7 +261,7 @@ class RSSM(nn.Module):
         stoch_out = stochastic_size * discrete_size
         self.recurrent_model = RecurrentModel(stoch_out + action_size, recurrent_state_size, dense_units)
         self.representation_model = MLP(
-            recurrent_state_size + embed_size, (representation_hidden_size,), activation="silu", layer_norm=True, norm_eps=1e-3
+            self._representation_input(embed_size), (representation_hidden_size,), activation="silu", layer_norm=True, norm_eps=1e-3
         )
         self.repr_logits = Linear(representation_hidden_size, stoch_out)
         self.transition_model = MLP(recurrent_state_size, (transition_hidden_size,), activation="silu", layer_norm=True, norm_eps=1e-3)
@@ -265,6 +270,9 @@ class RSSM(nn.Module):
             self.initial_recurrent_state = nn.Parameter(torch.zeros(recurrent_state_size))
         else:
             self.register_buffer("initial_recurrent_state", torch.zeros(recurrent_state_size), persistent=False)
+
+    def _representation_input(self, embed_size: int) -> int:
+        return self.recurrent_state_size + embed_size
 
     def _uniform_mix(self, logits: torch.Tensor) -> torch.Tensor:
         shaped = logits.reshape(*logits.shape[:-1], self.stochastic_size, self.discrete_size)
@@ -328,6 +336,40 @@ class RSSM(nn.Module):
         return imagined.flatten(-2), recurrent_state
 
 
+class DecoupledRSSM(RSSM):
+    """The RSSM whose posterior reads the observation's embedding alone, ``q(z_t | o_t)``:
+    the representation model's input is the embedding, and ``dynamic`` is a prior-only
+    step from the previous posterior."""
+
+    def _representation_input(self, embed_size: int) -> int:
+        return embed_size
+
+    def _representation(self, embedded_obs, sample: bool = True, generator=None, draw=None, gumbel=None):  # type: ignore[override]
+        logits = self._uniform_mix(self.repr_logits(self.representation_model(embedded_obs)).float())
+        return logits, compute_stochastic_state(logits, self.discrete_size, sample, generator, draw, gumbel)
+
+    def dynamic(  # type: ignore[override]
+        self,
+        posterior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        action: torch.Tensor,
+        is_first: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        draw: Optional[torch.Tensor] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ):
+        """One prior-only step from ``posterior``, the previous step's (already sampled
+        from its embedding): ``is_first`` rows restart from the learned initial state,
+        then GRU -> prior. Returns ``(recurrent_state, prior, prior_logits)``."""
+        action = (1 - is_first) * action
+        h0, z0 = self.get_initial_states(recurrent_state.shape[:-1])
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * h0
+        posterior = (1 - is_first) * posterior + is_first * z0
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], -1), recurrent_state)
+        prior_logits, prior = self._transition(recurrent_state, generator=generator, draw=draw, gumbel=gumbel)
+        return recurrent_state, prior, prior_logits
+
+
 class WorldModel(nn.Module):
     """Encoder + RSSM + decoders + reward/continue heads."""
 
@@ -350,14 +392,16 @@ class WorldModel(nn.Module):
         reward_bins: int = 255,
         image_size: int = 64,
         learnable_initial_recurrent_state: bool = True,
+        decoupled_rssm: bool = False,
     ):
         super().__init__()
         self.cnn_keys = list(cnn_keys)
         self.mlp_keys = list(mlp_keys)
+        self.decoupled_rssm = decoupled_rssm
         self.encoder = Encoder(
             cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, cnn_channels_multiplier, 4, dense_units, mlp_layers, image_size=image_size
         )
-        self.rssm = RSSM(
+        self.rssm = (DecoupledRSSM if decoupled_rssm else RSSM)(
             self.encoder.output_dim,
             action_size,
             stochastic_size,
@@ -409,7 +453,15 @@ class WorldModel(nn.Module):
         return self.rssm.get_initial_states(batch_shape)
 
     def representation(self, recurrent_state, embedded_obs, sample: bool = True, generator=None, draw=None, gumbel=None):
+        """The posterior of ``embedded_obs`` (and, unless decoupled, ``recurrent_state``)."""
+        if self.decoupled_rssm:
+            return self.rssm._representation(embedded_obs, sample, generator, draw, gumbel)
         return self.rssm._representation(recurrent_state, embedded_obs, sample, generator, draw, gumbel)
+
+    def representation_from_embed(self, embedded_obs, sample: bool = True, generator=None, draw=None, gumbel=None):
+        """The posterior of a whole ``[T, B]`` batch of embeddings in one call
+        (``DecoupledRSSM`` only)."""
+        return self.rssm._representation(embedded_obs, sample, generator, draw, gumbel)
 
 
 class DreamerActor(nn.Module):
@@ -493,13 +545,57 @@ class DreamerActor(nn.Module):
             return (actions,), (dist,)
         actions, dists = [], []
         for i, head in enumerate(self.heads):
-            d = OneHotCategoricalStraightThrough(unimix_logits(head(x).float(), self.unimix))
+            d = OneHotCategoricalStraightThrough(self._masked(i, unimix_logits(head(x).float(), self.unimix), mask, actions))
             dists.append(d)
             draw = draws[i] if draws is not None else None
             gumbel = gumbels[i] if gumbels is not None else None
             sampled = not greedy and (generator is not None or draw is not None or gumbel is not None)
             actions.append(d.rsample(generator, draw=draw, gumbel=gumbel) if sampled else d.mode)
         return tuple(actions), tuple(dists)
+
+    def _masked(self, i: int, logits: torch.Tensor, mask, actions) -> torch.Tensor:
+        """Discrete head ``i``'s logits under the observation's masks, given the heads
+        sampled before it: as they are (``MinedojoActor`` masks them)."""
+        return logits
+
+
+def minedojo_mask(i: int, logits: torch.Tensor, mask: Dict[str, torch.Tensor], functional_action: Optional[torch.Tensor]) -> torch.Tensor:
+    """Head ``i``'s logits with its disallowed entries at float32's lowest value: the action
+    type by ``mask_action_type``; the craft argument by ``mask_craft_smelt`` where the
+    sampled action type (``functional_action``) is 15 (craft); the item argument by
+    ``mask_equip_place`` where it is 16 or 17 (equip, place) and by ``mask_destroy`` where
+    it is 18 (destroy). Elsewhere an argument head is left free."""
+    lowest = torch.finfo(torch.float32).min
+    if i == 0:
+        allowed = mask["mask_action_type"]
+    elif i == 1:
+        allowed = torch.where((functional_action == 15)[..., None], mask["mask_craft_smelt"], True)
+    else:
+        equip_place = ((functional_action == 16) | (functional_action == 17))[..., None]
+        allowed = torch.where(equip_place, mask["mask_equip_place"], True)
+        allowed = torch.where((functional_action == 18)[..., None], mask["mask_destroy"], allowed)
+    return torch.where(allowed.bool(), logits, torch.full_like(logits, lowest))
+
+
+class MinedojoMasks:
+    """The MineDojo policy's heads (action type, craft argument, item argument), each
+    masked after unimix (``minedojo_mask``) and sampled in order, since the argument
+    heads' masks read the action type sampled first; injected draws are consumed head by
+    head. Mixed into an actor class of discrete heads."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.is_continuous:
+            raise ValueError(f"{type(self).__name__} only supports the functional MultiDiscrete action space")
+
+    def _masked(self, i: int, logits: torch.Tensor, mask, actions) -> torch.Tensor:
+        if mask is None:
+            return logits
+        return minedojo_mask(i, logits, mask, actions[0].argmax(-1) if actions else None)
+
+
+class MinedojoActor(MinedojoMasks, DreamerActor):
+    """DreamerV3's MineDojo policy: ``DreamerActor``'s trunk and heads, masked."""
 
 
 class DreamerCritic(nn.Module):
@@ -609,6 +705,12 @@ def parse_actions_dim(action_space: spaces.Space) -> Tuple[bool, Tuple[int, ...]
     raise ValueError(f"Unsupported action space: {type(action_space)}")
 
 
+def is_minedojo(cfg: Dict[str, Any]) -> bool:
+    """Whether the env is MineDojo's (its wrapper's ``_target_`` names it): the actor is
+    then the masked one."""
+    return "minedojo" in str(cfg.env.get("wrapper", {}).get("_target_", "")).lower()
+
+
 def build_agent(
     ctx,
     actions_dim: Sequence[int],
@@ -621,10 +723,6 @@ def build_agent(
     ``ctx.compute_dtype`` over float32 parameters.
 
     Returns ``(world_model, actor, critic, target_critic, latent_size)``."""
-    if "minedojo" in str(cfg.env.get("wrapper", {}).get("_target_", "")).lower():
-        raise NotImplementedError("MinedojoActor is not ported yet")
-    if cfg.algo.world_model.get("decoupled_rssm", False):
-        raise NotImplementedError("DecoupledRSSM is not ported yet")
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
@@ -646,9 +744,10 @@ def build_agent(
         reward_bins=wm_cfg.reward_model.bins,
         image_size=cfg.env.screen_size,
         learnable_initial_recurrent_state=wm_cfg.learnable_initial_recurrent_state,
+        decoupled_rssm=wm_cfg.get("decoupled_rssm", False),
     )
     latent_size = wm_cfg.stochastic_size * wm_cfg.discrete_size + wm_cfg.recurrent_model.recurrent_state_size
-    actor = DreamerActor(
+    actor = (MinedojoActor if is_minedojo(cfg) else DreamerActor)(
         latent_size,
         actions_dim,
         is_continuous,

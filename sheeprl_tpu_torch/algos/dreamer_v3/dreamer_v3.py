@@ -4,9 +4,12 @@
 loop ``run_loop`` that DreamerV2 shares (``algos/dreamer_loop.py``).
 
 One call runs, in the reference's order: the world-model update (the 64-step RSSM
-unroll as a Python loop, each step through the ``layernorm_gru`` kernels), the 15-step
-imagination and the actor update, the critic update, the EMA of the target critic and
-the update of the return moments.
+unroll as a Python loop, each step through the ``layernorm_gru`` kernels; with the
+decoupled RSSM, the whole posterior first as one call and then the prior chain alone),
+the 15-step imagination and the actor update, the critic update, the EMA of the target
+critic and the update of the return moments. The pieces (``world_model_loss``,
+``imagine``, ``lambda_returns``, ``policy_loss``, ``critic_loss``, ``ema_target``) are
+P2E-DV3's too.
 
 What the reference gets from ``jax.value_and_grad`` over one parameter subtree, the port
 gets from ``torch.autograd.grad`` over one module's parameter list, so the actor loss,
@@ -42,6 +45,8 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_loop import (
     LoopParts,
     TrainResult,
+    act,
+    actor_noise_kind,
     fill_draws,
     grads,
     make_captured_step,
@@ -66,7 +71,7 @@ from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 class TrainDraws(NamedTuple):
     wm_prior: torch.Tensor  # [T, B, stoch, discrete] Gumbel noise of the RSSM priors
-    wm_post: torch.Tensor  # [T, B, stoch, discrete] ... and of the posteriors
+    wm_post: torch.Tensor  # [T, B, stoch, discrete] ... and of the posteriors (decoupled: of the one vectorized call)
     actor0: Tuple[torch.Tensor, ...]  # per action head: the first imagined action's noise, [T*B, d]
     img_prior: torch.Tensor  # [horizon, T*B, stoch, discrete] imagined priors
     img_actor: Tuple[torch.Tensor, ...]  # per action head: [horizon, T*B, d]
@@ -107,6 +112,151 @@ def sample_draws(
     return fill_draws(out, ("gumbel", "gumbel", actor_noise, "gumbel", actor_noise), generator)
 
 
+def unroll(world_model, embed: torch.Tensor, batch_actions: torch.Tensor, is_first: torch.Tensor, wm_prior, wm_post, decoupled: bool):
+    """The RSSM over a ``[T, B]`` batch from a zero carry: ``(posts, recs, post_logits,
+    prior_logits)``, each ``[T, B, ...]``. Coupled, each step samples its prior and its
+    posterior (``wm_prior[t]``, ``wm_post[t]``); decoupled, the whole posterior is one
+    call on the embeddings (Gumbel noise ``wm_post``), and the unroll steps the prior
+    chain alone, each from the previous step's posterior."""
+    T, B = embed.shape[:2]
+    rec = torch.zeros(B, world_model.rssm.recurrent_state_size, device=embed.device)
+    recs, posts, post_logits, prior_logits = [], [], [], []
+    if decoupled:
+        post_l, post_sample = world_model.representation_from_embed(embed, gumbel=wm_post)
+        posts = post_sample.flatten(-2)
+        prev_posts = torch.cat([torch.zeros_like(posts[:1]), posts[:-1]], 0)
+        for t in range(T):
+            rec, _, prior_l = world_model.dynamic(prev_posts[t], rec, batch_actions[t], is_first[t], gumbel=wm_prior[t])
+            recs.append(rec)
+            prior_logits.append(prior_l)
+        return posts, torch.stack(recs), post_l, torch.stack(prior_logits)
+    post = torch.zeros(B, world_model.rssm.stochastic_size * world_model.rssm.discrete_size, device=embed.device)
+    for t in range(T):
+        rec, post, _, post_l, prior_l = world_model.dynamic(post, rec, batch_actions[t], embed[t], is_first[t], gumbels=(wm_prior[t], wm_post[t]))
+        recs.append(rec)
+        posts.append(post)
+        post_logits.append(post_l)
+        prior_logits.append(prior_l)
+    return torch.stack(posts), torch.stack(recs), torch.stack(post_logits), torch.stack(prior_logits)
+
+
+def world_model_loss(world_model, wm_cfg, data: Dict[str, torch.Tensor], wm_prior, wm_post, cnn_keys, mlp_keys, detach_heads: bool = False):
+    """DreamerV3's world-model loss on a ``[T, B]`` batch (the unroll, the decoders'
+    symlog/MSE likelihoods, the two-hot reward, the continue flag, the balanced KL):
+    ``(loss, metrics, posts, recs)``. ``detach_heads``: the reward and continue heads
+    read the latents with their gradient stopped (P2E-DV3)."""
+    T, B = data["rewards"].shape[:2]
+    stoch, discrete = wm_cfg.stochastic_size, wm_cfg.discrete_size
+    is_first = data["is_first"].clone()
+    is_first[0] = 1.0
+    batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
+    embed = world_model.encode({k: data[k] for k in [*cnn_keys, *mlp_keys]})  # [T, B, E]
+    posts, recs, post_logits, prior_logits = unroll(
+        world_model, embed, batch_actions, is_first, wm_prior, wm_post, bool(wm_cfg.get("decoupled_rssm", False))
+    )
+    latents = torch.cat([posts, recs], -1)  # [T, B, L]
+    recon = world_model.decode(latents)
+    obs_lp = 0.0
+    for k in cnn_keys:
+        target = data[k].float() / 255.0 - 0.5
+        target = target.reshape(T, B, -1, *target.shape[-2:])
+        obs_lp = obs_lp + MSEDistribution(recon[k], dims=3).log_prob(target)
+    for k in mlp_keys:
+        obs_lp = obs_lp + SymlogDistribution(recon[k], dims=1).log_prob(data[k])
+    head_in = latents.detach() if detach_heads else latents
+    reward_lp = TwoHotEncodingDistribution(world_model.reward(head_in), dims=1).log_prob(data["rewards"])
+    continue_lp = Independent(BernoulliSafeMode(world_model.continues(head_in)), 1).log_prob(1.0 - data["terminated"])
+    post_logits_s = post_logits.reshape(T, B, stoch, discrete)
+    prior_logits_s = prior_logits.reshape(T, B, stoch, discrete)
+    rec_loss, metrics = reconstruction_loss(
+        obs_lp,
+        reward_lp,
+        prior_logits_s,
+        post_logits_s,
+        wm_cfg.kl_dynamic,
+        wm_cfg.kl_representation,
+        wm_cfg.kl_free_nats,
+        wm_cfg.kl_regularizer,
+        continue_lp,
+        wm_cfg.continue_scale_factor,
+    )
+    with torch.no_grad():
+        metrics["State/post_entropy"] = Independent(OneHotCategorical(post_logits_s), 1).entropy().mean()
+        metrics["State/prior_entropy"] = Independent(OneHotCategorical(prior_logits_s), 1).entropy().mean()
+    return rec_loss, metrics, posts, recs
+
+
+def imagine(world_model, actor, latent0, prior, rec, actor0, img_prior, img_actor, horizon: int):
+    """``horizon`` prior-only steps of ``actor`` from ``latent0`` (its posterior ``prior``
+    and recurrent state ``rec``), under the injected noise: ``(traj [H+1, TB, L],
+    actions [H+1, TB, A])``. Each action reads its latent with the gradient stopped."""
+    action = act(actor, latent0, actor0)
+    traj, imagined_actions = [latent0], [action]
+    for i in range(horizon):
+        prior, rec = world_model.imagination(prior, rec, action, gumbel=img_prior[i])
+        latent = torch.cat([prior, rec], -1)
+        action = act(actor, latent.detach(), tuple(n[i] for n in img_actor))
+        traj.append(latent)
+        imagined_actions.append(action)
+    return torch.stack(traj), torch.stack(imagined_actions)
+
+
+def lambda_returns(rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor, gamma: float, lmbda: float) -> torch.Tensor:
+    """The lambda-returns of an imagined trajectory, a reverse scan: ``[H, TB, 1]``."""
+    horizon = values.shape[0] - 1
+    interm = rewards[1:] + continues[1:] * gamma * values[1:] * (1 - lmbda)
+    carry, out = values[-1], [None] * horizon
+    for t in reversed(range(horizon)):
+        carry = interm[t] + continues[t + 1] * gamma * lmbda * carry
+        out[t] = carry
+    return torch.stack(out)
+
+
+def imagined_continues(world_model, traj: torch.Tensor, terminated: torch.Tensor) -> torch.Tensor:
+    """The continue flags of an imagined trajectory: the replay's at its start, the
+    continue head's mode after. ``[H+1, TB, 1]``."""
+    continues = BernoulliSafeMode(world_model.continues(traj)).mode
+    return torch.cat([(1.0 - terminated).reshape(1, -1, 1), continues[1:]], 0)
+
+
+def policy_loss(actor, traj: torch.Tensor, imagined_actions: torch.Tensor, advantage: torch.Tensor, discount: torch.Tensor, ent_coef: float) -> torch.Tensor:
+    """DreamerV3's actor loss: the advantage itself (continuous: its gradient crosses the
+    imagination) or REINFORCE, ``log pi(a) * advantage`` (stopped), plus the entropy
+    bonus, weighted by the discount."""
+    _, dists = actor(traj.detach())
+    if actor.is_continuous:
+        objective = advantage
+        entropy = ent_coef * dists[0].entropy().sum(-1)
+    else:
+        logpis, offset = [], 0
+        for i, d in enumerate(dists):
+            dim = actor.actions_dim[i]
+            logpis.append(d.log_prob(imagined_actions[..., offset : offset + dim].detach())[:-1])
+            offset += dim
+        objective = sum(logpis)[..., None] * advantage.detach()
+        entropy = ent_coef * sum(d.entropy() for d in dists)
+    return -torch.mean(discount[:-1] * (objective + entropy[:-1][..., None]))
+
+
+def critic_loss(critic, target_critic, traj: torch.Tensor, lambda_values: torch.Tensor, discount: torch.Tensor) -> torch.Tensor:
+    """The two-hot critic's loss toward the lambda-returns and the target critic's values."""
+    qv = TwoHotEncodingDistribution(critic(traj[:-1]), dims=1)
+    with torch.no_grad():
+        target_values = TwoHotEncodingDistribution(target_critic(traj[:-1]), dims=1).mean
+    return torch.mean((-qv.log_prob(lambda_values) - qv.log_prob(target_values)) * discount[:-1][..., 0])
+
+
+@torch.no_grad()
+def ema_target(target_params, critic_params, tau: float, update_target: torch.Tensor) -> None:
+    """The EMA of the target critic towards the critic where the flag is set: the blend is
+    computed every step and kept only where it is, which gives the same bits as
+    blending in place under a host-side ``if``."""
+    blended = torch._foreach_mul(target_params, 1 - tau)
+    torch._foreach_add_(blended, critic_params, alpha=tau)
+    for p, b in zip(target_params, blended):
+        p.copy_(torch.where(update_target.bool(), b, p))
+
+
 def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Sequence[str], mlp_keys: Sequence[str]):
     """Build ``(train_step, init_opt_states)``.
 
@@ -120,6 +270,9 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     ``[T, B]`` batch, ``train_step.draw_shapes(T, B)`` gives their shapes and
     ``train_step.init_extra()`` makes the first moments on the modules' device. The
     metrics are 0-d tensors on the device, read only when the loop logs.
+
+    With ``algo.world_model.decoupled_rssm`` the world model's posterior is one call over
+    the batch (``wm_post`` its noise) and the unroll steps the priors alone (``unroll``).
 
     The step is graph-safe: it makes no host-to-device copy and no host sync, and reads
     every value that changes between steps (the optimizers' counts, the target flag, the
@@ -135,7 +288,7 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     actions_dim = tuple(actor.actions_dim)
     tau = cfg.algo.critic.tau
     moments_cfg = cfg.algo.actor.moments
-    actor_noise = "gumbel" if not is_continuous else ("uniform" if actor.distribution == "trunc_normal" else "normal")
+    actor_noise = actor_noise_kind(actor)
     cnn_keys, mlp_keys = list(cnn_keys), list(mlp_keys)
 
     wm_opt = make_optimizer(wm_cfg.optimizer, wm_cfg.clip_gradients)
@@ -155,11 +308,6 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
             "critic": critic_opt.init(critic_params),
         }
 
-    def act(latent, noise):
-        if is_continuous:
-            return actor(latent, draws=noise)
-        return actor(latent, gumbels=noise)
-
     def train_step(
         opt_states: Dict[str, Any],
         moments: Dict[str, torch.Tensor],
@@ -172,85 +320,24 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         device = data["rewards"].device
         if draws is None:
             draws = sample_draws(T, B, horizon, stoch, discrete, actions_dim, actor_noise, generator, device)
-        batch_obs = {k: data[k] for k in cnn_keys + mlp_keys}
-        is_first = data["is_first"].clone()
-        is_first[0] = 1.0
-        batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
 
         # ------------------------------------------------ world model
-        embed = world_model.encode(batch_obs)  # [T, B, E]
-        post = torch.zeros(B, stoch_size, device=device)
-        rec = torch.zeros(B, rec_size, device=device)
-        recs, posts, post_logits, prior_logits = [], [], [], []
-        for t in range(T):
-            rec, post, _, post_l, prior_l = world_model.dynamic(
-                post, rec, batch_actions[t], embed[t], is_first[t], gumbels=(draws.wm_prior[t], draws.wm_post[t])
-            )
-            recs.append(rec)
-            posts.append(post)
-            post_logits.append(post_l)
-            prior_logits.append(prior_l)
-        recs, posts = torch.stack(recs), torch.stack(posts)
-        latents = torch.cat([posts, recs], -1)  # [T, B, L]
-        recon = world_model.decode(latents)
-        obs_lp = 0.0
-        for k in cnn_keys:
-            target = data[k].float() / 255.0 - 0.5
-            target = target.reshape(T, B, -1, *target.shape[-2:])
-            obs_lp = obs_lp + MSEDistribution(recon[k], dims=3).log_prob(target)
-        for k in mlp_keys:
-            obs_lp = obs_lp + SymlogDistribution(recon[k], dims=1).log_prob(data[k])
-        reward_lp = TwoHotEncodingDistribution(world_model.reward(latents), dims=1).log_prob(data["rewards"])
-        continue_lp = Independent(BernoulliSafeMode(world_model.continues(latents)), 1).log_prob(1.0 - data["terminated"])
-        post_logits_s = torch.stack(post_logits).reshape(T, B, stoch, discrete)
-        prior_logits_s = torch.stack(prior_logits).reshape(T, B, stoch, discrete)
-        rec_loss, metrics = reconstruction_loss(
-            obs_lp,
-            reward_lp,
-            prior_logits_s,
-            post_logits_s,
-            wm_cfg.kl_dynamic,
-            wm_cfg.kl_representation,
-            wm_cfg.kl_free_nats,
-            wm_cfg.kl_regularizer,
-            continue_lp,
-            wm_cfg.continue_scale_factor,
-        )
-        with torch.no_grad():
-            metrics["State/post_entropy"] = Independent(OneHotCategorical(post_logits_s), 1).entropy().mean()
-            metrics["State/prior_entropy"] = Independent(OneHotCategorical(prior_logits_s), 1).entropy().mean()
+        rec_loss, metrics, posts, recs = world_model_loss(world_model, wm_cfg, data, draws.wm_prior, draws.wm_post, cnn_keys, mlp_keys)
         metrics["Grads/world_model"] = wm_opt.update(wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
-        del rec_loss, recon, embed
+        del rec_loss
 
         # ------------------------------------------------ imagination + actor
-        latent0 = latents.detach().reshape(T * B, -1)
-        prior = posts.detach().reshape(T * B, stoch_size)
-        rec = recs.detach().reshape(T * B, rec_size)
-        true_continue0 = (1.0 - data["terminated"]).reshape(T * B, 1)
+        latent0 = torch.cat([posts, recs], -1).detach().reshape(T * B, -1)
+        prior0 = posts.detach().reshape(T * B, stoch_size)
+        rec0 = recs.detach().reshape(T * B, rec_size)
         with torch.set_grad_enabled(is_continuous):
-            action = torch.cat(act(latent0, draws.actor0)[0], -1)
-            traj, imagined_actions = [latent0], [action]
-            for i in range(horizon):
-                prior, rec = world_model.imagination(prior, rec, action, gumbel=draws.img_prior[i])
-                latent = torch.cat([prior, rec], -1)
-                action = torch.cat(act(latent.detach(), tuple(n[i] for n in draws.img_actor))[0], -1)
-                traj.append(latent)
-                imagined_actions.append(action)
-            traj = torch.stack(traj)  # [H+1, TB, L]
-            imagined_actions = torch.stack(imagined_actions)  # [H+1, TB, A]
-
+            traj, imagined_actions = imagine(
+                world_model, actor, latent0, prior0, rec0, draws.actor0, draws.img_prior, draws.img_actor, horizon
+            )
             values = TwoHotEncodingDistribution(critic(traj), dims=1).mean
             rewards_img = TwoHotEncodingDistribution(world_model.reward(traj), dims=1).mean
-            continues = BernoulliSafeMode(world_model.continues(traj)).mode
-            continues = torch.cat([true_continue0[None], continues[1:]], 0)
-
-            # lambda-returns, a reverse scan over the imagined steps
-            interm = rewards_img[1:] + continues[1:] * gamma * values[1:] * (1 - lmbda)
-            carry, lambda_values = values[-1], [None] * horizon
-            for t in reversed(range(horizon)):
-                carry = interm[t] + continues[t + 1] * gamma * lmbda * carry
-                lambda_values[t] = carry
-            lambda_values = torch.stack(lambda_values)
+            continues = imagined_continues(world_model, traj, data["terminated"])
+            lambda_values = lambda_returns(rewards_img, values, continues, gamma, lmbda)
             discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
 
         offset, invscale, new_moments = update_moments(
@@ -263,41 +350,19 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
             levels=levels,
         )
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
-        _, dists = actor(traj.detach())
-        if is_continuous:
-            objective = advantage
-            entropy = ent_coef * dists[0].entropy().sum(-1)
-        else:
-            logpis, offset_a = [], 0
-            for i, d in enumerate(dists):
-                logpis.append(d.log_prob(imagined_actions[..., offset_a : offset_a + actions_dim[i]].detach())[:-1])
-                offset_a += actions_dim[i]
-            objective = sum(logpis)[..., None] * advantage.detach()
-            entropy = ent_coef * sum(d.entropy() for d in dists)
-        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1][..., None]))
-        metrics["Grads/actor"] = actor_opt.update(actor_params, grads(policy_loss, actor_params), opt_states["actor"])
-        metrics["Loss/policy_loss"] = policy_loss.detach()
+        loss = policy_loss(actor, traj, imagined_actions, advantage, discount, ent_coef)
+        metrics["Grads/actor"] = actor_opt.update(actor_params, grads(loss, actor_params), opt_states["actor"])
+        metrics["Loss/policy_loss"] = loss.detach()
         traj, lambda_values = traj.detach(), lambda_values.detach()
-        del policy_loss, objective, advantage, values, rewards_img
+        del loss, advantage, values, rewards_img
 
         # ------------------------------------------------ critic
-        qv = TwoHotEncodingDistribution(critic(traj[:-1]), dims=1)
-        with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(target_critic(traj[:-1]), dims=1).mean
-        value_loss = torch.mean((-qv.log_prob(lambda_values) - qv.log_prob(target_values)) * discount[:-1][..., 0])
+        value_loss = critic_loss(critic, target_critic, traj, lambda_values, discount)
         metrics["Grads/critic"] = critic_opt.update(critic_params, grads(value_loss, critic_params), opt_states["critic"])
         metrics["Loss/value_loss"] = value_loss.detach()
-
-        # EMA of the target critic towards the updated critic where the flag is set: the
-        # blend is computed every step and kept only where it is, which gives the same
-        # bits as blending in place under a host-side ``if``
-        with torch.no_grad():
-            if not isinstance(update_target, torch.Tensor):
-                update_target = torch.full((), bool(update_target), device=device)
-            blended = torch._foreach_mul(target_params, 1 - tau)
-            torch._foreach_add_(blended, critic_params, alpha=tau)
-            for p, b in zip(target_params, blended):
-                p.copy_(torch.where(update_target.bool(), b, p))
+        if not isinstance(update_target, torch.Tensor):
+            update_target = torch.full((), bool(update_target), device=device)
+        ema_target(target_params, critic_params, tau, update_target)
         return new_moments, metrics
 
     def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
@@ -332,4 +397,4 @@ def main(ctx, cfg) -> TrainResult:
             exploration=None,
         )
 
-    return run_loop(ctx, cfg, setup)
+    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm",))

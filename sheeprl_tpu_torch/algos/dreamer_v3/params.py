@@ -23,7 +23,8 @@ convert as well:
 Every leaf must map to exactly one entry of the module's ``state_dict`` with the same
 shape, and every entry must be filled: a leaf left over or an entry missing raises.
 
-``parameter_list_from_jax`` carries a tree shaped like a module's parameters, such as
+A ``ModuleDict`` of modules takes a dict of their trees. ``parameter_list_from_jax``
+carries a tree shaped like a module's parameters, such as
 an optimizer's moments (optax's ``mu``/``nu``), into the order of
 ``module.parameters()``, the order of the port's optimizer state.
 """
@@ -108,12 +109,18 @@ def module_state_from_jax(tree: Mapping[str, Any], module: nn.Module, name: str 
 
 def params_from_jax(params: Mapping[str, Any], modules: Mapping[str, nn.Module]) -> Dict[str, Dict[str, torch.Tensor]]:
     """``params``: ``{name: {"params": tree}}`` for each name in ``modules``. Returns
-    ``{name: state_dict}`` ready for ``modules[name].load_state_dict``."""
+    ``{name: state_dict}`` ready for ``modules[name].load_state_dict``. A module that is
+    an ``nn.ModuleDict`` takes a dict of such trees, one per child (P2E-DV3's
+    ``critics_exploration``: ``{name: {"module": ..., "target": ...}}``)."""
     if set(params) != set(modules):
         raise KeyError(f"parameter trees {sorted(params)} do not match modules {sorted(modules)}")
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, module in modules.items():
         tree = params[name]
+        if isinstance(module, nn.ModuleDict):
+            nested = params_from_jax(tree, module)
+            out[name] = {f"{child}.{k}": v for child, state in nested.items() for k, v in state.items()}
+            continue
         tree = tree["params"] if set(tree) == {"params"} else tree
         out[name] = module_state_from_jax(tree, module, name)
     return out

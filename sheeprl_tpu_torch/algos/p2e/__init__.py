@@ -6,13 +6,14 @@
   parameter trees). Its parameters are one list: the global-norm clip of its optimizer
   sees the whole ensemble, as optax's does over the stacked tree.
 * ``ensemble_loss_normal``: the members' unit-variance Gaussian negative log-likelihood
-  of the next target, summed over the members (P2E on DreamerV1 and DreamerV2).
+  of the next target, summed over the members (P2E on DreamerV1 and DreamerV2);
+  ``ensemble_loss``: their squared error (P2E on DreamerV3).
 * ``intrinsic_reward``: the members' disagreement, their population variance (``ddof``
   0), averaged over the features.
 * ``load_exploration_config``: a finetuning run takes the exploration run's env geometry
   and model widths from its saved config.
 
-And what P2E on DreamerV1 and on DreamerV2 share around their steps: the modules'
+And what P2E on DreamerV1, DreamerV2 and DreamerV3 share around their steps: the modules'
 constructors (``build_ensembles``, ``fresh_copy``), the optimizers (``OPTIMIZED``,
 ``make_optimizers``), which actor acts and which one is tested (``acting_actor``,
 ``evaluated_actor``), and a finetuning run's loop parts (``finetuning_parts``).
@@ -40,6 +41,7 @@ __all__ = [
     "Ensembles",
     "acting_actor",
     "build_ensembles",
+    "ensemble_loss",
     "ensemble_loss_normal",
     "evaluated_actor",
     "finetuning_parts",
@@ -149,6 +151,14 @@ def ensemble_loss_normal(ensembles: Ensembles, inputs: torch.Tensor, targets: to
     return nll.mean((1, 2)).sum()
 
 
+def ensemble_loss(ensembles: Ensembles, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each member's squared error of ``targets`` ``[T - 1, B, D]`` from its predictions
+    on ``inputs[:-1]``, summed over the features (``-MSEDistribution(preds, 1).log_prob``),
+    a mean over the rows, summed over the members."""
+    preds = ensembles(inputs)[:, :-1]  # [N, T-1, B, D]
+    return torch.sum((preds - targets[None]) ** 2, -1).mean((1, 2)).sum()
+
+
 def intrinsic_reward(ensembles: Ensembles, inputs: torch.Tensor, multiplier: float) -> torch.Tensor:
     """The disagreement reward: the members' population variance of their predictions on
     ``inputs`` (gradient stopped), averaged over the features, times ``multiplier``:
@@ -223,11 +233,12 @@ def load_exploration_config(cfg) -> Any:
     return exploration_cfg
 
 
-def build_ensembles(ctx, cfg, input_dim: int, output_dim: int, layer_norm: bool) -> Ensembles:
-    """``algo.ensembles``' members with Flax's default initialisation, from ``ctx.rng()``,
-    computing in ``ctx.compute_dtype``, on ``ctx.device``."""
+def build_ensembles(ctx, cfg, input_dim: int, output_dim: int, activation: str, layer_norm: bool) -> Ensembles:
+    """``algo.ensembles``' members (``activation``, a LayerNorm at eps 1e-5 after each
+    hidden layer where ``layer_norm``) with Flax's default initialisation, from
+    ``ctx.rng()``, computing in ``ctx.compute_dtype``, on ``ctx.device``."""
     ens_cfg = cfg.algo.ensembles
-    ens = Ensembles(ens_cfg.n, input_dim, output_dim, ens_cfg.dense_units, ens_cfg.mlp_layers, cfg.algo.dense_act, layer_norm)
+    ens = Ensembles(ens_cfg.n, input_dim, output_dim, ens_cfg.dense_units, ens_cfg.mlp_layers, activation, layer_norm)
     ens.reset_parameters(ctx.rng(device="cpu"))
     return set_compute_dtype(ens, ctx.compute_dtype).to(ctx.device)
 
@@ -274,23 +285,32 @@ def start_state(cfg) -> Optional[Dict[str, Any]]:
     return CheckpointManager.load(cfg.checkpoint.exploration_ckpt_path)
 
 
-def finetuning_parts(ctx, cfg, build, make_expl_step, make_task_step, task_slice, make_player, make_buffer, obs_space, actions_dim, is_continuous, log_dir, train_gen) -> LoopParts:
+def finetuning_parts(
+    ctx, cfg, build, make_expl_step, make_task_step, task_slice, make_player, make_buffer, obs_space, actions_dim, is_continuous,
+    log_dir, train_gen, moments: bool = False,
+) -> LoopParts:
     """The loop's parts of a P2E finetuning run: every module and optimizer state of the
     exploration run (its ``make_expl_step``'s layout), and the captured task step
-    (``make_task_step``) over the ``task_slice`` of them."""
+    (``make_task_step``) over the ``task_slice`` of them. ``moments``: the steps carry
+    DreamerV3's return moments (P2E-DV3), checkpointed as ``moments``: the task's go on
+    in the task step, the exploration critics' are kept as they were loaded."""
     modules, _ = build(ctx, actions_dim, is_continuous, cfg, obs_space)
     cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
-    _, init_all = make_expl_step(modules, cfg, cnn_keys, mlp_keys)
+    expl_step, init_all = make_expl_step(modules, cfg, cnn_keys, mlp_keys)
     opt_states = init_all()
     task_modules = {k: modules[v] for k, v in task_slice.items()}
     train_step, _ = make_task_step(*task_modules.values(), cfg, cnn_keys, mlp_keys)
     task_opt = {k: opt_states[v] for k, v in task_slice.items() if v in opt_states}  # the same states, by the step's names
-    extra = train_step.init_extra()
+    if moments:
+        extra_state = {"moments": expl_step.init_extra()}
+        extra = extra_state["moments"]["task"]
+    else:
+        extra_state, extra = {}, train_step.init_extra()
     world_model = modules["world_model"]
     return LoopParts(
         modules=modules,
         opt_states=opt_states,
-        extra_state={},
+        extra_state=extra_state,
         make_step=make_captured_step(
             train_step, task_modules, task_opt, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
         ),

@@ -38,6 +38,6 @@ def build_agent(
         "critic_task": critic,
         "actor_exploration": fresh_copy(actor, ctx, xavier_normal_init),
         "critic_exploration": fresh_copy(critic, ctx, xavier_normal_init),
-        "ensembles": build_ensembles(ctx, cfg, ens_in, world_model.encoder.output_dim, False),
+        "ensembles": build_ensembles(ctx, cfg, ens_in, world_model.encoder.output_dim, cfg.algo.dense_act, False),
     }
     return modules, latent_size

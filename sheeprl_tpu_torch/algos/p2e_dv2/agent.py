@@ -49,7 +49,7 @@ def build_agent(
         "critic_exploration": critic_expl,
         "target_critic_exploration": copy.deepcopy(critic_expl),
         "ensembles": build_ensembles(
-            ctx, cfg, int(sum(actions_dim)) + wm_cfg.recurrent_model.recurrent_state_size + stoch_size, stoch_size, cfg.algo.layer_norm
+            ctx, cfg, int(sum(actions_dim)) + wm_cfg.recurrent_model.recurrent_state_size + stoch_size, stoch_size, cfg.algo.dense_act, cfg.algo.layer_norm
         ),
     }
     return modules, latent_size

@@ -36,9 +36,10 @@ from sheeprl_tpu_torch.ops import _build
 from sheeprl_tpu_torch.ops.gru import _DTYPE_CODES, layernorm_gru, layernorm_gru_backward
 
 # (B, H): DreamerV3-S's eval entry's one row, a ragged batch, the RSSM unroll's 16 rows,
-# the imagination's 1024 (T 64 x B 16), a wide hidden state; DreamerV2's unroll (16 rows)
-# and imagination (T 50 x B 16 = 800) at its H = 600.
-KERNEL_SHAPES = [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096), (16, 600), (800, 600)]
+# the imagination's 1024 (T 64 x B 16); DreamerV3-XL's (P2E-DV3 at its published widths)
+# unroll and imagination at H = 4096, the wide plan; DreamerV2's unroll (16 rows) and
+# imagination (T 50 x B 16 = 800) at its H = 600.
+KERNEL_SHAPES = [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096), (1024, 4096), (16, 600), (800, 600)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CALLS = 100  # calls per captured graph
 EPS = 1e-3

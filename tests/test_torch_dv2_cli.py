@@ -101,10 +101,18 @@ def test_entries_ask_for_cuda_by_default(tmp_path, monkeypatch):
 
 
 def test_minedojo_actor_is_refused():
-    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    """On a MineDojo wrapper the build's actor is ``MinedojoActorV2`` (ported since PR 9,
+    held against the reference in ``test_torch_minedojo_actor.py``), which refuses a
+    continuous action space, as the reference's does."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import MinedojoActorV2, build_agent
     from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.parallel.context import RunContext
 
     cfg = compose(overrides=[*RUN, "env.wrapper._target_=sheeprl_tpu.envs.minedojo.MineDojoWrapper"])
-    with pytest.raises(NotImplementedError, match="MinedojoActorV2"):
-        build_agent(RunContext(torch.device("cpu"), 0), (3,), False, cfg, None)
+    obs_space = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), np.uint8), "state": spaces.Box(-20, 20, (10,), np.float32)})
+    assert isinstance(build_agent(RunContext(torch.device("cpu"), 0), (19, 4, 6), False, cfg, obs_space)[1], MinedojoActorV2)
+    with pytest.raises(ValueError, match="MinedojoActorV2 only supports the functional MultiDiscrete"):
+        build_agent(RunContext(torch.device("cpu"), 0), (3,), True, cfg, obs_space)

@@ -48,21 +48,21 @@ def _compose(extra=()):
     return jax_compose(overrides=overrides), torch_compose(overrides=[*overrides, "device=cpu"])
 
 
-def _train_overrides(is_continuous: bool, precision: str, cnn: bool):
-    extra = ["env=continuous_dummy"] if is_continuous else []
+def _train_overrides(is_continuous: bool, precision: str, cnn: bool, extra=()):
+    extra = [*(["env=continuous_dummy"] if is_continuous else []), *extra]
     if not cnn:
         extra.append("algo.cnn_keys.encoder=[]")
     return [*extra, f"mesh.precision={precision}"], (["rgb"] if cnn else []) + ["state"]
 
 
-def build_port_step(params, is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0):
+def build_port_step(params, is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0, extra=()):
     """The port's agent over the carried JAX ``params``, its train step and config."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step
     from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
     from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
 
-    overrides, keys = _train_overrides(is_continuous, precision, cnn)
+    overrides, keys = _train_overrides(is_continuous, precision, cnn, extra)
     _, tcfg = _compose(overrides)
     port_ctx = RunContext(torch.device("cpu"), seed, compute_dtype=compute_dtype(precision))
     wm, actor, critic, target, _ = build_agent(port_ctx, (2,), is_continuous, tcfg, OBS_SPACE)
@@ -73,16 +73,17 @@ def build_port_step(params, is_continuous: bool, precision: str, cnn: bool = Tru
     return modules, step, init, tcfg
 
 
-def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0, perturb: float = 0.05):
+def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed: int = 0, perturb: float = 0.05, extra=()):
     """The JAX step (jitted) and the port's, over the same carried parameters. Without
-    ``cnn`` the agent reads the vector key only (a smaller program to compile)."""
+    ``cnn`` the agent reads the vector key only (a smaller program to compile); ``extra``
+    overrides both configs further."""
     import jax
 
     from sheeprl_tpu.algos.dreamer_v3.agent import build_agent as jax_build_agent
     from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import make_train_step as jax_make_train_step
     from sheeprl_tpu.parallel.mesh import MeshContext, build_mesh
 
-    overrides, keys = _train_overrides(is_continuous, precision, cnn)
+    overrides, keys = _train_overrides(is_continuous, precision, cnn, extra)
     jcfg, _ = _compose(overrides)
     actions_dim = (2,)
     ctx = MeshContext(mesh=build_mesh(devices=jax.devices()[:1]), precision=precision, seed=seed)
@@ -92,7 +93,7 @@ def build_train_pair(is_continuous: bool, precision: str, cnn: bool = True, seed
     rng = np.random.default_rng(seed + 100)
     params = jax.tree.map(lambda x: (x + rng.normal(0.0, perturb, x.shape)).astype(np.float32), params)
     jstep, jinit = jax_make_train_step(jwm, jactor, jcritic, jcfg, keys[:-1], ["state"], {})
-    modules, step, init, tcfg = build_port_step(params, is_continuous, precision, cnn, seed)
+    modules, step, init, tcfg = build_port_step(params, is_continuous, precision, cnn, seed, extra)
     return dict(jstep=jax.jit(jstep, static_argnums=(5,)), jinit=jinit, params=params, modules=modules, step=step, init=init, cfg=tcfg)
 
 
@@ -113,8 +114,10 @@ def make_batch(seed: int, is_continuous: bool):
     }
 
 
-def jax_draws(key, is_continuous: bool, actions_dim=(2,)):
-    """The noise ``make_train_step`` draws from ``key``, split as it splits it."""
+def jax_draws(key, is_continuous: bool, actions_dim=(2,), decoupled: bool = False):
+    """The noise ``make_train_step`` draws from ``key``, split as it splits it. With the
+    decoupled RSSM, ``k_wm`` splits into the posterior's key (one draw over ``[T, B]``)
+    and the prior chain's (one key per step)."""
     import jax
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import TrainDraws
@@ -127,7 +130,11 @@ def jax_draws(key, is_continuous: bool, actions_dim=(2,)):
 
     k_wm, k_img, k_a0 = jax.random.split(key, 3)
     prior, post = [], []
-    for k in jax.random.split(k_wm, T):
+    if decoupled:
+        k_repr, k_scan = jax.random.split(k_wm)
+        post = jax.random.gumbel(k_repr, (T, B, STOCH, DISCRETE))
+        prior = [jax.random.gumbel(k, (B, STOCH, DISCRETE)) for k in jax.random.split(k_scan, T)]
+    for k in [] if decoupled else jax.random.split(k_wm, T):
         k1, k2 = jax.random.split(k)
         prior.append(jax.random.gumbel(k1, (B, STOCH, DISCRETE)))
         post.append(jax.random.gumbel(k2, (B, STOCH, DISCRETE)))
@@ -166,10 +173,11 @@ def run_pair(pair, is_continuous: bool, seed: int = 3, update_target: bool = Tru
     jparams = jax.tree.map(jnp.asarray, pair["params"])
     jmoments = {"low": jnp.asarray(0.3), "high": jnp.asarray(1.7)}
     jout = pair["jstep"](jparams, pair["jinit"](jparams), jmoments, {k: jnp.asarray(v) for k, v in batch.items()}, key, update_target)
-    return jax.device_get(jout), run_port(pair["step"], pair["init"], is_continuous, seed, update_target)
+    decoupled = bool(pair["cfg"].algo.world_model.get("decoupled_rssm", False))
+    return jax.device_get(jout), run_port(pair["step"], pair["init"], is_continuous, seed, update_target, decoupled)
 
 
-def run_port(step, init, is_continuous: bool, seed: int = 3, update_target: bool = True):
+def run_port(step, init, is_continuous: bool, seed: int = 3, update_target: bool = True, decoupled: bool = False):
     """The port's step on ``run_pair``'s batch, moments and JAX draws."""
     import jax
 
@@ -180,7 +188,7 @@ def run_port(step, init, is_continuous: bool, seed: int = 3, update_target: bool
     moments["low"].fill_(0.3)
     moments["high"].fill_(1.7)
     opt = init()
-    draws = jax_draws(jax.random.PRNGKey(seed), is_continuous)
+    draws = jax_draws(jax.random.PRNGKey(seed), is_continuous, decoupled=decoupled)
     new_moments, metrics = step(opt, moments, {k: torch.from_numpy(v) for k, v in batch.items()}, update_target, draws=draws)
     return opt, new_moments, metrics
 

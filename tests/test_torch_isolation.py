@@ -51,6 +51,11 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
     "sheeprl_tpu_torch.algos.p2e_dv2.utils",
+    "sheeprl_tpu_torch.algos.p2e_dv3.agent",
+    "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv3.utils",
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.benchmarks",
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",

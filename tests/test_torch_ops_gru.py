@@ -358,7 +358,46 @@ def test_cuda_kernels_at_dreamer_v2s_width(cuda_device, batch, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("batch,hidden", [(16, 512), (1024, 512), (129, 512), (16, 5000), (1, 16384), (800, 600)])
+def test_geometry_at_dreamer_v3_xls_width():
+    """DreamerV3-XL's GRU (H = 4096, P2E-DV3 at its published widths): the wide plan at
+    both of its shapes, a row alone in a CTA of 1024 threads (4 units each, 4 a load).
+    The unroll's 16 rows: 16 forward CTAs; the backward two launches, 16 CTAs and 16
+    partial rows for the sum launch. The imagination's 1024 rows: 1024 forward CTAs; the
+    backward 128 CTAs whose groups walk 8 rows, and 128 partial rows (12.6 MB)."""
+    unroll, imagination = geometry(16, 4096), geometry(1024, 4096)
+    for geo in (unroll, imagination):
+        assert (geo["path"], geo["units"], geo["vec"], geo["threads_per_row"], geo["rows_per_cta"], geo["cluster"]) == (1, 4, 4, 1024, 1, 1)
+        assert (geo["bwd_launches"], geo["bwd_smem"]) == (2, 0)
+    assert (unroll["fwd_grid"], unroll["rows_per_group"], unroll["bwd_grid"], unroll["partial_rows"]) == (16, 1, 16, 16)
+    assert (imagination["fwd_grid"], imagination["rows_per_group"], imagination["bwd_grid"], imagination["partial_rows"]) == (1024, 8, 128, 128)
+    assert imagination["partial_rows"] * 2 * 3 * 4096 * 4 == 12_582_912
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [16, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_at_dreamer_v3_xls_width(cuda_device, batch, dtype):
+    """Both kernels at H = 4096 (the unroll's 16 rows and the imagination's 1024, the
+    wide plan, a backward of two launches) against the plain version in float32, through
+    autograd as the model calls them, twice giving the same bits."""
+    proj, h, gamma, beta, g = _card_operands(batch, 4096, cuda_device, seed=51)
+    args = (proj.to(dtype), h.to(dtype), gamma, beta)
+    fwd, bwd = layernorm_gru.launches, layernorm_gru_backward.launches
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    out = layernorm_gru(*leaves)
+    torch.autograd.backward(out, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (layernorm_gru.launches, layernorm_gru_backward.launches) == (fwd + 1, bwd + 1)
+    _assert_forward_close(out.detach(), args)
+    _assert_backward_close([t.grad for t in leaves], args, g.to(dtype))
+    with torch.inference_mode():
+        assert torch.equal(layernorm_gru(*args), out.detach())
+    again = layernorm_gru_backward(*args, g.to(dtype))
+    for name, a, b in zip(("dproj", "dh", "dgamma", "dbeta"), again, [t.grad for t in leaves]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("batch,hidden", [(16, 512), (1024, 512), (129, 512), (16, 5000), (1, 16384), (800, 600), (1024, 4096)])
 def test_backward_scratch_is_sized_from_the_geometry(batch, hidden):
     """The wrapper's scratch is ``partial_rows`` rows of [2][3H] float32, none for a
     one-launch call."""

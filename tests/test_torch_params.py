@@ -147,3 +147,112 @@ def test_build_agent_initialises_like_the_reference():
     again = build_agent(RunContext(torch.device("cpu"), seed=3), ACTIONS_DIM, False, cfg, OBS_SPACE)[0]
     for k, v in wm.state_dict().items():
         assert torch.equal(v, again.state_dict()[k]), k
+
+
+# ---------------------------------------------------------------------------------------
+# The trees of this slice: the decoupled RSSM, the MineDojo heads, P2E-DV3's
+# ---------------------------------------------------------------------------------------
+
+
+def _count_leaves(tree) -> int:
+    return sum(_count_leaves(v) if isinstance(v, dict) else 1 for v in tree.values())
+
+
+def test_carries_the_decoupled_world_model():
+    """The decoupled representation model reads the embedding alone: its first kernel is
+    ``[embed, hidden]``, carried to ``representation_model.dense.0.weight``."""
+    import jax
+
+    from sheeprl_tpu.algos.dreamer_v3.agent import build_agent as jax_build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
+    from sheeprl_tpu_torch.parallel.context import RunContext
+    from tests.test_torch_dv1_agent import jax_ctx
+    from tests.test_torch_dv3_agent import _jitted_init, compose_pair
+
+    jcfg, tcfg = compose_pair(["algo.world_model.decoupled_rssm=True"])
+    with _jitted_init():
+        params = jax.device_get(jax_build_agent(jax_ctx(), ACTIONS_DIM, False, jcfg, OBS_SPACE)[3])
+    wm = build_agent(RunContext(torch.device("cpu"), 0), ACTIONS_DIM, False, tcfg, OBS_SPACE)[0]
+    state = params_from_jax({"world_model": params["world_model"]}, {"world_model": wm})["world_model"]
+    assert len(state) == _count_leaves(params["world_model"]) == len(wm.state_dict())
+    kernel = params["world_model"]["params"]["rssm"]["representation_model"]["layers_0"]["Dense_0"]["kernel"]
+    assert kernel.shape[0] == wm.encoder.output_dim
+    np.testing.assert_array_equal(state["rssm.representation_model.dense.0.weight"].numpy(), np.asarray(kernel).T)
+
+
+def test_carries_the_minedojo_heads():
+    import jax
+    import jax.numpy as jnp
+
+    from sheeprl_tpu.algos.dreamer_v3.agent import MinedojoActor as JaxActor
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import MinedojoActor
+    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
+
+    heads = (19, 6, 10)
+    params = jax.device_get(JaxActor(actions_dim=heads, dense_units=8, mlp_layers=1).init(jax.random.PRNGKey(0), jnp.zeros((1, 16)), None))
+    actor = MinedojoActor(16, heads, False, dense_units=8, mlp_layers=1)
+    state = params_from_jax({"actor": params}, {"actor": actor})["actor"]
+    assert len(state) == _count_leaves(params) == len(actor.state_dict())
+    for i, d in enumerate(heads):
+        np.testing.assert_array_equal(state[f"heads.{i}.weight"].numpy(), np.asarray(params["params"][f"head_{i}"]["kernel"]).T)
+        assert state[f"heads.{i}.bias"].shape == (d,)
+
+
+@pytest.fixture(scope="module")
+def p2e_dv3_trees():
+    import jax
+
+    from sheeprl_tpu.algos.p2e_dv3.agent import build_agent as jax_build_agent
+    from sheeprl_tpu.config.core import compose as jax_compose
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.parallel.context import RunContext
+    from tests.test_torch_dv1_agent import jax_ctx
+    from tests.test_torch_dv3_agent import _jitted_init
+
+    overrides = ["exp=p2e_dv3_dummy", "env=discrete_dummy", "env.screen_size=64"]
+    with _jitted_init():
+        params = jax.device_get(jax_build_agent(jax_ctx(), ACTIONS_DIM, False, jax_compose(overrides=overrides), OBS_SPACE)[4])
+    modules = build_agent(RunContext(torch.device("cpu"), 0), ACTIONS_DIM, False, compose(overrides=[*overrides, "device=cpu"]), OBS_SPACE)[0]
+    return params, modules
+
+
+def test_carries_the_p2e_dv3_tree(p2e_dv3_trees):
+    """Every tree of P2E-DV3's: the exploration critics as ``{name: {"module",
+    "target"}}`` in the config's order, the stacked ensembles as they stand."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
+
+    params, modules = p2e_dv3_trees
+    states = params_from_jax(params, modules)
+    assert list(states) == list(modules) == ["world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
+                                             "critics_exploration", "ensembles"]
+    for name, module in modules.items():
+        assert len(states[name]) == _count_leaves(params[name]) == len(module.state_dict()), name
+        module.load_state_dict(states[name])
+    critics = params["critics_exploration"]
+    # the port keeps the config's order; JAX's tree flattening sorts the keys
+    assert list(modules["critics_exploration"]) == ["intrinsic", "extrinsic"] and set(critics) == {"intrinsic", "extrinsic"}
+    for k in critics:
+        for part in ("module", "target"):
+            np.testing.assert_array_equal(
+                states["critics_exploration"][f"{k}.{part}.head.weight"].numpy(), np.asarray(critics[k][part]["params"]["head"]["kernel"]).T
+            )
+    kernel = np.asarray(params["ensembles"]["params"]["Dense_0"]["kernel"])
+    assert kernel.ndim == 3 and kernel.shape[0] == 3
+    np.testing.assert_array_equal(states["ensembles"]["dense.0.weight"].numpy(), kernel)
+    assert "norms.0.weight" in states["ensembles"]
+
+
+@pytest.mark.parametrize("how", ["critic", "part"])
+def test_rejects_a_p2e_dv3_tree_without_a_critic(p2e_dv3_trees, how):
+    from sheeprl_tpu_torch.algos.dreamer_v3.params import params_from_jax
+
+    params, modules = p2e_dv3_trees
+    params = copy.deepcopy(params)
+    if how == "critic":
+        del params["critics_exploration"]["extrinsic"]
+    else:
+        del params["critics_exploration"]["intrinsic"]["target"]
+    with pytest.raises(KeyError):
+        params_from_jax(params, modules)

@@ -117,7 +117,8 @@ def test_gru_baseline_binds_the_earlier_interface(monkeypatch):
 
 def test_gru_kernel_shapes_are_the_models():
     """The rows ``chip_smoke.py`` and the A/B bench time: DreamerV3-S's eval entry's one
-    row, a ragged batch, the unroll's 16 rows and the imagination's 1024 at H = 512, a
-    wide H, and DreamerV2's unroll (16 rows) and imagination (800) at H = 600."""
-    assert gru_kernel_ab.KERNEL_SHAPES == [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096), (16, 600), (800, 600)]
+    row, a ragged batch, the unroll's 16 rows and the imagination's 1024 at H = 512,
+    DreamerV3-XL's unroll and imagination at H = 4096, and DreamerV2's unroll (16 rows)
+    and imagination (800) at H = 600."""
+    assert gru_kernel_ab.KERNEL_SHAPES == [(1, 512), (13, 512), (16, 512), (1024, 512), (16, 4096), (1024, 4096), (16, 600), (800, 600)]
     assert set(gru_kernel_ab.DTYPES.values()) == {torch.float32, torch.bfloat16}
