@@ -94,7 +94,23 @@ result line:
 21. p2e-dv3-cli: the P2E-DV3 entries at size-S widths (``P2E_DV3_CLI_OVERRIDES``): explore,
    resume, finetune without and with the exploration buffer, evaluate each; K1-bwd = 64 x
    (gradient steps + 2) per run; then the ``[p2e-counts]`` line;
-22. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+22. ppo-train-agreement: one whole update of a small PPO, A2C and recurrent PPO (LSTM and
+   attention) agent on the card (the update captured as a CUDA graph) against the CPU,
+   image and vector keys, 2 epochs x 2 minibatches, float32 with TF32 off, under
+   ``[train-agreement]``'s limits; one policy step with injected draws alike;
+23. ppo-train-graph: PPO's update at ``exp=ppo_atari``'s published widths (``PPO_ATARI``:
+   Nature CNN on 84 x 84 frames stacked 4 deep, 3 epochs x 4 minibatches of 256,
+   bf16-mixed), discrete and continuous: the captured minibatch step replayed 12 times
+   against the eager update from the same state, rollout and permutations (within
+   ``GRAPH_SPREAD``); then, discrete, eager, graph, graph, eager: gradient steps/s,
+   device ms and kernels per minibatch step, peak memory; and the profiled batch-1
+   player step (``[ppo-player]``);
+24. ppo-cli: PPO's train entry at those widths (``PPO_CLI``: two updates of 1,024 policy
+   steps), with ``rollout.pipeline_depth=0`` and ``1``: train, resume, eval; policy steps/s
+   split into acting and updating; then a2c-cli and ppo-recurrent-cli (LSTM, attention)
+   at their exps' widths on the dummy env's vector: train, resume, eval; a
+   ``[ppo-counts]`` line: no PPO-family path launches K1 or K2;
+25. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
@@ -102,7 +118,7 @@ result line:
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1 and P2E phases, rssm-scan) zeroes
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E and PPO-family phases, rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
 one JSON line describing every kernel (K1's rows with its launches on every path that
@@ -357,6 +373,34 @@ P2E_DV3_CLI_OVERRIDES = [
     "algo.world_model.representation_model.hidden_size=512",
 ]
 P2E_DV3_CLI = [*DV2_CLI, "buffer.size=8192", "algo.replay_ratio=0.125"]
+# The PPO family (no K1/K2 on any of its paths). PPO at exp=ppo_atari's published widths:
+# Nature CNN 32/64/64 (kernels 8/4/3, strides 4/2/1, VALID), 512 features, dense 512 x 1
+# ReLU, 84 x 84 frames stacked 4 deep (rgb: 12 channels), minibatches of 256 from a
+# 1,024-step rollout of one env, 3 epochs, annealed lr and clip, normalized advantages,
+# clipped value loss, grad norm 0.5. The dummy env draws its 84 x 84 frames itself (the
+# card's host has no OpenCV to resize them); nothing else is cut.
+PPO_ATARI = ["exp=ppo_atari", "env=discrete_dummy", "env.screen_size=84", "env.frame_stack=4", "env.wrapper.image_size=[3,84,84]"]
+# its train entry: two updates of 1,024 policy steps on the sync vector env, a
+# checkpoint after each
+PPO_CLI = ["env.sync_env=True", "algo.total_steps=2048", "checkpoint.every=1024", "metric.log_every=1024"]
+# A2C (exp=a2c: dense 64 x 2 tanh, 128-step rollouts of 4 envs, rmsprop_tf, loss sum) and
+# recurrent PPO (exp=ppo_recurrent: LSTM 64, or causal attention with a 64-step window and
+# 4 heads; 4 epochs x 4 env minibatches) on the dummy env's vector key in place of their
+# gym envs' vectors; two updates each
+A2C_CLI = ["exp=a2c", "env=discrete_dummy", "algo.mlp_keys.encoder=[state]", "env.sync_env=True", "algo.total_steps=1024",
+           "checkpoint.every=512", "metric.log_every=512"]
+PPO_REC_CLI = ["exp=ppo_recurrent", "env=discrete_dummy", "algo.mlp_keys.encoder=[state]", "env.sync_env=True", "algo.total_steps=1024",
+               "checkpoint.every=512", "metric.log_every=512"]
+# small agents for the card-against-CPU update: image and vector keys, 2 epochs x 2
+# minibatches (recurrent: 2 env minibatches of 2), float32
+_SMALL_PPO_KEYS = ["algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]", "env.screen_size=64", "mesh.precision=32-true",
+                   "algo.dense_units=64", "algo.normalize_advantages=True", "algo.max_grad_norm=0.5"]
+SMALL_PPO = ["exp=ppo_dummy", "env=discrete_dummy", *_SMALL_PPO_KEYS, "algo.rollout_steps=16", "env.num_envs=2",
+             "algo.per_rank_batch_size=16", "algo.update_epochs=2", "algo.anneal_lr=True", "algo.clip_vloss=True", "algo.ent_coef=0.01"]
+SMALL_A2C = ["exp=a2c", "env=continuous_dummy", *_SMALL_PPO_KEYS, "algo.rollout_steps=16", "env.num_envs=2", "algo.ent_coef=0.01"]
+SMALL_PPO_REC = ["exp=ppo_recurrent", "env=discrete_dummy", *_SMALL_PPO_KEYS, "algo.rollout_steps=16", "env.num_envs=4",
+                 "algo.per_rank_num_batches=2", "algo.update_epochs=2", "algo.rnn.lstm.hidden_size=32", "algo.clip_vloss=True",
+                 "algo.attention.window=8"]
 # MineDojo's functional action space: 19 action types (the reference's ACTION_MAP) and the
 # craft and item argument heads
 MINEDOJO_HEADS = (19, 244, 634)
@@ -468,18 +512,24 @@ def gru_launches_per_call(fn, want: int, what: str, calls: int = 4) -> int | Non
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        log(f"[kernels] {what}: launches per call not measured (the profiler recorded no CUDA kernels)")
-        return None
-    got = sum("layernorm_gru" in e.name for e in kernels)
-    if got != want * calls:
-        raise AssertionError(f"{what}: {got / calls} layernorm_gru launches per call, the plan says {want}")
-    return want
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            log(f"[kernels] {what}: launches per call not measured (the profiler recorded no CUDA kernels)")
+            return None
+        got = sum("layernorm_gru" in e.name for e in kernels)
+        if got == want * calls:
+            return want
+        # fewer than planned: the profiler has been seen to drop a launch (an H100, 4 calls
+        # of a one-launch backward read 3); a count over the plan is never a dropped event
+        if got > want * calls or attempt == 2:
+            break
+        log(f"[kernels] {what}: the profiler recorded {got} of {want * calls} planned layernorm_gru launches; profiling again")
+    raise AssertionError(f"{what}: {got / calls} layernorm_gru launches per call, the plan says {want}")
 
 
 def phase_kernels(device: torch.device) -> dict:
@@ -1262,17 +1312,25 @@ def k1_launches(events, calls: int) -> dict:
     }
 
 
-def _profiled_k1(fn, calls: int) -> dict | None:
-    """K1 launches per call of ``fn`` by ``torch.profiler``; None where it saw no kernel."""
+def _profiled_k1(fn, calls: int, want: dict | None = None) -> dict | None:
+    """K1 launches per call of ``fn`` by ``torch.profiler``; None where it saw no kernel.
+    With ``want`` (the plan's counts): a reading under the plan in some kernel, and over
+    it in none, is profiled again, up to three readings in all: the profiler has been seen
+    to drop launches from a step of ~12,000 kernels (an H100: 78 of 80 forward)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
-        return None
-    return k1_launches(prof.events(), calls)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            return None
+        got = k1_launches(prof.events(), calls)
+        if want is None or got == want or any(got[k] > want[k] for k in want):
+            return got
+        log(f"[profile] K1 launches per call {got} under the plan {want}; profiling again")
+    return got
 
 
 def _param_diffs(ma: dict, mb: dict) -> dict:
@@ -1439,8 +1497,8 @@ def phase_train_graph(
     per_replay = captured.launches_per_replay
     if (per_replay.get("layernorm_gru", 0), per_replay.get("layernorm_gru_bwd", 0)) != (want["fwd"], want["bwd"]):
         bad.append(f"the capture counted {per_replay}, expected {want}")
-    replay_k1 = _profiled_k1(lambda: dispatcher.dispatch(first, 4), 2)
-    eager_k1 = _profiled_k1(lambda: step1(o1, ext1, batches[0], True, generator=gen), 1)
+    replay_k1 = _profiled_k1(lambda: dispatcher.dispatch(first, 4), 2, want)
+    eager_k1 = _profiled_k1(lambda: step1(o1, ext1, batches[0], True, generator=gen), 1, want)
     if replay_k1 is None:
         log(f"{label}: K1 launches per replay not measured (the profiler recorded no CUDA kernels)")
     elif replay_k1 != want or eager_k1 != want:
@@ -1701,6 +1759,298 @@ def phase_p2e_cli(device: torch.device, workdir: Path, version: int, overrides: 
     return out
 
 
+def _ppo_family(cfg, ctx, capture: bool = True):
+    """``(agent, fns)`` of ``cfg``'s PPO-family algorithm on ``ctx.device``, with the
+    observation and action spaces of its env."""
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    env = make_env(cfg, cfg.seed, 0, None)()
+    obs_space, act_space = env.observation_space, env.action_space
+    env.close()
+    keys = [*cfg.algo.cnn_keys.encoder, *cfg.algo.mlp_keys.encoder]
+    if cfg.algo.name == "ppo_recurrent":
+        from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+        from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import RecurrentPPOTrainFns
+
+        agent = build_agent(ctx, act_space, obs_space, cfg)
+        return agent, lambda a, c=ctx, cap=capture: RecurrentPPOTrainFns(c, a, cfg, keys, cap), obs_space
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+
+    agent = build_agent(ctx, act_space, obs_space, cfg)
+    if cfg.algo.name == "a2c":
+        from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainFns
+
+        return agent, lambda a, c=ctx, cap=capture: A2CTrainFns(c, a, cfg, keys, cap), obs_space
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainFns
+
+    return agent, lambda a, c=ctx, cap=capture: PPOTrainFns(c, a, cfg, keys, 10, cap), obs_space
+
+
+def _ppo_rollout(cfg, fns, obs_space, gen: torch.Generator, device: torch.device) -> dict:
+    """A rollout of ``cfg``'s size (flat ``[T * N, ...]``; recurrent: ``[T, N, ...]`` with
+    the initial state): random frames and vectors, the actions the policy samples, its
+    log-probs and values as it stored them (a little noise: a policy a few steps older),
+    random returns and advantages. Built on ``device`` from ``gen``."""
+    T, N = cfg.algo.rollout_steps, cfg.env.num_envs
+    rec = cfg.algo.name == "ppo_recurrent"
+    lead = (T, N) if rec else (T * N,)
+    data = {}
+    for k in cfg.algo.cnn_keys.encoder:
+        data[k] = torch.randint(0, 256, (*lead, *obs_space[k].shape), generator=gen, device=device, dtype=torch.uint8)
+    for k in cfg.algo.mlp_keys.encoder:
+        data[k] = torch.randn((*lead, *obs_space[k].shape), generator=gen, device=device)
+    agent = fns.agent
+    with torch.no_grad():
+        obs = {k: data[k] for k in [*cfg.algo.cnn_keys.encoder, *cfg.algo.mlp_keys.encoder]}
+        if rec:
+            from sheeprl_tpu_torch.algos.ppo_recurrent.agent import make_zero_state
+
+            act_sum = int(sum(agent.action_dims))
+            data["prev_actions"] = torch.zeros((T, N, act_sum), device=device)
+            data["is_first"] = (torch.rand((T, N, 1), generator=gen, device=device) < 0.1).float()
+            data["is_first"][0] = 1.0
+            state = make_zero_state(cfg, device)(N)
+            actor_out, values = agent(obs, data["prev_actions"], data["is_first"], state)
+            data["c0"], data["h0"] = state
+        else:
+            actor_out, values = agent(fns.cast_obs(obs) if hasattr(fns, "cast_obs") else obs)
+        from sheeprl_tpu_torch.algos.ppo.utils import log_prob_and_entropy, make_draws, sample_actions
+
+        actions = sample_actions(actor_out, agent.is_continuous, draws=make_draws(actor_out, agent.is_continuous, gen))[1].float()
+        logprob, _ = log_prob_and_entropy(actor_out, actions, agent.is_continuous)
+    data["actions"] = actions
+    data["logprobs"] = logprob + 0.02 * torch.randn(logprob.shape, generator=gen, device=device)
+    data["values"] = values[..., 0] + 0.05 * torch.randn(logprob.shape, generator=gen, device=device)
+    data["returns"] = torch.randn(logprob.shape, generator=gen, device=device)
+    data["advantages"] = torch.randn(logprob.shape, generator=gen, device=device)
+    return data
+
+
+def _ppo_update(fns, cfg, data: dict, perms) -> dict:
+    """One update of ``fns`` (PPO, A2C or recurrent PPO) over ``data``."""
+    if cfg.algo.name == "a2c":
+        return fns.train_fn({k: v for k, v in data.items() if k != "logprobs"})
+    if cfg.algo.name == "ppo_recurrent":
+        seq = {k: v for k, v in data.items() if k not in ("c0", "h0")}
+        return fns.train_fn(seq, data["c0"], data["h0"], perms, 0.2, 0.01)
+    return fns.train_fn(data, perms, 0.1, 0.01)
+
+
+def phase_ppo_train_agreement(device: torch.device, overrides: list, label: str) -> dict:
+    """One whole update of a small PPO-family agent on the card (the update captured as
+    a CUDA graph) against the same update on the CPU: same weights, rollout,
+    permutations and the act's draws; float32, TF32 off; ``[train-agreement]``'s limits
+    (``TRAIN_AGREEMENT_TOL``) on the parameter change, the Adam or RMSProp moments and
+    the losses. The act of one policy step (injected draws) must sample the same
+    actions."""
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    set_tf32(False)
+    cfg = compose(overrides=[*overrides, "device=cpu"])
+    cpu = torch.device("cpu")
+    agent_c, make_fns, obs_space = _ppo_family(cfg, RunContext(cpu, 21))
+    agent_d = copy.deepcopy(agent_c).to(device)
+    fns_c, fns_d = make_fns(agent_c), make_fns(agent_d, RunContext(device, 21))
+    gen = torch.Generator().manual_seed(4)
+    data = _ppo_rollout(cfg, fns_c, obs_space, gen, cpu)
+    perms = None if cfg.algo.name == "a2c" else fns_c.permutations(gen)
+    before = {k: v.clone() for k, v in agent_c.state_dict().items()}
+    zero_launches()
+    met_c = _ppo_update(fns_c, cfg, data, perms)
+    met_d = _ppo_update(fns_d, cfg, {k: v.to(device) for k, v in data.items()}, None if perms is None else perms.to(device))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tol, lr = TRAIN_AGREEMENT_TOL, cfg.algo.optimizer.lr
+    sd = agent_d.state_dict()
+    diff = torch.cat([(sd[k].float().cpu() - v.float()).abs().flatten() for k, v in agent_c.state_dict().items()])
+    moved = torch.cat([(v.float() - before[k].float()).abs().flatten() for k, v in agent_c.state_dict().items()])
+    steps = {"max_of_lr": (diff.max() / lr).item(), "share_over": (diff > tol["step_of_lr"] * lr).float().mean().item(),
+             "moved_max_of_lr": (moved.max() / lr).item()}
+    names = [k for k, _ in agent_c.named_parameters()]
+    moments = {}  # relative norm; a leaf whose gradient vanishes analytically (the attention's key bias) holds only
+    for key in ("mu", "nu", "trace"):  # rounding noise: relative to at least 1e-6 of the moment's largest leaf norm
+        if key in fns_c.opt_state:
+            floor = 1e-6 * max(p.norm().item() for p in fns_c.opt_state[key])
+            moments[key] = max(
+                (((q.cpu() - p).norm() / max(p.norm().item(), floor)).item(), leaf, p.norm().item())
+                for leaf, p, q in zip(names, fns_c.opt_state[key], fns_d.opt_state[key])
+            )
+    metrics = {k: (met_c[k], met_d[k]) for k in met_c}
+    bad = [k for k, (c, d) in metrics.items() if abs(c - d) > tol["metrics_atol"] + tol["metrics_rtol"] * abs(c)]
+    if steps["share_over"] > tol["off_share"]:
+        bad.append(f"parameter change {steps}")
+    if max(m[0] for m in moments.values()) > tol["moments_rtol"]:
+        bad.append(f"moments {moments}")
+    if any(counts.values()):
+        bad.append(f"kernel launches {counts}")
+    # one policy step on the card and on the CPU from the same observations and draws
+    obs = {k: data[k][:2] if cfg.algo.name != "ppo_recurrent" else data[k][0, :2] for k in [*cfg.algo.cnn_keys.encoder, *cfg.algo.mlp_keys.encoder]}
+    from sheeprl_tpu_torch.algos.ppo.utils import make_draws
+
+    with torch.no_grad():
+        if cfg.algo.name == "ppo_recurrent":
+            args = (data["prev_actions"][0, :2], data["is_first"][0, :2], (data["c0"][:2], data["h0"][:2]))
+            draws = make_draws(agent_c.step(obs, *args)[0], agent_c.is_continuous, gen)
+            out_c = fns_c.act(obs, *args, draws=draws)[:3]
+            out_d = fns_d.act({k: v.to(device) for k, v in obs.items()}, *(a.to(device) if torch.is_tensor(a) else tuple(x.to(device) for x in a) for a in args), draws=[d.to(device) for d in draws])[:3]
+        else:
+            draws = make_draws(agent_c(obs)[0], agent_c.is_continuous, gen)
+            out_c = fns_c.act(obs, draws=draws)
+            out_d = fns_d.act({k: v.to(device) for k, v in obs.items()}, draws=[d.to(device) for d in draws])
+            out_c, out_d = (out_c[0], out_c[2], out_c[3]), (out_d[0], out_d[2], out_d[3])
+    act_off = max((a.float() - b.float().cpu()).abs().max().item() for a, b in zip(out_c, out_d))
+    if act_off > 1e-3:
+        bad.append(f"act {act_off}")
+    log(f"{label} small {cfg.algo.name}{' ' + cfg.algo.sequence_model if cfg.algo.name == 'ppo_recurrent' else ''}, one update at "
+        f"32-true, TF32 off, {device} (captured) vs cpu: parameter change " + json.dumps(steps)
+        + f" (share > {tol['step_of_lr']} lr <= {tol['off_share']}); moments, the leaf furthest off " + json.dumps(moments)
+        + f" (<= {tol['moments_rtol']}); losses (cpu, card) " + json.dumps(metrics) + f"; act (actions, log-prob, value) max diff {act_off}"
+        + f"; K1/K2 launches {counts}")
+    if bad:
+        raise AssertionError(f"{label}: the card's update disagrees with the CPU's: {bad}")
+    return {"steps": steps, "moments": moments, "metrics": metrics}
+
+
+def phase_ppo_train_graph(device: torch.device, env: str = "discrete_dummy", timed_updates: int = 2) -> dict:
+    """PPO's update at ``exp=ppo_atari``'s published widths (``PPO_ATARI``), bf16-mixed:
+    the minibatch step captured as a CUDA graph and replayed 12 times (3 epochs x 4
+    minibatches of 256) against the eager update from the same weights, rollout and
+    permutations, run twice (parameters, Adam moments and losses within
+    ``GRAPH_SPREAD`` x the eager runs' spread, never looser than
+    ``TRAIN_AGREEMENT_TOL``); no K1/K2 launch. Then, discrete actor only, in turns
+    (eager, graph, graph, eager): gradient steps/s, device ms and kernels per
+    minibatch step, peak memory."""
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
+
+    set_tf32(True)
+    cfg = compose(overrides=[*PPO_ATARI, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda"])
+    ctx = RunContext(device, 31, compute_dtype("bf16-mixed"))
+    agent, make_fns, obs_space = _ppo_family(cfg, ctx)
+    label = f"[ppo-train-graph] {'continuous' if agent.is_continuous else 'discrete'}"
+    eager_agents = [copy.deepcopy(agent) for _ in range(2)]
+    fns = make_fns(agent)
+    eager = [make_fns(a, ctx, False) for a in eager_agents]
+    gen = torch.Generator(device=device).manual_seed(6)
+    data = _ppo_rollout(cfg, fns, obs_space, gen, device)
+    perms = fns.permutations(gen)
+    steps = fns.grad_steps_per_update
+    zero_launches()
+    start = time.perf_counter()
+    met_g = fns.train_fn(data, perms, 0.1, 0.01)
+    capture_s = time.perf_counter() - start
+    met_e = [f.train_fn(data, perms, 0.1, 0.01) for f in eager]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lr = cfg.algo.optimizer.lr
+    tol, bad = TRAIN_AGREEMENT_TOL, []
+    ma, m1, m2 = {"agent": agent}, {"agent": eager_agents[0]}, {"agent": eager_agents[1]}
+    d_spread, d_off = _param_diffs(m2, m1)["agent"], _param_diffs(ma, m1)["agent"]
+    limit = min(GRAPH_SPREAD * d_spread.max().item() + GRAPH_FLOOR["params"] * lr, tol["step_of_lr"] * lr)
+    share = (d_off > limit).float().mean().item()
+    params = {"off_max_of_lr": d_off.max().item() / lr, "spread_max_of_lr": d_spread.max().item() / lr, "limit_of_lr": limit / lr, "share_over_limit": share}
+    if share > tol["off_share"]:
+        bad.append(f"parameters {params}")
+    spread = {"moments": _moment_diff({"agent": eager[1].opt_state}, {"agent": eager[0].opt_state})}
+    off = {"moments": _moment_diff({"agent": fns.opt_state}, {"agent": eager[0].opt_state})}
+    spread["losses"] = max(abs(met_e[1][k] - met_e[0][k]) / max(abs(met_e[0][k]), 1e-6) for k in met_g)
+    off["losses"] = max(abs(met_g[k] - met_e[0][k]) / max(abs(met_e[0][k]), 1e-6) for k in met_g)
+    if off["moments"] > min(GRAPH_SPREAD * spread["moments"] + GRAPH_FLOOR["moments"], tol["moments_rtol"]):
+        bad.append(f"Adam moments {off['moments']} (eager spread {spread['moments']})")
+    if off["losses"] > min(GRAPH_SPREAD * spread["losses"] + GRAPH_FLOOR["losses"], tol["metrics_rtol"]):
+        bad.append(f"losses {off['losses']} (eager spread {spread['losses']})")
+    if any(counts.values()) or not all(math.isfinite(v) for v in met_g.values()):
+        bad.append(f"K1/K2 launches {counts}, losses {met_g}")
+    row = {"actor": "continuous" if agent.is_continuous else "discrete", "precision": "bf16-mixed", "steps_per_update": steps,
+           "capture_seconds": capture_s, "params": params, "off": off, "eager_spread": spread, "losses": met_g, "k1_k2_launches": counts}
+    log(label + " parity " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"{label}: the graphed update disagrees with the eager one: {bad}")
+    if agent.is_continuous:
+        return row
+    timings = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        f = eager[0] if mode == "eager" else fns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = time.perf_counter()
+        for _ in range(timed_updates):
+            f.train_fn(data, perms, 0.1, 0.01)  # reads the losses back: waits for the update
+        seconds = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated(device)
+        prof = profile_calls(lambda: f.train_fn(data, perms, 0.1, 0.01), 1, f"{label} {mode} update", {"mode": mode})
+        device_ms = prof.get("device_ms_per_call")
+        timings.append({
+            "mode": mode, "grad_steps_per_s": timed_updates * steps / seconds,
+            "device_ms_per_step": device_ms / steps if device_ms else None,
+            "kernels_per_step": prof["kernels_per_call"] / steps if prof else None,
+            "busy_share_timed": device_ms * timed_updates / seconds / 1e3 if device_ms else None,
+            "peak_allocated_bytes": peak, "reserved_bytes": torch.cuda.memory_reserved(device),
+        })
+    row["turns"] = timings
+    log(label + " turns (per minibatch step; an update is 12 steps, its loss read back) " + json.dumps(timings))
+    # the player step at these widths: one env's frame stack, the policy eager, its
+    # outputs read back (what [ppo-cli] runs 1,024 times an update at depth 0)
+    frame = {k: v[:1] for k, v in data.items() if k in cfg.algo.cnn_keys.encoder}
+    pgen = torch.Generator(device=device).manual_seed(7)
+    player = lambda: [t.cpu() for t in fns.act(frame, pgen)]  # noqa: E731
+    for _ in range(8):
+        player()
+    row["player_step"] = profile_calls(player, 64, "[ppo-player] batch-1 player step, eager", {"mode": "eager"})
+    return row
+
+
+def _ppo_entry(overrides: list, tag: str, start_step: int = 0) -> tuple:
+    """One run of the train entry with the launch counters zeroed around it: no K1/K2
+    launch. ``start_step``: the policy step a resumed run starts from. Returns
+    ``(result, row)``."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    zero_launches()
+    result = run(overrides)
+    counts = launch_counts()
+    if any(counts.values()) or result.checkpoint is None or result.grad_steps <= 0:
+        raise AssertionError(f"{tag}: {result.grad_steps} gradient steps, checkpoint {result.checkpoint}, K1/K2 launches {counts}")
+    steps = result.policy_steps - start_step
+    row = {"policy_steps": steps, "grad_steps": result.grad_steps, "seconds": result.seconds,
+           "policy_steps_per_s": steps / result.seconds, "acting_seconds": result.env_seconds,
+           "updating_seconds": result.train_seconds, "acting_share": result.env_seconds / result.seconds,
+           "acting_policy_steps_per_s": steps / result.env_seconds, "k1_k2_launches": counts}
+    log(f"{tag}: " + json.dumps(row))
+    return result, row
+
+
+def phase_ppo_family_cli(device: torch.device, workdir: Path, base: list, tag: str, first_ckpt: str) -> dict:
+    """A PPO-family train entry (``base``'s overrides): train (two updates), resume from
+    the checkpoint after the first, evaluate the last checkpoint through the eval entry;
+    no K1/K2 launch anywhere. Policy steps/s, split into acting (policy steps and env
+    steps) and updating (GAE and the captured update, losses read back)."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(True)
+    overrides = [*base, f"device={device.type}", f"log_root={workdir / 'logs'}"]
+    first, out_train = _ppo_entry(overrides, f"{tag} train")
+    mid = next(p for p in CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints() if p.name == first_ckpt)
+    resumed, out_resume = _ppo_entry([*overrides, f"checkpoint.resume_from={mid}"], f"{tag} resume from {mid.name}", int(mid.name.split("_")[1]))
+    if resumed.policy_steps != first.policy_steps or resumed.grad_steps * 2 != first.grad_steps:
+        raise AssertionError(f"{tag} resume: {resumed.policy_steps} policy steps, {resumed.grad_steps} gradient steps")
+    zero_launches()
+    start = time.perf_counter()
+    result = evaluate([f"checkpoint_path={resumed.checkpoint}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    counts = launch_counts()
+    if any(counts.values()) or not math.isfinite(result.reward) or result.steps <= 0:
+        raise AssertionError(f"{tag} eval: {result.steps} steps, reward {result.reward}, K1/K2 launches {counts}")
+    log(f"{tag} eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
+        f"{time.perf_counter() - start:.2f} s, K1/K2 launches {counts}")
+    return {"train": out_train, "resume": out_resume, "eval": {"steps": result.steps, "k1_k2_launches": counts}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
@@ -1797,6 +2147,33 @@ def main() -> int:
                       for v, runs in p2e_cli.items()},
         "dv1_train_cli": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in dv1_cli.items() if "grad_steps" in r},
     }))
+    timed("ppo-train-agreement", lambda: [
+        phase_ppo_train_agreement(device, SMALL_PPO, "[ppo-train-agreement]"),
+        phase_ppo_train_agreement(device, SMALL_A2C, "[a2c-train-agreement]"),
+        phase_ppo_train_agreement(device, [*SMALL_PPO_REC, "algo.sequence_model=lstm"], "[ppo-recurrent-train-agreement] lstm"),
+        phase_ppo_train_agreement(device, [*SMALL_PPO_REC, "algo.sequence_model=attention"], "[ppo-recurrent-train-agreement] attention"),
+    ])
+    ppo_graph = timed("ppo-train-graph", lambda: [phase_ppo_train_graph(device), phase_ppo_train_graph(device, env="continuous_dummy")])
+    ppo_cli = {}
+    for depth in (0, 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            ppo_cli[depth] = timed(f"ppo-cli-depth{depth}", phase_ppo_family_cli, device, Path(tmp),
+                                   [*PPO_ATARI, *PPO_CLI, f"rollout.pipeline_depth={depth}"], f"[ppo-cli] pipeline_depth={depth}", "ckpt_1024")
+    with tempfile.TemporaryDirectory() as tmp:
+        a2c_cli = timed("a2c-cli", phase_ppo_family_cli, device, Path(tmp), A2C_CLI, "[a2c-cli]", "ckpt_512")
+    rec_cli = {}
+    for model in ("lstm", "attention"):
+        with tempfile.TemporaryDirectory() as tmp:
+            rec_cli[model] = timed(f"ppo-recurrent-cli-{model}", phase_ppo_family_cli, device, Path(tmp),
+                                   [*PPO_REC_CLI, f"algo.sequence_model={model}"], f"[ppo-recurrent-cli] {model}", "ckpt_512")
+    log("[ppo-counts] " + json.dumps({
+        "k1_k2_launches": {"ppo_train_graph": ppo_graph[0]["k1_k2_launches"],
+                           **{f"ppo_cli_depth{d}": {k: r[k]["k1_k2_launches"] for k in r} for d, r in ppo_cli.items()},
+                           "a2c_cli": {k: r["k1_k2_launches"] for k, r in a2c_cli.items()},
+                           **{f"ppo_recurrent_cli_{m}": {k: r[k]["k1_k2_launches"] for k in r} for m, r in rec_cli.items()}},
+        "ppo_cli_policy_steps_per_s": {d: r["train"]["policy_steps_per_s"] for d, r in ppo_cli.items()},
+        "ppo_cli_acting_share": {d: r["train"]["acting_share"] for d, r in ppo_cli.items()},
+    }))
     scan = timed("rssm-scan", phase_rssm_scan, device)
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
@@ -1810,6 +2187,9 @@ def main() -> int:
         "p2e_dv3_xl_discrete_per_replay": per_replay(p2e_dv3_graph[0]), "p2e_dv3_xl_continuous_per_replay": per_replay(p2e_dv3_graph[1]),
         "p2e_dv3_explore": p2e_cli[3]["explore"], "p2e_dv3_finetune_load": p2e_cli[3]["finetune_load_True"],
         "p2e_dv3_finetune": p2e_cli[3]["finetune_load_False"],
+        # the PPO family's paths, which run no K1 (checked zero in their phases)
+        **{f"ppo_cli_depth{d}": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
+           for d, r in ppo_cli.items()},
     }
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
@@ -1846,7 +2226,9 @@ def main() -> int:
         + "; P2E-DV2 graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in p2e_graph[0]["turns"])
         + "; decoupled DreamerV3-S graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in dec_graph["turns"])
         + "; P2E-DV3 XL graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.3f}" for t in p2e_dv3_graph[0]["turns"])
-        + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused")))
+        + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused"))
+        + "; PPO (ppo_atari) graphed update steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in ppo_graph[0]["turns"])
+        + "; ppo-cli policy steps/s " + ", ".join(f"depth {d} {r['train']['policy_steps_per_s']:.1f} (acting share {r['train']['acting_share']:.3f})" for d, r in ppo_cli.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Algorithm registry population (counterpart of ``sheeprl_tpu/algos/__init__.py``).
-Ported so far: DreamerV3, DreamerV2, DreamerV1, and P2E on each of them (exploration and
-finetuning), their train and evaluation entries."""
+Ported so far: DreamerV3, DreamerV2, DreamerV1, P2E on each of them (exploration and
+finetuning), PPO, A2C and recurrent PPO, their train and evaluation entries
+(``ppo_decoupled`` is registered to refuse, naming what it needs)."""
 
+from sheeprl_tpu_torch.algos.a2c import a2c as _a2c  # noqa: F401
 from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as _dv1  # noqa: F401
 from sheeprl_tpu_torch.algos.dreamer_v1 import evaluate as _dv1_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as _dv2  # noqa: F401
@@ -17,3 +19,7 @@ from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_finetuning as _p2e_dv2_fine 
 from sheeprl_tpu_torch.algos.p2e_dv3 import evaluate as _p2e_dv3_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as _p2e_dv3_expl  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_finetuning as _p2e_dv3_fine  # noqa: F401
+from sheeprl_tpu_torch.algos.ppo import evaluate as _ppo_eval  # noqa: F401
+from sheeprl_tpu_torch.algos.ppo import ppo as _ppo  # noqa: F401
+from sheeprl_tpu_torch.algos.ppo_recurrent import evaluate as _ppo_rec_eval  # noqa: F401
+from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as _ppo_rec  # noqa: F401

@@ -1,8 +1,7 @@
 """The Dreamer training loop and the pieces of the train step that the Dreamers
 (``algos/dreamer_v{1,2,3}``) and Plan2Explore (``algos/p2e_dv{1,2}``) share.
 
-The step's pieces: ``grads`` (one loss's gradient over one module's parameters),
-``zero_draws`` and ``fill_draws`` (a step's noise, made in bulk on the device, in place),
+The step's pieces (besides ``loop_common.grads``): ``zero_draws`` and ``fill_draws`` (a step's noise, made in bulk on the device, in place),
 the actor's draws (``actor_noise_kind``, ``actor_draw_shapes``, ``act``), the decoders'
 and heads' unit-variance Gaussian likelihoods (``gaussian_lp``, ``observation_lp``), the
 player's exploration schedule, ``evaluate_actor`` (the greedy test episode of the
@@ -15,8 +14,8 @@ batches gathered on the device from its replay ring (``buffer.device``,
 ``data/device_buffer.py``) or prefetched from the host buffer, log, checkpoint, resume
 and test. An algorithm hands it its modules, optimizer states, captured step, player and
 buffer as a ``LoopParts``; a P2E finetuning run also the exploration run's checkpoint to
-start from and the task player to switch to. ``refuse_unported`` names the config keys of
-the reference's loop that the port does not have.
+start from and the task player to switch to. It refuses the reference's keys the port
+does not have (``loop_common.refuse_unported``).
 """
 
 from __future__ import annotations
@@ -25,13 +24,14 @@ import contextlib
 import os
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, parse_actions_dim
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, TestResult, prepare_obs, test
+from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads, refuse_unported  # noqa: F401  (the Dreamers import them from here)
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
@@ -44,13 +44,6 @@ from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator, record_episode_stats
 from sheeprl_tpu_torch.utils.timer import Timer
 from sheeprl_tpu_torch.utils.utils import Ratio, exploration_amount
-
-
-def grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The gradient of ``loss`` with respect to ``params`` (zeros where it does not
-    depend on one), leaving every ``.grad`` untouched."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
 def zero_draws(shapes: NamedTuple, device: torch.device) -> NamedTuple:
@@ -225,50 +218,6 @@ def evaluate_actor(ctx, cfg: Dict[str, Any], ckpt_path: str, build, make_player,
     print(f"Test/episode_steps: {result.steps}")
     print(f"Test/player_steps_per_second: {result.steps / result.seconds}")
     return result
-
-
-# (key, test on its value, what the reference does there that the port does not yet)
-_NOT_PORTED = (
-    ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, "the pipelined player"),
-    ("env.pool.enabled", bool, "the shared-memory env pool"),
-    ("obs.enabled", bool, "the training monitor"),
-    ("obs.health", bool, "the health diagnostics"),
-    ("obs.flight_recorder", bool, "the flight recorder"),
-    ("analysis.strict", bool, "strict mode"),
-    ("fault.autoresume", bool, "the training guard"),
-    ("model_manager.disabled", lambda v: v is not None and not v, "the model manager"),
-    ("logger.name", lambda v: v not in (None, "tensorboard"), "the MLflow logger"),
-    ("algo.world_model.decoupled_rssm", bool, "the decoupled RSSM"),
-    ("mesh.devices", lambda v: v not in (None, 1, "auto"), "more than one device"),
-    ("mesh.data", lambda v: v not in (None, -1, 1), "more than one device"),
-    ("mesh.model", lambda v: v not in (None, 1), "tensor parallelism"),
-    ("mesh.sequence", lambda v: v not in (None, 1), "sequence parallelism"),
-)
-
-
-def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
-    """Raise, naming the key, when the config asks for a loop feature of the reference
-    that the port does not have: such a key is never silently ignored. ``handled``: keys
-    the algorithm reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``)."""
-    for key, asks, what in _NOT_PORTED:
-        if key in handled:
-            continue
-        node: Any = cfg
-        for part in key.split("."):
-            node = node.get(part) if isinstance(node, dict) else None
-        if node is not None and asks(node):
-            raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
-
-
-class TrainResult(NamedTuple):
-    log_dir: str
-    policy_steps: int
-    grad_steps: int  # gradient steps of this run (a resumed run counts its own)
-    checkpoint: Optional[str]  # the last checkpoint written, if any
-    seconds: float  # wall time of the loop
-    train_seconds: float  # wall time of dispatching the gradient steps (host side)
-    env_seconds: float  # wall time of acting and env stepping
-    test_reward: Optional[float]
 
 
 class LoopParts(NamedTuple):

@@ -1,4 +1,5 @@
-"""Carry a DreamerV3 parameter tree of the reference package into the port.
+"""Carry a parameter tree of the reference package into the port (every algorithm's:
+the Dreamers', P2E's and the PPO family's).
 
 ``params_from_jax`` takes the reference's ``params`` (nested dicts of numpy arrays, as
 ``jax.device_get`` gives the fourth value of its ``build_agent``) and returns the
@@ -7,14 +8,18 @@ port's ``state_dict`` for each of ``world_model``, ``actor``, ``critic`` and
 
 Names map by rule (``_torch_key``): the Flax child ``Dense_<i>`` is ``dense.<i>``,
 ``LayerNorm_<i>`` is ``norms.<i>``, ``Conv_<i>`` is ``convs.<i>``, ``ConvTranspose_<i>`` is
-``deconvs.<i>``, ``MLP_0`` is ``mlp``, ``head_<k>`` is ``heads.<k>``, the GRU cell's
-``Dense_0`` is ``linear``, Flax's ``GRUCell`` input layer ``in`` (a Python keyword) is
-``in_``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is dropped. Layouts
+``deconvs.<i>``, ``MLP_0`` is ``mlp``, ``CNN_0`` is ``cnn``, ``head_<k>`` is ``heads.<k>``,
+PPO's ``actor_head_<i>`` and recurrent PPO's ``actor_heads_<i>`` are ``actor_heads.<i>``,
+the GRU cell's ``Dense_0`` is ``linear``, Flax's ``GRUCell`` input layer ``in`` and
+``OptimizedLSTMCell`` forget-gate input kernel ``if`` (Python keywords) are ``in_`` and
+``if_``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is dropped. Layouts
 convert as well:
 
 * Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``; a stacked one ``[N,
   in, out]`` (P2E's ensembles, ``algos/p2e::StackedLinear``) stays as it is;
-* Conv kernel HWIO -> ``Conv2d.weight`` OIHW;
+* Conv kernel HWIO -> ``Conv2d.weight`` OIHW (the PPO family's ``MultiEncoder``
+  flattens its last conv map in Flax's ``H, W, C`` order, so the Dense after it needs
+  no row permutation);
 * ConvTranspose kernel ``[kh, kw, in, out]`` -> ``ConvTranspose2d.weight``
   ``[in, out, kh, kw]``, flipped in both spatial axes: Flax's transposed conv
   (``transpose_kernel=False``) correlates the stride-dilated input with the kernel as
@@ -43,6 +48,9 @@ _RULES = (
     (re.compile(r"(^|/)MLP_0/"), r"\1mlp/"),
     (re.compile(r"(^|/)rnn/Dense_0/"), r"\1rnn/linear/"),
     (re.compile(r"(^|/)in/"), r"\1in_/"),
+    (re.compile(r"(^|/)if/"), r"\1if_/"),
+    (re.compile(r"(^|/)CNN_0/"), r"\1cnn/"),
+    (re.compile(r"(^|/)actor_heads?_(\d+)/"), r"\1actor_heads/\2/"),
     (re.compile(r"(^|/)Dense_(\d+)/"), r"\1dense/\2/"),
     (re.compile(r"(^|/)LayerNorm_(\d+)/"), r"\1norms/\2/"),
     (re.compile(r"(^|/)ConvTranspose_(\d+)/"), r"\1deconvs/\2/"),

@@ -1,0 +1,63 @@
+"""What every train loop of the port shares (the Dreamer loop, ``dreamer_loop.py``, and
+the PPO family's, ``ppo/ppo.py``): ``grads`` (one loss's gradient over a parameter
+list), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
+names the ones it reads itself) and ``TrainResult`` (what a train entry returns)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+
+
+def grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradient of ``loss`` with respect to ``params`` (zeros where it does not
+    depend on one), leaving every ``.grad`` untouched."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+# (key, test on its value, what the reference does there that the port does not yet)
+_NOT_PORTED = (
+    ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, "the pipelined player"),
+    ("env.pool.enabled", bool, "the shared-memory env pool"),
+    ("algo.anakin", bool, "the Anakin engine"),
+    ("obs.enabled", bool, "the training monitor"),
+    ("obs.health", bool, "the health diagnostics"),
+    ("obs.flight_recorder", bool, "the flight recorder"),
+    ("analysis.strict", bool, "strict mode"),
+    ("fault.autoresume", bool, "the training guard"),
+    ("model_manager.disabled", lambda v: v is not None and not v, "the model manager"),
+    ("logger.name", lambda v: v not in (None, "tensorboard"), "the MLflow logger"),
+    ("algo.world_model.decoupled_rssm", bool, "the decoupled RSSM"),
+    ("mesh.devices", lambda v: v not in (None, 1, "auto"), "more than one device"),
+    ("mesh.data", lambda v: v not in (None, -1, 1), "more than one device"),
+    ("mesh.model", lambda v: v not in (None, 1), "tensor parallelism"),
+    ("mesh.sequence", lambda v: v not in (None, 1), "sequence parallelism"),
+)
+
+
+def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
+    """Raise, naming the key, when the config asks for a loop feature of the reference
+    that the port does not have: such a key is never silently ignored. ``handled``: keys
+    the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's
+    ``rollout.pipeline_depth``)."""
+    for key, asks, what in _NOT_PORTED:
+        if key in handled:
+            continue
+        node: Any = cfg
+        for part in key.split("."):
+            node = node.get(part) if isinstance(node, dict) else None
+        if node is not None and asks(node):
+            raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
+
+
+class TrainResult(NamedTuple):
+    log_dir: str
+    policy_steps: int
+    grad_steps: int  # gradient steps of this run (a resumed run counts its own)
+    checkpoint: Optional[str]  # the last checkpoint written, if any
+    seconds: float  # wall time of the loop
+    train_seconds: float  # wall time of dispatching the gradient steps (host side)
+    env_seconds: float  # wall time of acting and env stepping
+    test_reward: Optional[float]

@@ -6,6 +6,12 @@
 * ``LayerNorm``: LayerNorm over the last axis with Flax's statistics (see below).
 * ``LayerNormGRUCell``: GRU with LayerNorm on the fused ``[x, h]`` projection and
   Hafner's ``update - 1`` bias; its gate step is the ``layernorm_gru`` kernel on CUDA.
+* ``CNN``: a conv stack over NCHW input (the reference's is NHWC), optional channel
+  LayerNorm; ``cnn_obs_to_nhwc``: uint8 frames (frame-stacked or not) to the
+  reference's NHWC float input in [-0.5, 0.5].
+* ``MultiEncoder``: the PPO family's encoder of dict observations, one conv trunk
+  over the channel-concatenated image keys (the Nature CNN at its defaults) and one
+  dense trunk over the concatenated vector keys.
 
 Parameters are float32. Each layer computes in its ``compute_dtype`` (float32 unless
 ``set_compute_dtype`` says otherwise): the input and the parameters are cast to it and
@@ -20,7 +26,8 @@ reference checkpoint across by rule.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import math
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -190,3 +197,117 @@ class LayerNormGRUCell(nn.Module):
             self.norm_eps,
         )
         return out.reshape(*h.shape[:-1], hidden)
+
+
+def cnn_obs_to_nhwc(x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """``[..., C, H, W]`` (or ``[..., S, C, H, W]`` when ``stacked``) uint8 ->
+    ``[..., H, W, S*C]`` float in [-0.5, 0.5], as the reference's function of the same
+    name. The port's convs take ``cnn_obs_to_nchw``'s layout; this one is what the
+    reference feeds its NHWC convs."""
+    return cnn_obs_to_nchw(x, stacked).movedim(-3, -1)
+
+
+def cnn_obs_to_nchw(x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """``[..., C, H, W]`` (or ``[..., S, C, H, W]``) uint8 -> ``[..., S*C, H, W]`` float
+    in [-0.5, 0.5]: a frame stack ``S`` folds into the channels, stack-major."""
+    if x.dtype == torch.uint8:
+        x = x.float() / 255.0 - 0.5
+    if stacked:
+        x = x.reshape(*x.shape[:-4], x.shape[-4] * x.shape[-3], *x.shape[-2:])
+    return x
+
+
+class CNN(nn.Module):
+    """Conv stack over NCHW input (reference ``blocks.py:75``, NHWC there):
+    ``channels[i]`` with ``kernels[i]``/``strides[i]``/``paddings[i]`` (an int, or
+    ``VALID`` = 0), each conv followed by the optional LayerNorm over its channels and
+    the activation."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        channels: Sequence[int],
+        kernels: Sequence[int] = (4,),
+        strides: Sequence[int] = (2,),
+        paddings: Sequence = ("VALID",),
+        activation: str | Callable = "relu",
+        layer_norm: bool = False,
+        norm_eps: float = 1e-5,
+    ):
+        super().__init__()
+        n = len(channels)
+        kernels, strides, paddings = (list(v) * n if len(v) == 1 else list(v) for v in (kernels, strides, paddings))
+        if any(isinstance(p, str) and p.upper() != "VALID" for p in paddings):
+            raise NotImplementedError(f"CNN paddings {paddings}: only VALID or explicit ints are ported")
+        chans = [in_channels, *channels]
+        self.convs = nn.ModuleList(
+            Conv2d(a, b, k, stride=s, padding=0 if isinstance(p, str) else int(p))
+            for a, b, k, s, p in zip(chans[:-1], chans[1:], kernels, strides, paddings)
+        )
+        self.norms = nn.ModuleList(LayerNorm(c, norm_eps) for c in channels) if layer_norm else None
+        self.act = _activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv in enumerate(self.convs):
+            x = conv(x)
+            if self.norms is not None:
+                x = self.norms[i](x.movedim(1, -1)).movedim(-1, 1)
+            if self.act is not None:
+                x = self.act(x)
+        return x
+
+
+class MultiEncoder(nn.Module):
+    """Fuse dict observations into one feature vector (reference ``blocks.py:221``).
+
+    ``cnn_shapes`` maps each image key to its observation shape, ``[C, H, W]`` or
+    ``[S, C, H, W]`` (frame-stacked); the keys are concatenated channel-wise into one
+    ``CNN`` (VALID padding), whose last map is flattened in the reference's ``H, W, C``
+    order, so that the 512-wide ``dense.0`` takes its rows as Flax's ``Dense_0`` does and a
+    carried kernel needs only its transpose. ``mlp_dims`` maps each vector key to its
+    width; they are concatenated into one ``MLP``. The outputs are concatenated, images
+    first. Children follow the reference's names: ``cnn`` (``CNN_0``), ``dense``
+    (``Dense_0``), ``mlp`` (``MLP_0``)."""
+
+    def __init__(
+        self,
+        cnn_shapes: Dict[str, Sequence[int]],
+        mlp_dims: Dict[str, int],
+        cnn_channels: Sequence[int] = (32, 64, 64),
+        cnn_kernels: Sequence[int] = (8, 4, 3),
+        cnn_strides: Sequence[int] = (4, 2, 1),
+        cnn_features_dim: int = 512,
+        mlp_hidden_sizes: Sequence[int] = (256, 256),
+        mlp_features_dim: Optional[int] = None,
+        activation: str | Callable = "relu",
+        layer_norm: bool = False,
+    ):
+        super().__init__()
+        self.cnn_keys, self.mlp_keys = list(cnn_shapes), list(mlp_dims)
+        self.stacked = {k: len(s) == 4 for k, s in cnn_shapes.items()}
+        self.act = _activation(activation)
+        self.output_dim = 0
+        if self.cnn_keys:
+            shapes = list(cnn_shapes.values())
+            in_channels = sum(int(math.prod(s[:-2])) for s in shapes)
+            self.cnn = CNN(in_channels, cnn_channels, cnn_kernels, cnn_strides, ("VALID",), activation, layer_norm)
+            with torch.no_grad():
+                side = self.cnn(torch.zeros(1, in_channels, *shapes[0][-2:]))
+            self.dense = nn.ModuleList([Linear(side.numel(), cnn_features_dim)])
+            self.output_dim += cnn_features_dim
+        if self.mlp_keys:
+            self.mlp = MLP(sum(mlp_dims.values()), mlp_hidden_sizes, mlp_features_dim, activation, layer_norm)
+            self.output_dim += self.mlp.output_dim
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        feats = []
+        if self.cnn_keys:
+            imgs = torch.cat([cnn_obs_to_nchw(obs[k], self.stacked[k]) for k in self.cnn_keys], -3)
+            lead = imgs.shape[:-3]
+            x = self.cnn(imgs.reshape(-1, *imgs.shape[-3:]))
+            x = self.dense[0](x.permute(0, 2, 3, 1).reshape(*lead, -1))
+            feats.append(self.act(x) if self.act is not None else x)
+        if self.mlp_keys:
+            dt = self.mlp.dense[0].compute_dtype
+            feats.append(self.mlp(torch.cat([obs[k].to(dt) for k in self.mlp_keys], -1)))
+        return torch.cat(feats, -1)

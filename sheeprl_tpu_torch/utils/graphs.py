@@ -24,6 +24,7 @@ captured. A capture launches nothing, so those counts are taken back and become
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
@@ -80,6 +81,11 @@ class StepGraph:
         current.wait_stream(side)
         before = counters.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # No garbage collection while capturing: a collection that frees an earlier
+        # graph caught in a reference cycle resets it, which a capturing stream forbids
+        # (an H100 run failed so, mid-capture of a 1,024-step loop)
+        gc.collect()
+        gc.disable()
         try:
             # thread_local: a replay-prefetch thread may copy batches meanwhile
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -87,6 +93,7 @@ class StepGraph:
         except Exception as exc:
             raise RuntimeError(f"capturing the train step as a CUDA graph failed on {self.device}") from exc
         finally:
+            gc.enable()
             recorded = counters.launch_counts()
             counters.set_launches(before)
         self.launches_per_replay = {k: recorded[k] - before[k] for k in recorded}

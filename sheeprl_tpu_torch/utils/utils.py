@@ -1,14 +1,15 @@
 """Core math utilities (counterpart of ``sheeprl_tpu/utils/utils.py``).
 
 Ported: ``symlog``/``symexp``, the two-hot encoder and decoder of the DreamerV3 reward
-and value heads, the replay-ratio governor ``Ratio``, and the DreamerV1/V2 players'
-exploration schedule ``exploration_amount``.
+and value heads, the replay-ratio governor ``Ratio``, the DreamerV1/V2 players'
+exploration schedule ``exploration_amount``, and the PPO family's ``gae``,
+``polynomial_decay`` and ``normalize_tensor``.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +50,50 @@ def two_hot_decoder(t: torch.Tensor, support_range: int) -> torch.Tensor:
         raise ValueError("support size must be odd")
     support = torch.linspace(-support_range, support_range, num_buckets, dtype=t.dtype, device=t.device)
     return (t * support).sum(-1, keepdim=True)
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    num_steps: int,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GAE over a ``[T, n_envs, 1]`` rollout, the reference's reverse ``lax.scan`` as a
+    loop over ``num_steps``. ``dones[t]`` marks that the episode ended at step ``t``, so
+    step ``t``'s bootstrap is masked. Returns ``(returns, advantages)``, shaped as
+    ``rewards``."""
+    not_done = 1.0 - dones.to(values.dtype)
+    next_values = torch.cat([values[1:], next_value[None]], 0)
+    adv = torch.zeros_like(next_value)
+    advs = [None] * num_steps
+    for t in reversed(range(num_steps)):
+        delta = rewards[t] + gamma * next_values[t] * not_done[t] - values[t]
+        adv = delta + gamma * gae_lambda * not_done[t] * adv
+        advs[t] = adv
+    advantages = torch.stack(advs)
+    return advantages + values, advantages
+
+
+def polynomial_decay(current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100, power: float = 1.0) -> float:
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = 1e-8, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(x - mean) / (std + eps)``: over all of ``x`` with the population std (ddof 0,
+    as ``jnp.std``; ``torch.std``'s default is ddof 1), or over the entries where
+    ``mask`` is set with the sample std (divided by ``n - 1``, at least 1)."""
+    if mask is None:
+        return (x - x.mean()) / (x.std(correction=0) + eps)
+    m = mask.to(x.dtype)
+    n = m.sum()
+    mean = (x * m).sum() / n
+    var = (((x - mean) ** 2) * m).sum() / torch.clamp(n - 1, min=1)
+    return (x - mean) / (torch.sqrt(var) + eps)
 
 
 def exploration_amount(expl_amount: float, expl_decay: float, expl_min: float, step: int) -> float:

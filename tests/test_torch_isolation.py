@@ -23,6 +23,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.eval",
     "sheeprl_tpu_torch.__main__",
     "sheeprl_tpu_torch.algos",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.dreamer_loop",
     "sheeprl_tpu_torch.algos.dreamer_v1.agent",
     "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
@@ -40,6 +41,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.params",
     "sheeprl_tpu_torch.algos.dreamer_v3.utils",
+    "sheeprl_tpu_torch.algos.loop_common",
     "sheeprl_tpu_torch.algos.p2e",
     "sheeprl_tpu_torch.algos.p2e_dv1.agent",
     "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
@@ -56,7 +58,14 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
     "sheeprl_tpu_torch.algos.p2e_dv3.utils",
+    "sheeprl_tpu_torch.algos.ppo.agent",
+    "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.ppo.loss",
     "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.utils",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.agent",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.benchmarks",
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",
     "sheeprl_tpu_torch.benchmarks.gru_kernel_ab",
@@ -76,9 +85,14 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.models.blocks",
     "sheeprl_tpu_torch.ops.counters",
     "sheeprl_tpu_torch.ops.gru",
+    "sheeprl_tpu_torch.ops.ring_attention",
     "sheeprl_tpu_torch.ops.rssm_step",
     "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.parallel.context",
+    "sheeprl_tpu_torch.precision.policy",
+    "sheeprl_tpu_torch.rollout",
+    "sheeprl_tpu_torch.rollout.pipeline",
+    "sheeprl_tpu_torch.rollout.pool",
     "sheeprl_tpu_torch.utils.blocks",
     "sheeprl_tpu_torch.utils.env",
     "sheeprl_tpu_torch.utils.graphs",
@@ -86,6 +100,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.utils.logger",
     "sheeprl_tpu_torch.utils.memmap",
     "sheeprl_tpu_torch.utils.metric",
+    "sheeprl_tpu_torch.utils.policy",
     "sheeprl_tpu_torch.utils.registry",
     "sheeprl_tpu_torch.utils.timer",
     "sheeprl_tpu_torch.utils.utils",
