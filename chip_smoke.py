@@ -15,7 +15,9 @@ result line:
    version on the same bf16 inputs lies further off, its distance plus 2e-4; and against
    the same bf16 values in float32 within 6e-2), two calls of each
    giving the same bits, beside each row the least a one-kernel call takes from a CUDA
-   graph (``launch_floor_ms``: a one-element ``zero_()``); their launch plan held equal
+   graph (``launch_floor_ms``: a one-element ``zero_()``); their launches per call read
+   by ``torch.profiler`` between spin kernels and, where it reads fewer than the plan,
+   counted in a CUDA graph of the same calls; their launch plan held equal
    to the wrapper's at every row (``[kernels] layernorm_gru geometry``); and the fused RSSM
    step forward and backward at (B, K, H) = (16|13|64|256, 1024, 512) (``STEP_TOL``),
    two calls of each giving the same bits, the backward from the forward's saved
@@ -110,7 +112,22 @@ result line:
    split into acting and updating; then a2c-cli and ppo-recurrent-cli (LSTM, attention)
    at their exps' widths on the dummy env's vector: train, resume, eval; a
    ``[ppo-counts]`` line: no PPO-family path launches K1 or K2;
-25. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+25. the SAC family (SAC, DroQ, SAC-AE): ``[sac-train-agreement]``, ``[droq-…]``,
+   ``[sac-ae-…]``: one block of a small agent's gradient steps (DroQ: and its actor
+   step), the card's replayed from captured graphs over a device transition ring,
+   against the CPU's, same weights, ring, indices and draws, float32, TF32 off, under
+   ``[train-agreement]``'s limits; ``[sac-train-graph]``, ``[droq-…]``, ``[sac-ae-…]``:
+   each update at its exp's published widths (``SAC_GRAPH``: MLPs 256 x 2 at batch 256;
+   DroQ's Dropout + LayerNorm critics, a block of 20 critic steps and the actor step;
+   SAC-AE's 32-channel trunk on 3 x 64 x 64 frames, 1024 x 2, batch 128, both cadence
+   graphs), bf16-mixed, over a ring of the published buffer size on the card: graphed
+   against two eager runs (``GRAPH_SPREAD``), then eager, graph, graph, eager: gradient
+   steps/s, device ms and kernels per step, peak memory; ``[sac-cli]``, ``[droq-cli]``,
+   ``[sac-ae-cli]``: the train entries at those widths (``SAC_CLI``, ``SAC_CLI_STEPS``;
+   SAC at pipeline depths 0 and 1), with host replay and with ``buffer.device=True``:
+   train, resume, eval; policy steps/s split into acting and updating; a
+   ``[sac-counts]`` line: no SAC-family path launches K1 or K2;
+26. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
@@ -118,7 +135,7 @@ result line:
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1, P2E and PPO-family phases, rssm-scan) zeroes
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
 one JSON line describing every kernel (K1's rows with its launches on every path that
@@ -131,6 +148,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -404,6 +422,36 @@ SMALL_PPO_REC = ["exp=ppo_recurrent", "env=discrete_dummy", *_SMALL_PPO_KEYS, "a
 # MineDojo's functional action space: 19 action types (the reference's ACTION_MAP) and the
 # craft and item argument heads
 MINEDOJO_HEADS = (19, 244, 634)
+# The SAC family (SAC, DroQ, SAC-AE) at their exps' published widths: MLPs of 256 x 2 on
+# HalfCheetah-v4's 17-wide vector and 6 actions (the dummy env at those shapes), batch 256;
+# SAC-AE's 32-channel trunk on 3 x 64 x 64 frames, 50 features, 1024 x 2, batch 128; the
+# graph phases' rings at the published buffer.size (1,000,000 and 100,000 transitions)
+# (overrides, block steps, timed blocks, steps profiled, ring rows); DroQ's block is one
+# iteration at replay ratio 20 and is profiled whole with its actor step
+SAC_GRAPH = {"sac": (["exp=sac"], 64, 2, 8, 1_000_000), "droq": (["exp=droq"], 20, 6, 20, 1_000_000),
+             "sac_ae": (["exp=sac_ae"], 32, 2, 4, 100_000)}
+_SMALL_VEC = ["algo.hidden_size=32", "algo.per_rank_batch_size=16", "env.wrapper.vector_shape=[7]", "env.wrapper.action_dim=3"]
+SMALL_SAC = {"sac": ["exp=sac", *_SMALL_VEC], "droq": ["exp=droq", *_SMALL_VEC],
+             "sac_ae": ["exp=sac_ae", "env.screen_size=32", "env.wrapper.image_size=[3,32,32]", "algo.encoder.features_dim=16",
+                        "algo.encoder.channels=8", "algo.actor.dense_units=32", "algo.critic.dense_units=32", "algo.per_rank_batch_size=8"]}
+# the entries at those widths, 4 sync envs, the step counts and SAC-AE's buffer cut:
+# (overrides, the checkpoint a resume starts from)
+SAC_CLI = {
+    "sac_host_depth0": (["exp=sac", "rollout.pipeline_depth=0"], "ckpt_1024"),
+    "sac_device_depth0": (["exp=sac", "buffer.device=True", "rollout.pipeline_depth=0"], "ckpt_1024"),
+    "sac_device_depth1": (["exp=sac", "buffer.device=True", "rollout.pipeline_depth=1"], "ckpt_1024"),
+    "droq_host": (["exp=droq"], "ckpt_64"),
+    "droq_device": (["exp=droq", "buffer.device=True"], "ckpt_64"),
+    "sac_ae_host": (["exp=sac_ae"], "ckpt_128"),
+    "sac_ae_device": (["exp=sac_ae", "buffer.device=True"], "ckpt_128"),
+}
+# a resumed run trains again after learning_starts more iterations (as the reference's):
+# each resumes from a checkpoint early enough to train
+SAC_CLI_STEPS = {
+    "sac": ["algo.total_steps=2048", "algo.learning_starts=512", "checkpoint.every=1024", "metric.log_every=512"],
+    "droq": ["algo.total_steps=256", "algo.learning_starts=64", "checkpoint.every=64", "metric.log_every=64"],
+    "sac_ae": ["algo.total_steps=512", "algo.learning_starts=128", "checkpoint.every=128", "metric.log_every=128", "buffer.size=8192"],
+}
 
 
 def log(msg: str) -> None:
@@ -502,34 +550,97 @@ def launch_floor_ms(device: torch.device) -> float:
     return graph_ms(lambda: z.zero_())
 
 
-def gru_launches_per_call(fn, want: int, what: str, calls: int = 4) -> int | None:
-    """Kernel launches per call of ``fn`` whose name holds ``layernorm_gru``, counted by
-    ``torch.profiler`` over ``calls`` eager calls; it must be ``want`` (the plan's). None
-    where the profiler recorded no kernel at all (not measured). One call runs before the
-    profiler starts: a kernel's first launch loads its module, and the profiler has been
-    seen to miss a launch made then."""
+SENTINELS = 8  # spin kernels on each side of a profiled window
+
+
+def profiled_kernel_names(fn, calls: int) -> tuple[list, int] | None:
+    """The names of the CUDA kernels that ``calls`` calls of ``fn`` launch, read by
+    ``torch.profiler``, and how many of the window's ``2 * SENTINELS`` spin kernels it
+    recorded; None where it recorded no kernel at all. The calls are bracketed by spin
+    kernels (``torch.cuda._sleep``): the profiler has been seen to drop records at a
+    window's edge (an H100: 3 of 4 one-launch calls, three readings in a row), and a
+    dropped record then falls on a spin kernel, which the count leaves out."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    spins = [n for n in names if "spin_kernel" in n]
+    return [n for n in names if "spin_kernel" not in n], len(spins)
+
+
+def read_launches(fn, calls: int, count, want: dict | None, what: str, readings: int = 5) -> dict | None:
+    """``count(names)`` (launches per kernel over the window) divided by ``calls``, from
+    ``profiled_kernel_names``; None where no reading recorded a kernel. A reading with no
+    kernel (an H100 has given one among many), and with ``want`` (the plan's counts) a
+    reading under the plan in some kernel and over it in none, is profiled again, up to
+    ``readings`` in all; a count over the plan is never a dropped record and is returned
+    at once. A reading that missed spin kernels is not read again for that: on an H100
+    the readings of a replayed train step missed 1–8 of the 16 while every K1 launch was
+    there."""
+    got = None
+    for _ in range(readings):
+        read = profiled_kernel_names(fn, calls)
+        if read is None:
+            log(f"[profile] {what}: the profiler recorded no CUDA kernel; profiling again")
+            continue
+        names, spins = read
+        got = {k: v / calls for k, v in count(names).items()}
+        if want is None or got == want or any(got[k] > want[k] for k in want):
+            return got
+        log(f"[profile] {what}: launches per call {got}, plan {want}, {spins} of {2 * SENTINELS} spin kernels recorded; profiling again")
+    return got
+
+
+def graph_launches(fn, calls: int, match: str) -> int:
+    """Kernel nodes whose function name holds ``match`` in a CUDA graph of ``calls``
+    calls of ``fn``, read from the graph's DOT dump (the driver's ``cuGraphDebugDotPrint``,
+    verbose): a count of the launches that needs no profiler."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        err = ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), ctypes.c_uint(1))
+        if err != 0:
+            raise RuntimeError(f"cuGraphDebugDotPrint returned CUDA error {err}")
+        text = Path(path).read_text()
+    del graph
+    # one chunk per node statement: from a node's quoted name and its ``[`` to the next
+    return sum(match in chunk for chunk in re.split(r'(?="[^"\n]*"\s*\[)', text)[1:])
+
+
+def gru_launches_per_call(fn, want: int, what: str, calls: int = 4) -> int:
+    """Kernel launches per call of ``fn`` whose name holds ``layernorm_gru``, counted by
+    ``torch.profiler`` over ``calls`` eager calls (``read_launches``); it must be ``want``
+    (the plan's). Where every reading lies under the plan or recorded no kernel, the
+    launches of the same calls captured in a CUDA graph decide (``graph_launches``), and
+    the profiler's reading is logged beside them. One call runs before the profiler
+    starts: a kernel's first launch loads its module."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not kernels:
-            log(f"[kernels] {what}: launches per call not measured (the profiler recorded no CUDA kernels)")
-            return None
-        got = sum("layernorm_gru" in e.name for e in kernels)
-        if got == want * calls:
-            return want
-        # fewer than planned: the profiler has been seen to drop a launch (an H100, 4 calls
-        # of a one-launch backward read 3); a count over the plan is never a dropped event
-        if got > want * calls or attempt == 2:
-            break
-        log(f"[kernels] {what}: the profiler recorded {got} of {want * calls} planned layernorm_gru launches; profiling again")
-    raise AssertionError(f"{what}: {got / calls} layernorm_gru launches per call, the plan says {want}")
+    got = read_launches(fn, calls, lambda names: {"k1": sum("layernorm_gru" in n for n in names)}, {"k1": want}, what)
+    per_call = None if got is None else got["k1"]
+    if per_call is None or per_call < want:
+        in_graph = graph_launches(fn, calls, "layernorm_gru") / calls
+        log(f"[kernels] {what}: the profiler read {per_call} layernorm_gru launches per call, a CUDA graph of the same calls holds {in_graph}")
+        per_call = in_graph
+    if per_call != want:
+        raise AssertionError(f"{what}: {per_call} layernorm_gru launches per call, the plan says {want}")
+    return want
 
 
 def phase_kernels(device: torch.device) -> dict:
@@ -1301,36 +1412,22 @@ def phase_train(device: torch.device, precision: str, env: str = "discrete_dummy
     return row
 
 
-def k1_launches(events, calls: int) -> dict:
-    """K1 launches per call among the profiler's CUDA kernel ``events``: forward kernels,
-    backward kernels (one per backward call) and the two-launch plan's sum kernels."""
-    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+def k1_launches(names: list) -> dict:
+    """K1 launches among the profiled kernel ``names``: forward kernels, backward kernels
+    (one per backward call) and the two-launch plan's sum kernels."""
     return {
-        "fwd": sum("layernorm_gru_fwd" in n for n in names) / calls,
-        "bwd": sum("layernorm_gru_bwd" in n and "bwd_sum" not in n for n in names) / calls,
-        "bwd_sum": sum("layernorm_gru_bwd_sum" in n for n in names) / calls,
+        "fwd": sum("layernorm_gru_fwd" in n for n in names),
+        "bwd": sum("layernorm_gru_bwd" in n and "bwd_sum" not in n for n in names),
+        "bwd_sum": sum("layernorm_gru_bwd_sum" in n for n in names),
     }
 
 
 def _profiled_k1(fn, calls: int, want: dict | None = None) -> dict | None:
-    """K1 launches per call of ``fn`` by ``torch.profiler``; None where it saw no kernel.
-    With ``want`` (the plan's counts): a reading under the plan in some kernel, and over
-    it in none, is profiled again, up to three readings in all: the profiler has been seen
-    to drop launches from a step of ~12,000 kernels (an H100: 78 of 80 forward)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
-            return None
-        got = k1_launches(prof.events(), calls)
-        if want is None or got == want or any(got[k] > want[k] for k in want):
-            return got
-        log(f"[profile] K1 launches per call {got} under the plan {want}; profiling again")
-    return got
+    """K1 launches per call of ``fn`` by ``torch.profiler`` (``read_launches``); None
+    where it saw no kernel. The profiler has also been seen to drop launches from inside
+    a step of ~12,000 kernels (an H100: 78 of 80 forward), so a reading under the plan is
+    profiled again."""
+    return read_launches(fn, calls, k1_launches, want, "K1")
 
 
 def _param_diffs(ma: dict, mb: dict) -> dict:
@@ -2003,7 +2100,7 @@ def phase_ppo_train_graph(device: torch.device, env: str = "discrete_dummy", tim
     return row
 
 
-def _ppo_entry(overrides: list, tag: str, start_step: int = 0) -> tuple:
+def _entry_run(overrides: list, tag: str, start_step: int = 0) -> tuple:
     """One run of the train entry with the launch counters zeroed around it: no K1/K2
     launch. ``start_step``: the policy step a resumed run starts from. Returns
     ``(result, row)``."""
@@ -2024,21 +2121,23 @@ def _ppo_entry(overrides: list, tag: str, start_step: int = 0) -> tuple:
     return result, row
 
 
-def phase_ppo_family_cli(device: torch.device, workdir: Path, base: list, tag: str, first_ckpt: str) -> dict:
-    """A PPO-family train entry (``base``'s overrides): train (two updates), resume from
-    the checkpoint after the first, evaluate the last checkpoint through the eval entry;
-    no K1/K2 launch anywhere. Policy steps/s, split into acting (policy steps and env
-    steps) and updating (GAE and the captured update, losses read back)."""
+def phase_entry_cli(device: torch.device, workdir: Path, base: list, tag: str, first_ckpt: str, resume_halves: bool = True) -> dict:
+    """A PPO- or SAC-family train entry (``base``'s overrides): train, resume from
+    ``first_ckpt``, evaluate the last checkpoint through the eval entry; no K1/K2 launch
+    anywhere. ``resume_halves``: the resumed run takes half the first run's gradient
+    steps (PPO's two updates); a SAC-family resume only has to train. Policy steps/s,
+    split into acting (policy and env steps) and updating (the captured update or
+    blocks, captures included)."""
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.cli import evaluate
     from sheeprl_tpu_torch.ops.counters import launch_counts
 
     set_tf32(True)
     overrides = [*base, f"device={device.type}", f"log_root={workdir / 'logs'}"]
-    first, out_train = _ppo_entry(overrides, f"{tag} train")
+    first, out_train = _entry_run(overrides, f"{tag} train")
     mid = next(p for p in CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints() if p.name == first_ckpt)
-    resumed, out_resume = _ppo_entry([*overrides, f"checkpoint.resume_from={mid}"], f"{tag} resume from {mid.name}", int(mid.name.split("_")[1]))
-    if resumed.policy_steps != first.policy_steps or resumed.grad_steps * 2 != first.grad_steps:
+    resumed, out_resume = _entry_run([*overrides, f"checkpoint.resume_from={mid}"], f"{tag} resume from {mid.name}", int(mid.name.split("_")[1]))
+    if resumed.policy_steps != first.policy_steps or (resume_halves and resumed.grad_steps * 2 != first.grad_steps):
         raise AssertionError(f"{tag} resume: {resumed.policy_steps} policy steps, {resumed.grad_steps} gradient steps")
     zero_launches()
     start = time.perf_counter()
@@ -2049,6 +2148,295 @@ def phase_ppo_family_cli(device: torch.device, workdir: Path, base: list, tag: s
     log(f"{tag} eval of {Path(resumed.checkpoint).name}: reward {result.reward}, {result.steps} player steps in "
         f"{time.perf_counter() - start:.2f} s, K1/K2 launches {counts}")
     return {"train": out_train, "resume": out_resume, "eval": {"steps": result.steps, "k1_k2_launches": counts}}
+
+
+# --------------------------------------------------------------------------- the SAC family
+
+
+def _sac_setup(name: str):
+    from sheeprl_tpu_torch.algos.droq.droq import droq_parts
+    from sheeprl_tpu_torch.algos.sac.sac import sac_parts
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import sac_ae_parts
+
+    return {"sac": sac_parts, "droq": droq_parts, "sac_ae": sac_ae_parts}[name]
+
+
+def _sac_parts(overrides: list, device: torch.device, seed: int = 41):
+    """``(cfg, parts, obs_space, act_space)``: the SAC-family algorithm of ``overrides``
+    built on ``device`` at ``mesh.precision``'s dtype, over its env's spaces."""
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(overrides=[*overrides, "device=cpu"])
+    env = make_env(cfg, cfg.seed, 0, None)()
+    obs_space, act_space = env.observation_space, env.action_space
+    env.close()
+    ctx = RunContext(device, seed, compute_dtype(cfg.mesh.precision))
+    return cfg, _sac_setup(cfg.algo.name)(ctx, cfg, obs_space, act_space), obs_space, act_space
+
+
+class InjectedDraws:
+    """A block's draws given in advance: each call copies the next tree of ``draws`` (on
+    any device) into the step's static draws."""
+
+    def __init__(self, draws: list):
+        self.draws, self.i = draws, 0
+
+    def __call__(self, out):
+        from sheeprl_tpu_torch.utils.graphs import tree_tensors
+
+        with torch.no_grad():
+            for dst, src in zip(tree_tensors(out), tree_tensors(self.draws[self.i % len(self.draws)])):
+                dst.copy_(src, non_blocking=True)
+        self.i += 1
+
+
+class EagerStep:
+    """A captured step's function run eagerly on the same static inputs (the graph's
+    parity and its eager turns)."""
+
+    def __init__(self, step):
+        self.step, self.inputs, self.device = step, step.inputs, step.device
+
+    def __call__(self):
+        return self.step.fn(self.step.inputs)
+
+
+class Collect:
+    """A stand-in aggregator: the last value of each metric a drain hands it."""
+
+    def __init__(self):
+        self.values = {}
+
+    def update(self, key, value):
+        self.values[key] = float(value)
+
+
+def _sac_ring(cfg, parts, act_dim: int, device: torch.device, capacity: int, n_envs: int, gen: torch.Generator):
+    """A ``DeviceTransitionRing`` of ``capacity`` rows per env filled with random
+    transitions (frames uint8, the rest normal; ``dones`` one in ten) on ``device``."""
+    from sheeprl_tpu_torch.data.device_buffer import DeviceTransitionRing
+    import numpy as np
+
+    specs = {"obs": parts.obs_spec, "next_obs": parts.obs_spec, "actions": ((act_dim,), np.float32),
+             "rewards": ((1,), np.float32), "dones": ((1,), np.float32)}
+    ring = DeviceTransitionRing(capacity, n_envs, specs, device)
+    with torch.no_grad():
+        for k, buf in ring.arrays.items():
+            if buf.dtype == torch.uint8:
+                for i in range(0, capacity, 8192):  # in chunks: a [n, cap, 12288] int64 draw would not fit
+                    buf[:, i : i + 8192].copy_(torch.randint(0, 256, buf[:, i : i + 8192].shape, generator=gen, device=gen.device))
+            elif k == "dones":
+                buf.copy_((torch.rand(buf.shape, generator=gen, device=gen.device) < 0.1).float())
+            elif k == "actions":
+                buf.copy_(torch.rand(buf.shape, generator=gen, device=gen.device) * 2 - 1)
+            else:
+                buf.copy_(torch.randn(buf.shape, generator=gen, device=gen.device))
+    return ring
+
+
+def _sac_dispatcher(parts, cfg, ring, draws: list, tail_draws: list | None, eager: bool = False):
+    """``(dispatcher, tail)``: the algorithm's captured step over ``ring`` (replayed as a
+    block; ``eager``: its function run eagerly instead), the draws injected; DroQ's
+    actor step as ``tail`` (or None)."""
+    from sheeprl_tpu_torch.utils.blocks import IndexedBlockDispatcher
+
+    table = torch.zeros(2 * cfg.algo.per_rank_batch_size + 1, dtype=torch.int64, device=ring.device)
+    step, _, select = parts.make_step({"table": table, "gather": ring.gather})
+    if eager:
+        step = EagerStep(step)
+        select = None if select is None else (lambda c, s=select: EagerStep(s(c)))
+    dispatcher = IndexedBlockDispatcher(step, InjectedDraws(draws), parts.target_update_freq, count_offset=parts.count_offset, select=select)
+    tail = getattr(parts.make_step, "tail", {}).get("step")
+    if tail is not None:
+        tail.draw = InjectedDraws(tail_draws)
+        if eager:
+            tail.step = EagerStep(tail.step)
+    return dispatcher, tail
+
+
+def _sac_draw_list(parts, cfg, n: int, act_dim: int, device: torch.device, gen: torch.Generator, tail: bool = False) -> list:
+    """``n`` steps' draws of the algorithm, made from ``gen`` (normals; DroQ's dropout
+    noise uniform)."""
+    from sheeprl_tpu_torch.algos.dreamer_loop import fill_draws, zero_draws
+    from sheeprl_tpu_torch.algos.droq.droq import DRAW_KINDS, draw_shapes
+    from sheeprl_tpu_torch.algos.sac.sac import SACDraws
+
+    B = cfg.algo.per_rank_batch_size
+    if cfg.algo.name == "droq":
+        shapes, kinds = draw_shapes(B, act_dim, cfg.algo.critic.n, cfg.algo.critic.hidden_size), DRAW_KINDS
+    else:
+        shapes, kinds = SACDraws((B, act_dim), (B, act_dim)), ("normal", "normal")
+    return [fill_draws(zero_draws(shapes, device), kinds, gen) for _ in range(n)]
+
+
+def _sac_indices(cfg, n: int, capacity: int, n_envs: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B = cfg.algo.per_rank_batch_size
+    return rng.integers(0, n_envs, (n, B)), rng.integers(0, capacity, (n, B))
+
+
+def _sac_run_block(dispatcher, tail, envs, rows, start: int = 0) -> dict:
+    """One iteration's block (and DroQ's actor step on the indices' last row), its last
+    metrics read back."""
+    import numpy as np
+
+    n = envs.shape[0] - (tail is not None)
+    dispatcher.dispatch(envs[:n], rows[:n], start)
+    if tail is not None:
+        dispatcher.track(tail(np.concatenate([envs[n:], rows[n:]], 1)))
+    out = Collect()
+    dispatcher.drain(out)
+    return out.values
+
+
+def phase_sac_train_agreement(device: torch.device, overrides: list, label: str, steps: int = 5) -> dict:
+    """One block of ``steps`` gradient steps (DroQ: and its actor step) of a small
+    SAC-family agent, the card's replayed from captured graphs, against the same block on
+    the CPU: same weights, ring, indices and draws; float32, TF32 off;
+    ``[train-agreement]``'s limits on the parameter change, the Adam moments and the last
+    step's losses; no K1/K2 launch."""
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.utils.graphs import tree_tensors
+
+    set_tf32(False)
+    cpu = torch.device("cpu")
+    cfg, parts_c, _, act_space = _sac_parts([*overrides, "mesh.precision=32-true"], cpu)
+    _, parts_d, _, _ = _sac_parts([*overrides, "mesh.precision=32-true"], device)
+    parts_d.agent.load_state_dict(parts_c.agent.state_dict())
+    act_dim = int(act_space.shape[0])
+    gen = torch.Generator().manual_seed(5)
+    ring_c = _sac_ring(cfg, parts_c, act_dim, cpu, 64, 2, gen)
+    ring_d = _sac_ring(cfg, parts_d, act_dim, device, 64, 2, torch.Generator(device=device).manual_seed(5))
+    for k in ring_c.arrays:
+        ring_d.arrays[k].copy_(ring_c.arrays[k])
+    tail = cfg.algo.name == "droq"
+    draws = _sac_draw_list(parts_c, cfg, steps + tail, act_dim, cpu, gen)
+    envs, rows = _sac_indices(cfg, steps + tail, 64, 2, 6)
+    before = {k: v.clone() for k, v in parts_c.agent.state_dict().items()}
+    disp_c, tail_c = _sac_dispatcher(parts_c, cfg, ring_c, draws[:steps], draws[steps:])
+    disp_d, tail_d = _sac_dispatcher(parts_d, cfg, ring_d, draws[:steps], draws[steps:])
+    zero_launches()
+    met_c = _sac_run_block(disp_c, tail_c, envs, rows, 3)
+    met_d = _sac_run_block(disp_d, tail_d, envs, rows, 3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tol, lr = TRAIN_AGREEMENT_TOL, float(cfg.algo.critic.optimizer.lr)
+    sd = parts_d.agent.state_dict()
+    diff = torch.cat([(sd[k].float().cpu() - v.float()).abs().flatten() for k, v in parts_c.agent.state_dict().items()])
+    moved = torch.cat([(v.float() - before[k].float()).abs().flatten() for k, v in parts_c.agent.state_dict().items()])
+    changes = {"max_of_lr": (diff.max() / lr).item(), "share_over": (diff > tol["step_of_lr"] * lr).float().mean().item(),
+               "moved_max_of_lr": (moved.max() / lr).item()}
+    moments = max(
+        ((q.cpu() - p).norm() / max(p.norm().item(), 1e-30)).item()
+        for name in parts_c.opt_states for key in ("mu", "nu")
+        for p, q in zip(parts_c.opt_states[name][key], parts_d.opt_states[name][key])
+    )
+    counts_equal = all(int(parts_c.opt_states[n]["count"]) == int(parts_d.opt_states[n]["count"]) for n in parts_c.opt_states)
+    metrics = {k: (met_c[k], met_d[k]) for k in met_c}
+    bad = [k for k, (c, d) in metrics.items() if abs(c - d) > tol["metrics_atol"] + tol["metrics_rtol"] * abs(c)]
+    if changes["share_over"] > tol["off_share"]:
+        bad.append(f"parameter change {changes}")
+    if moments > tol["moments_rtol"] or not counts_equal:
+        bad.append(f"moments {moments}, counts equal {counts_equal}")
+    if any(counts.values()) or not tree_tensors(parts_d.opt_states):
+        bad.append(f"kernel launches {counts}")
+    log(f"{label} small {cfg.algo.name}, a block of {steps} steps{' and the actor step' if tail else ''} at 32-true, TF32 off, "
+        f"{device} (captured) vs cpu: parameter change " + json.dumps(changes)
+        + f" (share > {tol['step_of_lr']} lr <= {tol['off_share']}); Adam moments, the leaf furthest off {moments:.3g} "
+        f"(<= {tol['moments_rtol']}), counts equal {counts_equal}; losses (cpu, card) " + json.dumps(metrics) + f"; K1/K2 launches {counts}")
+    if bad:
+        raise AssertionError(f"{label}: the card's block disagrees with the CPU's: {bad}")
+    return {"changes": changes, "moments": moments, "metrics": metrics, "k1_k2_launches": counts}
+
+
+def phase_sac_train_graph(device: torch.device, overrides: list, label: str, steps: int, timed_blocks: int, profiled: int, capacity: int) -> dict:
+    """A SAC-family update at its exp's published widths (``overrides``, bf16-mixed):
+    one block of ``steps`` gradient steps (DroQ: and its actor step) replayed from
+    captured graphs over a ``DeviceTransitionRing`` of ``capacity`` random rows on the
+    card, against the same block run eagerly twice from the same state, indices and
+    draws (within ``GRAPH_SPREAD`` x the eager runs' spread, never looser than
+    ``TRAIN_AGREEMENT_TOL``); no K1/K2 launch. Then eager, graph, graph, eager
+    (``timed_blocks`` blocks each): gradient steps/s, peak memory, and device ms and
+    kernels per gradient step from a block of ``profiled`` steps under the profiler
+    (DroQ: its whole block, the actor step's kernels counted in it)."""
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(True)
+    cfg, parts_g, _, act_space = _sac_parts(overrides, device)
+    act_dim, tail = int(act_space.shape[0]), cfg.algo.name == "droq"
+    eager_parts = [_sac_parts(overrides, device)[1] for _ in range(2)]
+    for p in eager_parts:
+        p.agent.load_state_dict(parts_g.agent.state_dict())
+    gen = torch.Generator(device=device).manual_seed(8)
+    start = time.perf_counter()
+    ring = _sac_ring(cfg, parts_g, act_dim, device, capacity, 1, gen)
+    fill_s = time.perf_counter() - start
+    draws = _sac_draw_list(parts_g, cfg, steps + tail, act_dim, device, gen)
+    envs, rows = _sac_indices(cfg, steps + tail, capacity, 1, 9)
+    start = time.perf_counter()
+    graph = _sac_dispatcher(parts_g, cfg, ring, draws[:steps], draws[steps:])
+    capture_s = time.perf_counter() - start
+    eagers = [_sac_dispatcher(p, cfg, ring, draws[:steps], draws[steps:], eager=True) for p in eager_parts]
+    zero_launches()
+    met_g = _sac_run_block(*graph, envs, rows)
+    met_e = [_sac_run_block(*e, envs, rows) for e in eagers]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lr, tol, bad = float(cfg.algo.critic.optimizer.lr), TRAIN_AGREEMENT_TOL, []
+    ma, m1, m2 = {"agent": parts_g.agent}, {"agent": eager_parts[0].agent}, {"agent": eager_parts[1].agent}
+    d_spread, d_off = _param_diffs(m2, m1)["agent"], _param_diffs(ma, m1)["agent"]
+    limit = min(GRAPH_SPREAD * d_spread.max().item() + GRAPH_FLOOR["params"] * lr, tol["step_of_lr"] * lr)
+    share = (d_off > limit).float().mean().item()
+    params = {"off_max_of_lr": d_off.max().item() / lr, "spread_max_of_lr": d_spread.max().item() / lr, "limit_of_lr": limit / lr, "share_over_limit": share}
+    if share > tol["off_share"]:
+        bad.append(f"parameters {params}")
+    spread = {"moments": _moment_diff(eager_parts[1].opt_states, eager_parts[0].opt_states)}
+    off = {"moments": _moment_diff(parts_g.opt_states, eager_parts[0].opt_states)}
+    spread["losses"] = max(abs(met_e[1][k] - met_e[0][k]) / max(abs(met_e[0][k]), 1e-6) for k in met_g)
+    off["losses"] = max(abs(met_g[k] - met_e[0][k]) / max(abs(met_e[0][k]), 1e-6) for k in met_g)
+    if off["moments"] > min(GRAPH_SPREAD * spread["moments"] + GRAPH_FLOOR["moments"], tol["moments_rtol"]):
+        bad.append(f"Adam moments {off['moments']} (eager spread {spread['moments']})")
+    if off["losses"] > min(GRAPH_SPREAD * spread["losses"] + GRAPH_FLOOR["losses"], tol["metrics_rtol"]):
+        bad.append(f"losses {off['losses']} (eager spread {spread['losses']})")
+    if any(counts.values()) or not all(math.isfinite(v) for v in met_g.values()):
+        bad.append(f"K1/K2 launches {counts}, losses {met_g}")
+    n_params = sum(p.numel() for p in parts_g.agent.parameters())
+    row = {"algo": cfg.algo.name, "precision": str(cfg.mesh.precision), "batch": cfg.algo.per_rank_batch_size, "parameters": n_params,
+           "block_steps": steps, "actor_tail": tail, "ring_rows": capacity, "ring_bytes": ring.nbytes, "ring_fill_seconds": fill_s,
+           "capture_seconds": capture_s, "params": params, "off": off, "eager_spread": spread, "losses": met_g, "k1_k2_launches": counts}
+    log(label + " parity " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"{label}: the graphed block disagrees with the eager one: {bad}")
+    timings = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        disp = eagers[0] if mode == "eager" else graph
+        run_block = lambda d=disp: _sac_run_block(*d, envs, rows)  # noqa: E731  (reads the losses back: waits for the block)
+        run_block()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = time.perf_counter()
+        for _ in range(timed_blocks):
+            run_block()
+        seconds = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated(device)
+        short = lambda d=disp: _sac_run_block(*d, envs[:profiled + tail], rows[:profiled + tail])  # noqa: E731
+        prof = profile_calls(short, 1, f"{label} {mode} block of {profiled} steps", {"mode": mode})
+        device_ms = prof.get("device_ms_per_call")
+        timings.append({
+            "mode": mode, "grad_steps_per_s": timed_blocks * steps / seconds,
+            "device_ms_per_step": device_ms / profiled if device_ms else None,
+            "kernels_per_step": prof["kernels_per_call"] / profiled if prof else None,
+            "busy_share_timed": device_ms / profiled * steps * timed_blocks / seconds / 1e3 if device_ms else None,
+            "peak_allocated_bytes": peak, "reserved_bytes": torch.cuda.memory_reserved(device),
+        })
+    row["turns"] = timings
+    log(label + f" turns (per gradient step; a block is {steps} steps{' and the actor step' if tail else ''}, its losses read back) "
+        + json.dumps(timings))
+    return row
 
 
 def main() -> int:
@@ -2157,14 +2545,14 @@ def main() -> int:
     ppo_cli = {}
     for depth in (0, 1):
         with tempfile.TemporaryDirectory() as tmp:
-            ppo_cli[depth] = timed(f"ppo-cli-depth{depth}", phase_ppo_family_cli, device, Path(tmp),
+            ppo_cli[depth] = timed(f"ppo-cli-depth{depth}", phase_entry_cli, device, Path(tmp),
                                    [*PPO_ATARI, *PPO_CLI, f"rollout.pipeline_depth={depth}"], f"[ppo-cli] pipeline_depth={depth}", "ckpt_1024")
     with tempfile.TemporaryDirectory() as tmp:
-        a2c_cli = timed("a2c-cli", phase_ppo_family_cli, device, Path(tmp), A2C_CLI, "[a2c-cli]", "ckpt_512")
+        a2c_cli = timed("a2c-cli", phase_entry_cli, device, Path(tmp), A2C_CLI, "[a2c-cli]", "ckpt_512")
     rec_cli = {}
     for model in ("lstm", "attention"):
         with tempfile.TemporaryDirectory() as tmp:
-            rec_cli[model] = timed(f"ppo-recurrent-cli-{model}", phase_ppo_family_cli, device, Path(tmp),
+            rec_cli[model] = timed(f"ppo-recurrent-cli-{model}", phase_entry_cli, device, Path(tmp),
                                    [*PPO_REC_CLI, f"algo.sequence_model={model}"], f"[ppo-recurrent-cli] {model}", "ckpt_512")
     log("[ppo-counts] " + json.dumps({
         "k1_k2_launches": {"ppo_train_graph": ppo_graph[0]["k1_k2_launches"],
@@ -2173,6 +2561,25 @@ def main() -> int:
                            **{f"ppo_recurrent_cli_{m}": {k: r[k]["k1_k2_launches"] for k in r} for m, r in rec_cli.items()}},
         "ppo_cli_policy_steps_per_s": {d: r["train"]["policy_steps_per_s"] for d, r in ppo_cli.items()},
         "ppo_cli_acting_share": {d: r["train"]["acting_share"] for d, r in ppo_cli.items()},
+    }))
+    for name, small in SMALL_SAC.items():
+        timed(f"{name.replace('_', '-')}-train-agreement", phase_sac_train_agreement, device, small, f"[{name.replace('_', '-')}-train-agreement]")
+    sac_graph = {}
+    for name, (overrides, steps, blocks, profiled, rows) in SAC_GRAPH.items():
+        tag = name.replace("_", "-")
+        sac_graph[name] = timed(f"{tag}-train-graph", phase_sac_train_graph, device, overrides, f"[{tag}-train-graph]", steps, blocks, profiled, rows)
+    sac_cli = {}
+    for case, (overrides, first_ckpt) in SAC_CLI.items():
+        algo = overrides[0].split("=")[1]
+        with tempfile.TemporaryDirectory() as tmp:
+            sac_cli[case] = timed(f"{case}-cli", phase_entry_cli, device, Path(tmp), [*overrides, "env.sync_env=True", *SAC_CLI_STEPS[algo]],
+                                  f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=False)
+    log("[sac-counts] " + json.dumps({
+        "k1_k2_launches": {**{f"{n}_train_graph": g["k1_k2_launches"] for n, g in sac_graph.items()},
+                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in sac_cli.items()}},
+        "graph_grad_steps_per_s": {n: [t["grad_steps_per_s"] for t in g["turns"]] for n, g in sac_graph.items()},
+        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in sac_cli.items()},
+        "cli_acting_share": {c: r["train"]["acting_share"] for c, r in sac_cli.items()},
     }))
     scan = timed("rssm-scan", phase_rssm_scan, device)
     log("[phases] seconds " + json.dumps(seconds))
@@ -2190,6 +2597,9 @@ def main() -> int:
         # the PPO family's paths, which run no K1 (checked zero in their phases)
         **{f"ppo_cli_depth{d}": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
            for d, r in ppo_cli.items()},
+        # the SAC family's, which run no K1 either (checked zero in their phases)
+        **{f"{c}_cli": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
+           for c, r in sac_cli.items()},
     }
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
@@ -2228,7 +2638,9 @@ def main() -> int:
         + "; P2E-DV3 XL graphed exploration steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.3f}" for t in p2e_dv3_graph[0]["turns"])
         + "; rssm scan device ms " + ", ".join(f"{n} {scan['line'][n]['device_ms_per_scan']:.3f}" for n in ("plain", "post_fused", "full_fused"))
         + "; PPO (ppo_atari) graphed update steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in ppo_graph[0]["turns"])
-        + "; ppo-cli policy steps/s " + ", ".join(f"depth {d} {r['train']['policy_steps_per_s']:.1f} (acting share {r['train']['acting_share']:.3f})" for d, r in ppo_cli.items()))
+        + "; ppo-cli policy steps/s " + ", ".join(f"depth {d} {r['train']['policy_steps_per_s']:.1f} (acting share {r['train']['acting_share']:.3f})" for d, r in ppo_cli.items())
+        + "; SAC-family graphed gradient steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in g["turns"]) for n, g in sac_graph.items())
+        + "; SAC-family cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in sac_cli.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -12,8 +12,11 @@ Names map by rule (``_torch_key``): the Flax child ``Dense_<i>`` is ``dense.<i>`
 PPO's ``actor_head_<i>`` and recurrent PPO's ``actor_heads_<i>`` are ``actor_heads.<i>``,
 the GRU cell's ``Dense_0`` is ``linear``, Flax's ``GRUCell`` input layer ``in`` and
 ``OptimizedLSTMCell`` forget-gate input kernel ``if`` (Python keywords) are ``in_`` and
-``if_``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is dropped. Layouts
-convert as well:
+``if_``, and the ``layers_0`` level of a Flax ``nn.Sequential`` is dropped, as are an
+``nn.vmap`` ensemble's level (``VmapMLP_0``, DroQ's ``Vmap_Critic_0``: its leaves keep
+their leading member axis) and a ``params`` level inside a tree of several Flax trees
+(the SAC family's ``{"actor": {"params": ...}, "critic": ..., "log_alpha": ...}``, whose
+0-d ``log_alpha`` is a leaf of the agent). Layouts convert as well:
 
 * Dense kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``; a stacked one ``[N,
   in, out]`` (P2E's ensembles, ``algos/p2e::StackedLinear``) stays as it is;
@@ -44,6 +47,8 @@ import torch
 from torch import nn
 
 _RULES = (
+    (re.compile(r"(^|/)params/"), r"\1"),
+    (re.compile(r"(^|/)Vmap\w*_0/"), r"\1"),
     (re.compile(r"(^|/)layers_0/"), r"\1"),
     (re.compile(r"(^|/)MLP_0/"), r"\1mlp/"),
     (re.compile(r"(^|/)rnn/Dense_0/"), r"\1rnn/linear/"),
@@ -105,7 +110,7 @@ def module_state_from_jax(tree: Mapping[str, Any], module: nn.Module, name: str 
             raise KeyError(f"{name}: leaf {path!r} maps to {key!r}, which the port's module does not have")
         if key in state:
             raise KeyError(f"{name}: two leaves map to {key!r}")
-        arr = np.ascontiguousarray(_convert(path, value))
+        arr = np.array(_convert(path, value), order="C")  # ascontiguousarray would make a 0-d leaf 1-d
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(f"{name}: {path!r} -> {key!r} has shape {arr.shape}, expected {tuple(target[key].shape)}")
         state[key] = torch.from_numpy(arr.astype(np.float32, copy=True)).to(target[key].dtype)

@@ -1,5 +1,5 @@
-"""What every train loop of the port shares (the Dreamer loop, ``dreamer_loop.py``, and
-the PPO family's, ``ppo/ppo.py``): ``grads`` (one loss's gradient over a parameter
+"""What every train loop of the port shares (the Dreamer loop, ``dreamer_loop.py``, the
+PPO family's, ``ppo/ppo.py``, and the SAC family's, ``sac/sac.py``): ``grads`` (one loss's gradient over a parameter
 list), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
 names the ones it reads itself) and ``TrainResult`` (what a train entry returns)."""
 
@@ -17,9 +17,27 @@ def grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-# (key, test on its value, what the reference does there that the port does not yet)
+def _pipeline_refusal(cfg: Dict[str, Any], value: Any) -> str:
+    """A loop that does not name ``rollout.pipeline_depth`` in ``handled`` acts
+    synchronously. Of the reference's loops that the port runs this way, only
+    DreamerV3's reads the key (``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py:523``)."""
+    name = (cfg.get("algo") or {}).get("name")
+    if name == "dreamer_v3":
+        return (
+            f"rollout.pipeline_depth={value!r}: the reference's dreamer_v3 loop acts through the pipelined player at "
+            "this depth; the PyTorch port's DreamerV3 loop acts synchronously and does not use the port's "
+            "PipelinedPlayer (rollout/pipeline.py) yet"
+        )
+    return (
+        f"rollout.pipeline_depth={value!r}: the {name} loop acts synchronously, as the reference's does (it does "
+        "not read the key); only the ppo and sac loops run the pipelined player"
+    )
+
+
+# (key, test on its value, what the reference does there that the port does not yet, or
+# a function of the config and the value that words the whole refusal)
 _NOT_PORTED = (
-    ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, "the pipelined player"),
+    ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
     ("algo.anakin", bool, "the Anakin engine"),
     ("obs.enabled", bool, "the training monitor"),
@@ -40,8 +58,8 @@ _NOT_PORTED = (
 def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
     """Raise, naming the key, when the config asks for a loop feature of the reference
     that the port does not have: such a key is never silently ignored. ``handled``: keys
-    the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's
-    ``rollout.pipeline_depth``)."""
+    the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's and the
+    SAC family's ``rollout.pipeline_depth``)."""
     for key, asks, what in _NOT_PORTED:
         if key in handled:
             continue
@@ -49,6 +67,8 @@ def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
         for part in key.split("."):
             node = node.get(part) if isinstance(node, dict) else None
         if node is not None and asks(node):
+            if callable(what):
+                raise NotImplementedError(what(cfg, node))
             raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
 
 

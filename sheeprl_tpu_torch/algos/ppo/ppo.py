@@ -350,13 +350,7 @@ def refuse_ppo_unported(cfg, pipelined: bool) -> None:
     list, and a memmapped rollout (the port keeps the rollout in memory and on the
     device). ``pipelined``: the loop runs the pipelined player (PPO's); A2C's and
     recurrent PPO's act synchronously, as the reference's do."""
-    refuse_unported(cfg, handled=("rollout.pipeline_depth",))
-    depth = int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0)
-    if depth and not pipelined:
-        raise NotImplementedError(
-            f"rollout.pipeline_depth={depth}: the {cfg.algo.name} loop acts synchronously (the reference's ignores the key); "
-            "only ppo runs the pipelined player"
-        )
+    refuse_unported(cfg, handled=("rollout.pipeline_depth",) if pipelined else ())
     if cfg.buffer.get("memmap", False):
         raise NotImplementedError("buffer.memmap=True: the PPO family's rollout lives in memory and on the device in the PyTorch port")
 
@@ -566,6 +560,8 @@ def main(ctx, cfg) -> TrainResult:
 @register_algorithm(name="ppo_decoupled")
 def main_decoupled(ctx, cfg) -> None:
     raise NotImplementedError(
-        "algo.name='ppo_decoupled' runs players and trainers as separate processes, which needs the "
-        "distributed layer (distributed/) that the PyTorch port does not have yet"
+        "algo.name='ppo_decoupled' runs its player and trainer as two threads of one process by default "
+        "(sheeprl_tpu/algos/ppo/ppo_decoupled.py), a mode the PyTorch port does not have yet; only its "
+        "distributed.mode=sebulba runs them as processes, which needs the distributed layer (distributed/), "
+        "not ported either"
     )

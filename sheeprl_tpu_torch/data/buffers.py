@@ -15,7 +15,8 @@ torch tensors.
   starts near an episode's end more often); the DreamerV2 loop's ``buffer.type=episode``.
 
 ``EnvIndependentReplayBuffer.sample_idx`` draws (env, start) index pairs only, for the
-device-resident mirror (``data/device_buffer.py``). Not ported: the staleness gauges and
+device-resident mirror, and ``ReplayBuffer.sample_idx`` (env, row) pairs for the SAC
+family's transition ring (``data/device_buffer.py``). Not ported: the staleness gauges and
 the native gather (the numpy gather it falls back to is what runs here).
 """
 
@@ -72,6 +73,14 @@ class ReplayBuffer:
         self._pos = 0
         self._full = False
         self._rng = np.random.default_rng()
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
 
     @property
     def full(self) -> bool:
@@ -161,6 +170,17 @@ class ReplayBuffer:
                 nxt = arr[(idxes + 1) % self._buffer_size, env_idxes]
                 out[f"next_{k}"] = nxt.reshape(n_samples, batch_size, *arr.shape[2:])
         return out
+
+    def sample_idx(self, batch_size: int, n_samples: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """``(env_idxes, rows)``, each ``[n_samples, batch_size]``: the pairs ``sample``
+        draws (without next observations), the same draws from the same generator, for
+        the device transition ring (``data/device_buffer.py``)."""
+        if self.empty:
+            raise ValueError("No sample has been added to the buffer. Please add at least one via `add()`")
+        batch_dim = batch_size * n_samples
+        rows = self._rng.integers(0, self._buffer_size if self._full else self._pos, size=batch_dim)
+        envs = self._rng.integers(0, self._n_envs, size=batch_dim)
+        return envs.reshape(n_samples, batch_size), rows.reshape(n_samples, batch_size)
 
     def state_dict(self) -> Dict[str, Any]:
         """Memmap storage checkpoints as a reference to its flushed file (the rows

@@ -12,9 +12,15 @@
   ring from it after a resume, in place, so the captured step's addresses stay valid.
 
 Rows are stored flat and env-leading: rgb as uint8 ``[C*H*W]``, every other key as
-float32. The reference's env-sharded ring (data parallelism), its multi-process ring and
-its transition ring for the SAC family are not ported: the port trains on one device,
-and the loop refuses ``mesh.data > 1``.
+float32. The reference's env-sharded ring (data parallelism) and its multi-process ring
+are not ported: the port trains on one device, and the loop refuses ``mesh.data > 1``.
+
+The SAC family's ``DeviceTransitionRing`` (``make_transition_replay``) is the same ring
+over flat transitions (``obs``, ``next_obs``, ``actions``, ``rewards``, ``dones``): one
+row per env per policy step, written at the host ``ReplayBuffer``'s cursor; its index
+sampling draws (env, row) pairs on the host as the host buffer's ``sample`` does, and
+the captured step gathers its ``[B]`` rows inside the graph. ``buffer.store_dtype=bf16``
+keeps the float observation planes in bfloat16 and gathers them back as float32.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -62,7 +68,7 @@ def _masked_row_update(
     update's shapes fixed."""
     for k, buf in bufs.items():
         env = torch.arange(buf.shape[0], device=buf.device)
-        buf[env, positions] = torch.where(mask[:, None], rows[k], buf[env, positions])
+        buf[env, positions] = torch.where(mask[:, None], rows[k].to(buf.dtype), buf[env, positions])
 
 
 class DeviceReplayMirror:
@@ -142,7 +148,8 @@ class DeviceReplayMirror:
 
     def host_rows(self, key: str) -> np.ndarray:
         """Ring ``key`` as ``[cap, n_envs, *row_shape]`` numpy (for tests)."""
-        arr = self.arrays[key].cpu().numpy()  # [n_envs, cap, flat]
+        arr = self.arrays[key]
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).cpu().numpy()  # [n_envs, cap, flat]
         return np.moveaxis(arr, 0, 1).reshape(self.capacity, self.n_envs, *self._row_shapes[key])
 
 
@@ -154,7 +161,7 @@ def device_replay_enabled(cfg, rb) -> bool:
     does."""
     if not bool(cfg.buffer.get("device", False)):
         return False
-    if not isinstance(rb, EnvIndependentReplayBuffer):
+    if not isinstance(rb, (EnvIndependentReplayBuffer, ReplayBuffer)):
         logging.getLogger(__name__).warning(
             "buffer.device=True supports only buffer.type=sequential (the episode buffer stays on the host); "
             "sampling on the host."
@@ -256,3 +263,113 @@ def make_device_replay(
     rb_add = make_rb_add(mirror, rb, rb_lock, rb.n_envs)
     return dispatcher, mirror, prefetcher, run_block, rb_add
 
+
+
+STORE_DTYPE_KEYS = ("obs", "next_obs")
+
+
+def resolve_store_dtype(spec: Any) -> Optional[torch.dtype]:
+    """``buffer.store_dtype``: None (null, f32) or bfloat16 (bf16)."""
+    key = "" if spec is None else str(spec).lower()
+    if key in ("", "none", "null", "f32", "fp32", "float32"):
+        return None
+    if key in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"Unknown buffer.store_dtype {spec!r}; expected null, f32 or bf16")
+
+
+class DeviceTransitionRing(DeviceReplayMirror):
+    """A device ring of flat transitions mirroring a ``ReplayBuffer`` (the SAC family's;
+    counterpart of ``sheeprl_tpu/data/device_buffer.py::DeviceTransitionRing``).
+
+    ``specs``: ``{key: (row shape, numpy dtype)}``. With ``store_dtype`` (bfloat16) the
+    float ``obs``/``next_obs`` planes are stored in it and gathered back in their spec's
+    dtype. ``gather(envs, rows)`` returns ``{key: [B, *row shape]}``."""
+
+    def __init__(self, capacity: int, n_envs: int, specs: Dict[str, Tuple[Sequence[int], Any]], device: torch.device, store_dtype: Optional[torch.dtype] = None):
+        super().__init__(capacity, n_envs, specs, device)
+        self.store_dtype = store_dtype
+        self._cast: Dict[str, torch.dtype] = {}
+        if store_dtype is not None:
+            for k in STORE_DTYPE_KEYS:
+                if k in self.arrays and self.arrays[k].is_floating_point():
+                    self._cast[k] = self.arrays[k].dtype
+                    self.arrays[k] = torch.zeros(self.arrays[k].shape, dtype=store_dtype, device=self.device)
+
+    def add_step(self, data: Dict[str, np.ndarray], position: int) -> None:
+        """Write one row for every env at slot ``position`` (the host buffer's cursor
+        before its add); ``data[k]`` is ``[1, n_envs, ...]``."""
+        self.add(data, range(self.n_envs), [position] * self.n_envs)
+
+    def gather(self, envs: torch.Tensor, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, buf in self.arrays.items():
+            picked = buf[envs, rows]
+            if k in self._cast:
+                picked = picked.to(self._cast[k])
+            out[k] = picked.reshape(envs.shape[0], *self._row_shapes[k])
+        return out
+
+
+def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1, tail: int = 0):
+    """The SAC family's replay path, device or host: ``(ring, prefetcher, run_block,
+    rb_add)``.
+
+    ``make_step(example_inputs)`` builds the loop's captured step over static inputs and
+    returns ``(step, draw, select)``; ``example_inputs`` is ``{"table", "gather"}``
+    (device replay: ``table`` is ``[2B + 1]`` int64, the (env, row) pairs and the
+    target flag; ``gather(envs, rows)`` reads the ring inside the step) or ``{"table",
+    "batch"}`` (host replay: ``batch`` holds ``[B, ...]`` per key of ``specs``, ``table``
+    the flag). ``select``, where not None, picks the captured step per cumulative step
+    count (``utils/blocks.py::make_train_block``).
+
+    ``run_block(n, start_count, stage_next=True)`` runs ``n`` gradient steps and returns
+    ``tail`` more samples for the caller (DroQ's actor step): index rows ``[tail, 2B]``
+    (device) or ``{key: [tail, B, ...]}`` tensors on the device (host), or None.
+    ``rb_add(data)`` appends one step's rows (``[1, n_envs, ...]`` per key) to the
+    host buffer and the ring."""
+    from sheeprl_tpu_torch.data.prefetch import make_replay_prefetcher
+    from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, IndexedBlockDispatcher
+
+    device = ctx.device
+    batch_size = cfg.algo.per_rank_batch_size
+    if device_replay_enabled(cfg, rb):
+        ring = DeviceTransitionRing(rb.buffer_size, rb.n_envs, specs, device, resolve_store_dtype(cfg.buffer.get("store_dtype")))
+        table = torch.zeros(2 * batch_size + 1, dtype=torch.int64, device=device)
+        step, draw, select = make_step({"table": table, "gather": ring.gather})
+        dispatcher = IndexedBlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+        prefetcher, rb_lock = None, contextlib.nullcontext()
+
+        def run_block(n: int, start_count: int, stage_next: bool = True):
+            envs_idx, rows_idx = rb.sample_idx(batch_size, n + tail)
+            dispatcher.dispatch(envs_idx[:n], rows_idx[:n], start_count)
+            return np.concatenate([envs_idx[n:], rows_idx[n:]], 1) if tail else None
+
+    else:
+        if cfg.buffer.get("store_dtype") is not None and resolve_store_dtype(cfg.buffer.store_dtype) is not None:
+            raise NotImplementedError(
+                f"buffer.store_dtype={cfg.buffer.store_dtype}: the reduced storage dtype is the device ring's "
+                "(buffer.device=True); the host buffer stores the rows as they are"
+            )
+        ring = None
+        batch = {
+            k: torch.zeros((batch_size, *shape), dtype=_torch_dtype(dtype), device=device) for k, (shape, dtype) in specs.items()
+        }
+        table = torch.zeros(1, dtype=torch.int64, device=device)
+        step, draw, select = make_step({"table": table, "batch": batch})
+        dispatcher = BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+        prefetcher, rb_lock, sample_block = make_replay_prefetcher(rb, device, cfg, batch_size, 1)
+
+        def run_block(n: int, start_count: int, stage_next: bool = True):
+            block = prefetcher.get(n + tail, stage_next=stage_next) if prefetcher is not None else sample_block(n + tail)
+            dispatcher.dispatch({k: v[:n] for k, v in block.items()}, start_count)
+            return {k: v[n:] for k, v in block.items()} if tail else None
+
+    def rb_add(data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
+        if ring is not None:
+            ring.add_step(data, rb._pos)
+        with rb_lock:
+            rb.add(data, validate_args=validate_args)
+
+    run_block.dispatcher = dispatcher
+    return ring, prefetcher, run_block, rb_add

@@ -95,6 +95,15 @@ class TanhNormal:
     def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return torch.tanh(self.base.rsample(generator, noise))
 
+    def sample_and_log_prob(
+        self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> tuple:
+        """``(tanh(pre), log_prob)`` of one reparameterised draw ``pre``, the log-prob
+        taken from ``pre`` itself (the SAC family's path), not from ``atanh`` of the
+        clamped action as ``log_prob`` does: the two differ near ±1."""
+        pre = self.base.rsample(generator, noise)
+        return torch.tanh(pre), self.base.log_prob(pre) - self._log_det(pre)
+
     def log_prob(self, a: torch.Tensor) -> torch.Tensor:
         pre = torch.atanh(a.clamp(-1 + self.eps, 1 - self.eps))
         return self.base.log_prob(pre) - self._log_det(pre)

@@ -69,14 +69,18 @@ def make_train_block(
     draw: Callable[[Any], Any],
     target_update_freq: int = 1,
     count_offset: int = 1,
+    select: Optional[Callable[[int], StepGraph]] = None,
 ) -> Callable[..., Tuple[List[str], torch.Tensor]]:
     """Wrap a captured step into ``block(start_count, n, index_rows=None, batches=None)``.
 
     ``step.inputs`` holds ``table`` (int64 ``[W]``: the index row, then the flag),
     ``draws`` (filled by ``draw(step.inputs["draws"])`` before each replay) and, for host
     replay, ``batch``. ``index_rows`` is ``[n, W - 1]`` (device replay) and ``batches``
-    a dict of ``[n, T, B, ...]`` tensors on the device (host replay). Returns the last
-    step's metric names and their values, one float32 tensor on the device."""
+    a dict of ``[n, T, B, ...]`` (or ``[n, B, ...]``) tensors on the device (host
+    replay). ``select(count)``, where given, is the captured step to replay at the
+    cumulative step count ``count`` (SAC-AE: one graph per pattern of its update
+    cadences), every one over ``step.inputs``. Returns the last step's metric names and
+    their values, one float32 tensor on the device."""
     table_in: torch.Tensor = step.inputs["table"]
     static_batch: Optional[Dict[str, torch.Tensor]] = step.inputs.get("batch")
 
@@ -91,7 +95,7 @@ def make_train_block(
                 for k, buf in static_batch.items():
                     buf.copy_(batches[k][g], non_blocking=True)
             draw(step.inputs["draws"])
-            metrics = step()
+            metrics = (step if select is None else select(start_count + g))()
         names = list(metrics)
         return names, torch.stack([metrics[k].detach().float() for k in names])
 
@@ -117,8 +121,11 @@ class WindowedFutures:
     def _fetch(self) -> List[Dict[str, float]]:
         if not self._pending:
             return []
-        values = torch.stack([v for _, v in self._pending]).cpu().tolist()
-        out = [dict(zip(names, vals)) for (names, _), vals in zip(self._pending, values)]
+        flat = torch.cat([v.reshape(-1) for _, v in self._pending]).cpu().tolist()
+        out, i = [], 0
+        for names, _ in self._pending:
+            out.append(dict(zip(names, flat[i : i + len(names)])))
+            i += len(names)
         self._pending.clear()
         return out
 
@@ -162,8 +169,11 @@ class BlockDispatcher:
     prefetcher sampled and copied to the device; metrics stay on the device until
     ``drain``."""
 
-    def __init__(self, step: StepGraph, draw: Callable, target_update_freq: int = 1, max_chunk: int = 8, count_offset: int = 1):
-        self._block = make_train_block(step, draw, target_update_freq, count_offset)
+    def __init__(
+        self, step: StepGraph, draw: Callable, target_update_freq: int = 1, max_chunk: int = 8, count_offset: int = 1,
+        select: Optional[Callable[[int], StepGraph]] = None,
+    ):
+        self._block = make_train_block(step, draw, target_update_freq, count_offset, select)
         self._max_chunk = max_chunk
         self._futures = WindowedFutures()
 
@@ -176,6 +186,10 @@ class BlockDispatcher:
             start_count += size
             self._futures.track(metrics, size)
 
+    def track(self, metrics: Tuple[List[str], torch.Tensor]) -> None:
+        """Defer the metrics of a step run beside the blocks (DroQ's actor step)."""
+        self._futures.track(metrics, 0)
+
     def drain(self, aggregator) -> None:
         self._futures.drain(aggregator)
 
@@ -185,7 +199,8 @@ class BlockDispatcher:
 
 class IndexedBlockDispatcher(BlockDispatcher):
     """Device replay: the host ships only ``[G, B]`` (env, start) index arrays; each
-    replay gathers its ``[T, B]`` batch from the device mirror inside the graph."""
+    replay gathers its ``[T, B]`` batch from the device mirror inside the graph (the SAC
+    family: (env, row) pairs and a ``[B]`` row gather from its transition ring)."""
 
     def dispatch(self, envs: np.ndarray, starts: np.ndarray, start_count: int) -> None:
         rows = np.concatenate([np.asarray(envs, np.int64), np.asarray(starts, np.int64)], 1)

@@ -66,6 +66,19 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.ppo_recurrent.agent",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.droq",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.sac",
+    "sheeprl_tpu_torch.algos.sac.agent",
+    "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.sac.loss",
+    "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.sac.utils",
+    "sheeprl_tpu_torch.algos.sac_ae",
+    "sheeprl_tpu_torch.algos.sac_ae.agent",
+    "sheeprl_tpu_torch.algos.sac_ae.evaluate",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
     "sheeprl_tpu_torch.benchmarks",
     "sheeprl_tpu_torch.benchmarks.fused_step_bench",
     "sheeprl_tpu_torch.benchmarks.gru_kernel_ab",
@@ -139,6 +152,9 @@ def _imports(path: Path):
 def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    # every module the fresh interpreter imports is scanned too (the SAC family's among them)
+    scanned = {str(f.relative_to(REPO).with_suffix("")).replace("/", ".").removesuffix(".__init__") for f in files}
+    assert set(SLICE_MODULES) <= scanned, sorted(set(SLICE_MODULES) - scanned)
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}" for f in files for line, mod in _imports(f) if _forbidden(mod)]
     assert not bad, bad
 
