@@ -8,6 +8,8 @@ result line:
 
 1. build: compile every CUDA kernel of the port from ``sheeprl_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``; print the build seconds and the card's name and power limit;
+   check that the profiler's device events read raw (``device_events``, what every
+   profiled phase reads) equal ``prof.events()``'s;
 2. kernels: with TF32 off for matmuls and cuDNN, hold each kernel against its plain
    PyTorch version at the port's shapes and time both: the LayerNorm-GRU forward (f32
    atol 1e-5; bf16 atol 1e-2 on the bf16 output) and backward (against autograd through
@@ -127,7 +129,18 @@ result line:
    SAC at pipeline depths 0 and 1), with host replay and with ``buffer.device=True``:
    train, resume, eval; policy steps/s split into acting and updating; a
    ``[sac-counts]`` line: no SAC-family path launches K1 or K2;
-26. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+26. the thread-decoupled entries: ``[ppo-decoupled-agreement]``: ``ppo_decoupled`` against
+   ``ppo`` at pipeline depth 0 through the train entry on the same draws
+   (``SMALL_PPO_DECOUPLED``: three updates, float32, TF32 off) under
+   ``[train-agreement]``'s limits; ``[sac-decoupled-publish]``: a short ``sac_decoupled``
+   run over the device ring at exp=sac's widths whose every adopted publication equals,
+   bit for bit, the learner's actor when it was published, the player on a stream of its
+   own; then a graph captured while another thread launches eager work;
+   ``[sac-decoupled-cli]`` (host replay, device ring) and ``[ppo-decoupled-cli]``
+   (``DECOUPLED_CLI``): train, resume, eval at the exps' widths; policy steps/s, acting
+   and updating, and their overlap (acting plus updating seconds over wall seconds); a
+   ``[decoupled-counts]`` line: no decoupled path launches K1 or K2;
+27. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
@@ -135,7 +148,7 @@ result line:
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, rssm-scan) zeroes
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
 one JSON line describing every kernel (K1's rows with its launches on every path that
@@ -144,6 +157,7 @@ runs it), and last the line ``{"ok": true, "device": {...}}``. Exits 2 without C
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -452,6 +466,30 @@ SAC_CLI_STEPS = {
     "droq": ["algo.total_steps=256", "algo.learning_starts=64", "checkpoint.every=64", "metric.log_every=64"],
     "sac_ae": ["algo.total_steps=512", "algo.learning_starts=128", "checkpoint.every=128", "metric.log_every=128", "buffer.size=8192"],
 }
+# The thread-decoupled entries at their exps' published widths: sac_decoupled is exp=sac's
+# (HalfCheetah-v4's shapes on the dummy env), with host replay and with the device ring,
+# at the [sac-cli] step counts; ppo_decoupled is algo=ppo's dense 64 x 2 on CartPole-v1's
+# shapes, 128-step rollouts of 4 envs, four updates: (overrides, the checkpoint a resume
+# starts from, whether the resumed run takes half the gradient steps)
+_PPO_DECOUPLED_CLI = ["env.sync_env=True", "algo.total_steps=2048", "checkpoint.every=1024", "metric.log_every=512"]
+DECOUPLED_CLI = {
+    "sac_decoupled_host": (["exp=sac_decoupled", "env.sync_env=True", *SAC_CLI_STEPS["sac"]], "ckpt_1024", False),
+    "sac_decoupled_device": (["exp=sac_decoupled", "buffer.device=True", "env.sync_env=True", *SAC_CLI_STEPS["sac"]], "ckpt_1024", False),
+    "ppo_decoupled": (["exp=ppo_decoupled", *_PPO_DECOUPLED_CLI], "ckpt_1024", True),
+    # the coupled entry at the same widths and steps, to compare with
+    "ppo_coupled": (["exp=ppo_decoupled", "algo.name=ppo", "rollout.pipeline_depth=0", *_PPO_DECOUPLED_CLI], "ckpt_1024", True),
+}
+# [ppo-decoupled-agreement]: three updates of a small ppo_decoupled and of ppo at depth 0,
+# float32, every annealing on, on the same draws
+SMALL_PPO_DECOUPLED = ["exp=ppo_decoupled", "algo.rollout_steps=16", "env.num_envs=2", "algo.per_rank_batch_size=16", "algo.update_epochs=2",
+                       "algo.total_steps=96", "algo.anneal_lr=True", "algo.anneal_clip_coef=True", "algo.anneal_ent_coef=True",
+                       "algo.ent_coef=0.01", "algo.normalize_advantages=True", "algo.clip_vloss=True", "algo.max_grad_norm=0.5",
+                       "env.max_episode_steps=5", "env.sync_env=True", "algo.run_test=False", "checkpoint.every=32", "metric.log_every=32",
+                       "mesh.precision=32-true", "float32_matmul_precision=highest"]
+# [sac-decoupled-publish]: a short sac_decoupled run over the device ring at exp=sac's widths
+SAC_DECOUPLED_PUBLISH = ["exp=sac_decoupled", "buffer.device=True", "env.sync_env=True", "algo.total_steps=1024",
+                         "algo.learning_starts=256", "checkpoint.every=0", "checkpoint.save_last=True", "metric.log_every=256",
+                         "algo.run_test=False"]
 
 
 def log(msg: str) -> None:
@@ -553,6 +591,34 @@ def launch_floor_ms(device: torch.device) -> float:
 SENTINELS = 8  # spin kernels on each side of a profiled window
 
 
+def device_events(prof) -> list:
+    """``(name, µs)`` of every device event (kernels, copies, sets) a finished
+    ``torch.profiler.profile`` recorded, read from its raw Kineto events: the same events
+    and times as ``prof.events()``'s with ``device_type`` CUDA (``check_device_events``),
+    without building its ``FunctionEvent`` tree, the slow part of reading a profiled
+    train step of tens of thousands of kernels."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1000) for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
+def check_device_events(device: torch.device) -> int:
+    """``device_events`` against ``prof.events()`` on a few profiled launches (CPU and
+    CUDA activities, as ``profile_calls``): the same names and times, or it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(256, 256, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            x = torch.tanh(x @ x).contiguous()
+        torch.cuda.synchronize()
+    raw = sorted(device_events(prof))
+    parsed = sorted((e.name, e.device_time_total) for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not raw or [n for n, _ in raw] != [n for n, _ in parsed] or any(abs(a - b) > 1e-3 for (_, a), (_, b) in zip(raw, parsed)):
+        raise AssertionError(f"device_events {raw[:4]} ... disagree with prof.events() {parsed[:4]} ...")
+    log(f"[profile] device_events equal prof.events() on {len(raw)} device events")
+    return len(raw)
+
+
 def profiled_kernel_names(fn, calls: int) -> tuple[list, int] | None:
     """The names of the CUDA kernels that ``calls`` calls of ``fn`` launch, read by
     ``torch.profiler``, and how many of the window's ``2 * SENTINELS`` spin kernels it
@@ -571,7 +637,7 @@ def profiled_kernel_names(fn, calls: int) -> tuple[list, int] | None:
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(0.01)
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [name for name, _ in device_events(prof)]
     if not names:
         return None
     spins = [n for n in names if "spin_kernel" in n]
@@ -1211,14 +1277,14 @@ def profile_calls(fn, calls: int, label: str, extra: dict) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / calls
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3 / calls
+    kernels = device_events(prof)
+    device_ms = sum(us for _, us in kernels) / 1e3 / calls
     if not kernels or device_ms <= 0:
         log(f"[profile] {label}: device time not measured (the profiler recorded no CUDA kernels)")
         return {}
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / calls
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / calls
     out = {
         **extra,
         "calls": calls,
@@ -2439,6 +2505,174 @@ def phase_sac_train_graph(device: torch.device, overrides: list, label: str, ste
     return row
 
 
+# --------------------------------------------------------------------------- the decoupled entries
+
+
+class _Recorder:
+    """A logger that keeps what it was asked to log."""
+
+    def __init__(self):
+        self.logged = []
+
+    def log_metrics(self, metrics, step):
+        self.logged.append((step, dict(metrics)))
+
+    def close(self):
+        pass
+
+
+def phase_ppo_decoupled_agreement(device: torch.device, workdir: Path) -> dict:
+    """``ppo_decoupled`` against the coupled ``ppo`` at ``rollout.pipeline_depth=0``, both
+    through the train entry on the card on the same draws (the coupled entry's player
+    and update generators seeded as the decoupled player's and learner's), three updates
+    of ``SMALL_PPO_DECOUPLED`` at 32-true with TF32 off: the parameters (in units of the
+    lr), the Adam moments (relative norm per leaf) and the logged losses within
+    ``[train-agreement]``'s limits (``TRAIN_AGREEMENT_TOL``); no K1/K2 launch."""
+    import sheeprl_tpu_torch.algos.ppo.ppo as ppo
+    from sheeprl_tpu_torch.algos.decoupled import PLAYER_SEED_OFFSET
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    set_tf32(False)
+    overrides = [*SMALL_PPO_DECOUPLED, f"device={device.type}"]
+    lr = compose(overrides=[*SMALL_PPO_DECOUPLED, "device=cpu"]).algo.optimizer.lr
+    get_logger, rng = ppo.get_logger, RunContext.rng
+
+    def reseeded(ctx, device=None):
+        draw = ctx._draws
+        gen = rng(ctx, device)
+        if draw == 1:
+            gen.manual_seed(ctx.seed + PLAYER_SEED_OFFSET)
+        elif draw == 2:
+            gen.manual_seed(ctx.seed * 1_000_003 + 1)
+        return gen
+
+    out, logs = {}, {}
+    zero_launches()
+    try:
+        for name, extra in (("decoupled", []), ("coupled", ["algo.name=ppo", "rollout.pipeline_depth=0"])):
+            logs[name] = _Recorder()
+            ppo.get_logger = lambda cfg, log_dir, log=logs[name]: log
+            RunContext.rng = reseeded if name == "coupled" else rng
+            out[name] = run([*overrides, *extra, f"log_root={workdir / name}"])
+    finally:
+        ppo.get_logger, RunContext.rng = get_logger, rng
+    counts = launch_counts()
+    states = {k: CheckpointManager.load(r.checkpoint) for k, r in out.items()}
+    tol = TRAIN_AGREEMENT_TOL
+    pd, pc = states["decoupled"]["params"], states["coupled"]["params"]
+    diff = torch.cat([(pd[k].float() - v.float()).abs().flatten() for k, v in pc.items()])
+    steps = {"max_of_lr": (diff.max() / lr).item(), "share_over": (diff > tol["step_of_lr"] * lr).float().mean().item(),
+             "bit_identical": all(torch.equal(pd[k], v) for k, v in pc.items())}
+    od, oc = states["decoupled"]["opt_state"], states["coupled"]["opt_state"]
+    moments = {key: max(((a - b).norm() / max(b.norm().item(), 1e-12)).item() for a, b in zip(od[key], oc[key])) for key in ("mu", "nu")}
+    losses = {k: [(s, {n: v for n, v in m.items() if n.startswith("Loss/")}) for s, m in log.logged] for k, log in logs.items()}
+    flat = [(a, b) for (_, ma), (_, mb) in zip(losses["decoupled"], losses["coupled"]) for a, b in zip(ma.values(), mb.values())]
+    bad = []
+    if len(losses["decoupled"]) != 3 or [s for s, _ in losses["decoupled"]] != [s for s, _ in losses["coupled"]]:
+        bad.append(f"logged steps {losses}")
+    if any(abs(a - b) > tol["metrics_atol"] + tol["metrics_rtol"] * abs(b) for a, b in flat):
+        bad.append(f"losses {losses}")
+    if steps["share_over"] > tol["off_share"]:
+        bad.append(f"parameters {steps}")
+    if max(moments.values()) > tol["moments_rtol"]:
+        bad.append(f"moments {moments}")
+    if int(od["count"]) != int(oc["count"]) or out["decoupled"].grad_steps != out["coupled"].grad_steps or any(counts.values()):
+        bad.append(f"counts {int(od['count'])} vs {int(oc['count'])}, launches {counts}")
+    row = {"params": steps, "moments_rel": moments, "losses": losses["decoupled"], "grad_steps": out["decoupled"].grad_steps, "k1_k2_launches": counts,
+           "param_staleness_steps": [m.get("Sebulba/param_staleness_steps") for _, m in logs["decoupled"].logged]}
+    log("[ppo-decoupled-agreement] small ppo_decoupled vs ppo at depth 0, three updates at 32-true, TF32 off, same draws, "
+        f"{device}: " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"[ppo-decoupled-agreement]: the decoupled update disagrees with the coupled one: {bad}")
+    return row
+
+
+def phase_sac_decoupled_publish(device: torch.device, workdir: Path) -> dict:
+    """A short ``sac_decoupled`` run over the device ring (``SAC_DECOUPLED_PUBLISH``) with
+    spies on its publication: at each publication the phase snapshots the learner's
+    actor (on the learner's stream), and after each adoption the player's actor (on the
+    player's stream); every adopted publication must equal its snapshot bit for bit, the
+    player's stream must be neither the default stream nor the learner's, and at least
+    one publication must have been adopted. Then a graph captured on the main thread
+    while another thread launches eager work on a stream of its own (``StepGraph``'s
+    thread-local capture mode): both give their eager results."""
+    import threading
+
+    import sheeprl_tpu_torch.algos.sac.sac_decoupled as entry
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.utils.graphs import StepGraph
+
+    set_tf32(True)
+    publish, adopt = entry.publish, entry.adopt
+    learner, player, streams = {}, {}, {"learner": set(), "player": set()}
+    default = torch.cuda.default_stream(device) if device.type == "cuda" else None
+
+    def spy_publish(tensors, stamp):
+        learner[stamp["seq"]] = [t.detach().clone() for t in tensors]
+        if default is not None:
+            streams["learner"].add(torch.cuda.current_stream(device).cuda_stream)
+        return publish(tensors, stamp)
+
+    def spy_adopt(pub, dst):
+        adopt(pub, dst)
+        player[pub.stamp["seq"]] = [t.detach().clone() for t in dst]
+        if default is not None:
+            streams["player"].add(torch.cuda.current_stream(device).cuda_stream)
+
+    zero_launches()
+    get_logger, logged = entry.get_logger, _Recorder()
+    entry.publish, entry.adopt, entry.get_logger = spy_publish, spy_adopt, lambda cfg, log_dir: logged
+    try:
+        result = run([*SAC_DECOUPLED_PUBLISH, f"device={device.type}", f"log_root={workdir / 'publish'}"])
+    finally:
+        entry.publish, entry.adopt, entry.get_logger = publish, adopt, get_logger
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    counts = launch_counts()
+    mismatched = [seq for seq, ps in player.items() if not all(torch.equal(a, b) for a, b in zip(ps, learner[seq]))]
+    own_streams = default is None or (streams["player"].isdisjoint(streams["learner"] | {default.cuda_stream}) and len(streams["player"]) == 1)
+    row = {"publications": len(learner), "adopted": len(player), "mismatched": mismatched, "grad_steps": result.grad_steps,
+           "param_staleness_steps": [m.get("Sebulba/param_staleness_steps") for _, m in logged.logged],
+           "player_streams": len(streams["player"]), "learner_streams": len(streams["learner"]), "k1_k2_launches": counts}
+
+    # a capture on this thread while another thread launches eager work on its own stream
+    x = torch.randn(256, 256, device=device)
+    fn = lambda inp: {"y": torch.tanh(inp["x"] @ inp["x"]).sum(0)}  # noqa: E731
+    want = fn({"x": x})["y"]
+    stop, eager_ok, errors = threading.Event(), [], []
+
+    def eager():
+        try:
+            with (torch.cuda.stream(torch.cuda.Stream(device)) if device.type == "cuda" else contextlib.nullcontext()):
+                z = torch.randn(128, 128, device=device, generator=torch.Generator(device=device).manual_seed(0))
+                want = (z @ z).relu().sum().item()
+                while not stop.is_set():
+                    eager_ok.append((z @ z).relu().sum().item() == want)
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=eager, daemon=True)
+    t.start()
+    try:
+        time.sleep(0.05)
+        got = StepGraph(fn, {"x": x})()["y"].clone()
+    finally:
+        stop.set()
+        t.join(timeout=30)
+    row["capture_beside_eager"] = {"eager_calls": len(eager_ok), "eager_all_right": all(eager_ok), "errors": [repr(e) for e in errors],
+                                   "graph_rel_diff": ((got - want).abs().max() / want.abs().max()).item()}
+    log(f"[sac-decoupled-publish] sac_decoupled over the device ring at exp=sac's widths, {device}: " + json.dumps(row))
+    if (mismatched or not player or any(counts.values()) or not own_streams or t.is_alive() or errors or not all(eager_ok)
+            or row["capture_beside_eager"]["graph_rel_diff"] > 1e-5):
+        raise AssertionError(f"[sac-decoupled-publish]: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
@@ -2459,6 +2693,7 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    check_device_events(device)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
@@ -2581,6 +2816,26 @@ def main() -> int:
         "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in sac_cli.items()},
         "cli_acting_share": {c: r["train"]["acting_share"] for c, r in sac_cli.items()},
     }))
+    with tempfile.TemporaryDirectory() as tmp:
+        dec_agree = timed("ppo-decoupled-agreement", phase_ppo_decoupled_agreement, device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        dec_publish = timed("sac-decoupled-publish", phase_sac_decoupled_publish, device, Path(tmp))
+    dec_cli = {}
+    for case, (overrides, first_ckpt, halves) in DECOUPLED_CLI.items():
+        algo = "ppo" if "algo.name=ppo" in overrides else overrides[0].split("=")[1]
+        with tempfile.TemporaryDirectory() as tmp:
+            dec_cli[case] = timed(f"{case}-cli", phase_entry_cli, device, Path(tmp), overrides, f"[{algo.replace('_', '-')}-cli] {case}",
+                                  first_ckpt, resume_halves=halves)
+    # overlap: the player's acting and the learner's updating seconds over the run's wall seconds
+    log("[decoupled-counts] " + json.dumps({
+        "k1_k2_launches": {"ppo_decoupled_agreement": dec_agree["k1_k2_launches"], "sac_decoupled_publish": dec_publish["k1_k2_launches"],
+                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in dec_cli.items()}},
+        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in dec_cli.items()},
+        "cli_acting_policy_steps_per_s": {c: r["train"]["acting_policy_steps_per_s"] for c, r in dec_cli.items()},
+        "cli_acting_plus_updating_over_wall": {c: (r["train"]["acting_seconds"] + r["train"]["updating_seconds"]) / r["train"]["seconds"]
+                                               for c, r in dec_cli.items()},
+        "publications_adopted": [dec_publish["adopted"], dec_publish["publications"]],
+    }))
     scan = timed("rssm-scan", phase_rssm_scan, device)
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
@@ -2600,6 +2855,9 @@ def main() -> int:
         # the SAC family's, which run no K1 either (checked zero in their phases)
         **{f"{c}_cli": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
            for c, r in sac_cli.items()},
+        # the thread-decoupled entries', which run no K1 either (checked zero in their phases)
+        **{f"{c}_cli": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
+           for c, r in dec_cli.items()},
     }
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
@@ -2640,7 +2898,8 @@ def main() -> int:
         + "; PPO (ppo_atari) graphed update steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in ppo_graph[0]["turns"])
         + "; ppo-cli policy steps/s " + ", ".join(f"depth {d} {r['train']['policy_steps_per_s']:.1f} (acting share {r['train']['acting_share']:.3f})" for d, r in ppo_cli.items())
         + "; SAC-family graphed gradient steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in g["turns"]) for n, g in sac_graph.items())
-        + "; SAC-family cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in sac_cli.items()))
+        + "; SAC-family cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in sac_cli.items())
+        + "; decoupled cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in dec_cli.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

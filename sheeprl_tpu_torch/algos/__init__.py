@@ -1,8 +1,7 @@
 """Algorithm registry population (counterpart of ``sheeprl_tpu/algos/__init__.py``).
 Ported so far: DreamerV3, DreamerV2, DreamerV1, P2E on each of them (exploration and
-finetuning), PPO, A2C and recurrent PPO, SAC, DroQ and SAC-AE, their train and
-evaluation entries (``ppo_decoupled`` and ``sac_decoupled`` are registered to refuse,
-naming what they need)."""
+finetuning), PPO, A2C and recurrent PPO, SAC, DroQ and SAC-AE, the thread-decoupled
+``ppo_decoupled`` and ``sac_decoupled``, their train and evaluation entries."""
 
 from sheeprl_tpu_torch.algos.a2c import a2c as _a2c  # noqa: F401
 from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as _dv1  # noqa: F401
@@ -24,9 +23,11 @@ from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as _p2e_dv3_expl
 from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_finetuning as _p2e_dv3_fine  # noqa: F401
 from sheeprl_tpu_torch.algos.ppo import evaluate as _ppo_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.ppo import ppo as _ppo  # noqa: F401
+from sheeprl_tpu_torch.algos.ppo import ppo_decoupled as _ppo_decoupled  # noqa: F401
 from sheeprl_tpu_torch.algos.ppo_recurrent import evaluate as _ppo_rec_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as _ppo_rec  # noqa: F401
 from sheeprl_tpu_torch.algos.sac import evaluate as _sac_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.sac import sac as _sac  # noqa: F401
+from sheeprl_tpu_torch.algos.sac import sac_decoupled as _sac_decoupled  # noqa: F401
 from sheeprl_tpu_torch.algos.sac_ae import evaluate as _sac_ae_eval  # noqa: F401
 from sheeprl_tpu_torch.algos.sac_ae import sac_ae as _sac_ae  # noqa: F401

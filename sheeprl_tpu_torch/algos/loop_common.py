@@ -34,10 +34,24 @@ def _pipeline_refusal(cfg: Dict[str, Any], value: Any) -> str:
     )
 
 
+def _sebulba_refusal(cfg: Dict[str, Any], value: Any) -> str:
+    """Only the decoupled entries read ``distributed.mode``; their default, ``thread``, is
+    ported."""
+    name = (cfg.get("algo") or {}).get("name")
+    if name in ("sac_decoupled", "ppo_decoupled"):
+        return (
+            f"distributed.mode={value!r}: the reference's {name} then runs its player and learner as placed processes "
+            "(a launcher, a transport channel and weight publishers), which the PyTorch port does not have yet; the "
+            "port runs them as two threads of one process (distributed.mode=thread)"
+        )
+    return f"distributed.mode={value!r}: the {name} loop has no player/learner split, as the reference's has not (it does not read the key)"
+
+
 # (key, test on its value, what the reference does there that the port does not yet, or
 # a function of the config and the value that words the whole refusal)
 _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
+    ("distributed.mode", lambda v: v not in (None, "thread"), _sebulba_refusal),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
     ("algo.anakin", bool, "the Anakin engine"),
     ("obs.enabled", bool, "the training monitor"),

@@ -21,7 +21,7 @@ def print_result(result: TestResult) -> None:
     print(f"Test/player_steps_per_second: {result.steps / result.seconds}")
 
 
-@register_evaluation(algorithms=["ppo", "a2c"])
+@register_evaluation(algorithms=["ppo", "ppo_decoupled", "a2c"])
 def evaluate_ppo(ctx, cfg: Dict[str, Any], ckpt_path: str) -> TestResult:
     log_dir = get_log_dir(cfg)
     env = make_env(cfg, cfg.seed, 0, log_dir, "test")()

@@ -29,6 +29,7 @@ input: the loop draws them on the device from a generator; the tests hand in the
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -329,14 +330,22 @@ class PPOTrainFns:
     def train_fn(self, data: Dict[str, torch.Tensor], perms: torch.Tensor, clip_coef: float, ent_coef: float) -> Dict[str, float]:
         """One update: ``update_epochs`` sweeps over ``data`` (``[N, ...]`` per key) in
         the minibatches of ``perms`` (``[update_epochs, N]``). Returns the mean losses."""
+        return self.losses(self.launch_update(data, perms, clip_coef, ent_coef))
+
+    def launch_update(self, data: Dict[str, torch.Tensor], perms: torch.Tensor, clip_coef: float, ent_coef: float) -> torch.Tensor:
+        """``train_fn``'s update, launched without waiting for it: its mean losses stay a
+        tensor on the device (``losses`` reads them)."""
         if tuple(perms.shape) != (self.cfg.algo.update_epochs, self.batch_n):
             raise ValueError(f"perms has shape {tuple(perms.shape)}, expected (update_epochs, N) = {(self.cfg.algo.update_epochs, self.batch_n)}")
         if self._update is None:
             state = self.params + tree_tensors(self.opt_state)
             self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_size,), state, self.capture)
         coefs = torch.tensor([clip_coef, ent_coef], dtype=torch.float32)
-        out = self._update(data, perms.reshape(-1, self.mb_size), coefs).cpu()
-        return dict(zip(("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"), out.tolist()))
+        return self._update(data, perms.reshape(-1, self.mb_size), coefs)
+
+    @staticmethod
+    def losses(out: torch.Tensor) -> Dict[str, float]:
+        return dict(zip(("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"), out.cpu().tolist()))
 
     def lr_at(self, grad_step: int) -> float:
         """The learning rate after ``grad_step`` gradient steps (``Params/lr``)."""
@@ -401,8 +410,10 @@ class PPOFamilyLoop:
     logger, vector env, aggregator, checkpoints and resume, and the logging and
     checkpoint cadences."""
 
-    def __init__(self, ctx, cfg, aggregator_keys):
+    def __init__(self, ctx, cfg, aggregator_keys, agg_lock=None):
         self.ctx, self.cfg = ctx, cfg
+        # held around the aggregator's reads where another thread feeds it (ppo_decoupled)
+        self.agg_lock = agg_lock if agg_lock is not None else contextlib.nullcontext()
         self.log_dir = get_log_dir(cfg)
         save_config(cfg, Path(self.log_dir) / "config.yaml")
         self.logger = get_logger(cfg, self.log_dir)
@@ -433,12 +444,13 @@ class PPOFamilyLoop:
         """Log at the cadence (``metrics()`` adds the timing keys) and checkpoint."""
         cfg = self.cfg
         if self.logger is not None and (self.policy_step - self.last_log >= cfg.metric.log_every or update == self.num_updates or cfg.dry_run):
-            out = self.aggregator.compute()
+            with self.agg_lock:
+                out = self.aggregator.compute()
+                self.aggregator.reset()
             out.update(metrics())
             out.update(rollout_metrics(self.envs))
             out.update(self.timer.to_dict())
             self.logger.log_metrics(out, self.policy_step)
-            self.aggregator.reset()
             self.last_log = self.policy_step
         if (cfg.checkpoint.every > 0 and self.policy_step - self.last_checkpoint >= cfg.checkpoint.every) or (
             update == self.num_updates and cfg.checkpoint.save_last
@@ -465,6 +477,77 @@ class PPOFamilyLoop:
         return TrainResult(self.log_dir, self.policy_step, grad_steps, self.last_path, seconds, train_seconds, env_seconds, test_reward)
 
 
+def annealed_coefs(cfg, update: int, num_updates: int) -> Tuple[float, float]:
+    """The update's clip and entropy coefficients (``algo.anneal_clip_coef``,
+    ``algo.anneal_ent_coef``: linear decay to 0 over the run's updates)."""
+    clip_coef, ent_coef = cfg.algo.clip_coef, cfg.algo.ent_coef
+    if cfg.algo.anneal_clip_coef:
+        clip_coef = polynomial_decay(update, initial=clip_coef, final=0.0, max_decay_steps=num_updates)
+    if cfg.algo.anneal_ent_coef:
+        ent_coef = polynomial_decay(update, initial=ent_coef, final=0.0, max_decay_steps=num_updates)
+    return clip_coef, ent_coef
+
+
+class PPOActing:
+    """PPO's acting side (the coupled loop's and ``ppo_decoupled``'s player's): a rollout
+    of ``algo.rollout_steps`` steps of every env through the pipelined player (``depth``)
+    with ``generator``'s draws, the truncation bootstrap folded into the rewards, then
+    the update's batch with GAE on the device."""
+
+    def __init__(self, cfg, fns: PPOTrainFns, envs, generator: Optional[torch.Generator], depth: int = 0):
+        self.cfg, self.fns, self.envs = cfg, fns, envs
+        obs_space, act_space = envs.single_observation_space, envs.single_action_space
+        self.cnn_keys, self.mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
+        self.obs_keys = self.cnn_keys + self.mlp_keys
+        is_continuous, action_dims = fns.agent.is_continuous, fns.agent.action_dims
+        n_act = action_dims[0] if is_continuous else len(action_dims)
+        self.rollout = Rollout(cfg.algo.rollout_steps, cfg.env.num_envs, obs_space, self.cnn_keys, self.mlp_keys, fns.device,
+                               {"actions": (n_act,), "logprobs": (), "values": (), "rewards": (), "dones": ()})
+
+        def policy(obs_t):
+            env_act, _, logprob, value = fns.act(obs_t, generator)
+            return env_act, logprob, value
+
+        def post(fetched):
+            return env_actions(fetched[0], is_continuous, action_dims, act_space), fetched
+
+        self.player = PipelinedPlayer(envs, policy, post, depth=depth)
+
+    def prepare(self, obs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return prepare_obs(obs, self.cnn_keys, self.mlp_keys, self.fns.device)
+
+    def collect(self, obs: Dict[str, np.ndarray], on_step: Callable[[Dict[str, Any]], None]) -> Dict[str, np.ndarray]:
+        """One rollout from ``obs``; ``on_step(info)`` after each env step. Returns the
+        observations that follow it."""
+        cfg, rollout, num_envs = self.cfg, self.rollout, self.cfg.env.num_envs
+        host_values = lambda o: self.fns.values(self.prepare(o)).float().cpu().numpy()  # noqa: E731
+        for t in range(rollout.T):
+            obs_t = rollout.put_obs(t, obs)
+            actions, (act_np, logprob_np, value_np) = self.player.act(obs_t)
+            next_obs, reward, terminated, truncated, info = self.player.env_step(actions)
+            if cfg.env.clip_rewards:
+                reward = np.clip(reward, -1, 1)
+            reward = np.asarray(reward, dtype=np.float32).reshape(num_envs)
+            boot = truncation_bootstrap(info, truncated, self.obs_keys, host_values)
+            if boot is not None:
+                reward[boot[0]] += cfg.algo.gamma * boot[1]
+            host = rollout.host
+            host["actions"][t] = act_np.reshape(num_envs, -1)
+            host["logprobs"][t], host["values"][t] = logprob_np, value_np
+            host["rewards"][t] = reward
+            host["dones"][t] = np.logical_or(terminated, truncated)
+            obs = next_obs
+            on_step(info)
+        return obs
+
+    def batch(self, obs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The update's data from the last rollout and the observations after it."""
+        local = self.rollout.tensors()
+        next_value = self.fns.values(self.prepare(obs))[:, None]
+        returns, advantages = self.fns.gae_fn(local["rewards"][..., None], local["values"][..., None], local["dones"][..., None], next_value)
+        return flat_batch(local, returns, advantages, [*self.obs_keys, "actions", "logprobs", "values"])
+
+
 @register_algorithm(name="ppo")
 def main(ctx, cfg) -> TrainResult:
     """PPO's train loop: act through the pipelined player, fold the truncation bootstrap
@@ -475,30 +558,16 @@ def main(ctx, cfg) -> TrainResult:
     envs = loop.envs
     try:
         obs_space, act_space = envs.single_observation_space, envs.single_action_space
-        cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
-        obs_keys = cnn_keys + mlp_keys
+        obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
         agent = build_agent(ctx, act_space, obs_space, cfg)
-        is_continuous, action_dims = agent.is_continuous, agent.action_dims
         fns = PPOTrainFns(ctx, agent, cfg, obs_keys, loop.num_updates)
         loop.resume(agent, fns.opt_state)
-        num_envs, T = cfg.env.num_envs, cfg.algo.rollout_steps
-        n_act = action_dims[0] if is_continuous else len(action_dims)
-        rollout = Rollout(T, num_envs, obs_space, cnn_keys, mlp_keys, device,
-                          {"actions": (n_act,), "logprobs": (), "values": (), "rewards": (), "dones": ()})
         player_gen, train_gen = ctx.rng(), ctx.rng()
+        acting = PPOActing(cfg, fns, envs, player_gen, depth=int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0))
 
-        def policy(obs_t):
-            env_act, _, logprob, value = fns.act(obs_t, player_gen)
-            return env_act, logprob, value
-
-        def post(fetched):
-            act_np, logprob_np, value_np = fetched
-            return env_actions(act_np, is_continuous, action_dims, act_space), fetched
-
-        player = PipelinedPlayer(envs, policy, post, depth=int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0))
-
-        def host_values(o):
-            return fns.values(prepare_obs(o, cnn_keys, mlp_keys, device)).float().cpu().numpy()
+        def on_step(info):
+            loop.policy_step += cfg.env.num_envs
+            record_episode_stats(loop.aggregator, info)
 
         obs, _ = envs.reset(seed=cfg.seed)
         grad_steps, train_seconds, env_seconds = 0, 0.0, 0.0
@@ -506,39 +575,14 @@ def main(ctx, cfg) -> TrainResult:
         for update in range(loop.start_update, loop.num_updates + 1):
             env_t0 = time.perf_counter()
             with loop.timer("Time/env_interaction_time"):
-                for t in range(T):
-                    obs_t = rollout.put_obs(t, obs)
-                    actions, (act_np, logprob_np, value_np) = player.act(obs_t)
-                    next_obs, reward, terminated, truncated, info = player.env_step(actions)
-                    if cfg.env.clip_rewards:
-                        reward = np.clip(reward, -1, 1)
-                    reward = np.asarray(reward, dtype=np.float32).reshape(num_envs)
-                    boot = truncation_bootstrap(info, truncated, obs_keys, host_values)
-                    if boot is not None:
-                        reward[boot[0]] += cfg.algo.gamma * boot[1]
-                    host = rollout.host
-                    host["actions"][t] = act_np.reshape(num_envs, -1)
-                    host["logprobs"][t], host["values"][t] = logprob_np, value_np
-                    host["rewards"][t] = reward
-                    host["dones"][t] = np.logical_or(terminated, truncated)
-                    obs = next_obs
-                    loop.policy_step += num_envs
-                    record_episode_stats(loop.aggregator, info)
+                obs = acting.collect(obs, on_step)
             env_time = time.perf_counter() - env_t0
             env_seconds += env_time
 
             train_t0 = time.perf_counter()
             with loop.timer("Time/train_time"):
-                local = rollout.tensors()
-                next_value = fns.values(prepare_obs(obs, cnn_keys, mlp_keys, device))[:, None]
-                returns, advantages = fns.gae_fn(local["rewards"][..., None], local["values"][..., None], local["dones"][..., None], next_value)
-                data = flat_batch(local, returns, advantages, [*obs_keys, "actions", "logprobs", "values"])
-                clip_coef, ent_coef = cfg.algo.clip_coef, cfg.algo.ent_coef
-                if cfg.algo.anneal_clip_coef:
-                    clip_coef = polynomial_decay(update, initial=clip_coef, final=0.0, max_decay_steps=loop.num_updates)
-                if cfg.algo.anneal_ent_coef:
-                    ent_coef = polynomial_decay(update, initial=ent_coef, final=0.0, max_decay_steps=loop.num_updates)
-                train_metrics = fns.train_fn(data, fns.permutations(train_gen), clip_coef, ent_coef)
+                data = acting.batch(obs)
+                train_metrics = fns.train_fn(data, fns.permutations(train_gen), *annealed_coefs(cfg, update, loop.num_updates))
             train_time = time.perf_counter() - train_t0
             train_seconds += train_time
             grad_steps += fns.grad_steps_per_update
@@ -555,13 +599,3 @@ def main(ctx, cfg) -> TrainResult:
         envs.close()
     seconds = time.perf_counter() - run_start
     return loop.finish(lambda: test(agent, ctx, cfg, loop.log_dir).reward, grad_steps, seconds, train_seconds, env_seconds)
-
-
-@register_algorithm(name="ppo_decoupled")
-def main_decoupled(ctx, cfg) -> None:
-    raise NotImplementedError(
-        "algo.name='ppo_decoupled' runs its player and trainer as two threads of one process by default "
-        "(sheeprl_tpu/algos/ppo/ppo_decoupled.py), a mode the PyTorch port does not have yet; only its "
-        "distributed.mode=sebulba runs them as processes, which needs the distributed layer (distributed/), "
-        "not ported either"
-    )

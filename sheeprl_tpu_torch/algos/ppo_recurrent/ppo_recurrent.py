@@ -28,6 +28,7 @@ from sheeprl_tpu_torch.algos.ppo.ppo import (
     MinibatchUpdate,
     PPOFamilyLoop,
     Rollout,
+    annealed_coefs,
     make_optimizer,
     refuse_ppo_unported,
 )
@@ -36,7 +37,7 @@ from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent, make_zero_s
 from sheeprl_tpu_torch.utils.graphs import tree_tensors
 from sheeprl_tpu_torch.utils.metric import record_episode_stats
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.utils import normalize_tensor, polynomial_decay
+from sheeprl_tpu_torch.utils.utils import normalize_tensor
 
 def onehot_actions(act: np.ndarray, action_dims: Sequence[int], is_continuous: bool) -> np.ndarray:
     """The previous action as the sequence model reads it: one-hot per discrete head
@@ -227,12 +228,7 @@ def main(ctx, cfg) -> TrainResult:
                 returns, advantages = fns.gae_fn(local["rewards"][..., None], local["values"][..., None], local["dones"][..., None], next_value[:, None])
                 seq_data = {k: local[k] for k in (*obs_keys, "actions", "prev_actions", "is_first", "logprobs", "values")}
                 seq_data["returns"], seq_data["advantages"] = returns[..., 0], advantages[..., 0]
-                clip_coef, ent_coef = cfg.algo.clip_coef, cfg.algo.ent_coef
-                if cfg.algo.anneal_clip_coef:
-                    clip_coef = polynomial_decay(update, initial=clip_coef, final=0.0, max_decay_steps=loop.num_updates)
-                if cfg.algo.anneal_ent_coef:
-                    ent_coef = polynomial_decay(update, initial=ent_coef, final=0.0, max_decay_steps=loop.num_updates)
-                train_metrics = fns.train_fn(seq_data, c0, h0, fns.permutations(train_gen), clip_coef, ent_coef)
+                train_metrics = fns.train_fn(seq_data, c0, h0, fns.permutations(train_gen), *annealed_coefs(cfg, update, loop.num_updates))
             train_time = time.perf_counter() - train_t0
             train_seconds += train_time
             grad_steps += fns.grad_steps_per_update

@@ -402,13 +402,3 @@ def sample_tanh(actor, rows: torch.Tensor, generator: torch.Generator) -> torch.
 @register_algorithm(name="sac")
 def main(ctx, cfg) -> TrainResult:
     return run_sac_loop(ctx, cfg, sac_parts, pipelined=True)
-
-
-@register_algorithm(name="sac_decoupled")
-def main_decoupled(ctx, cfg) -> None:
-    raise NotImplementedError(
-        "algo.name='sac_decoupled' runs its player and learner as two threads of one process by default "
-        "(sheeprl_tpu/algos/sac/sac_decoupled.py), a mode the PyTorch port does not have yet; its "
-        "distributed.mode=sebulba runs them as processes, which needs the distributed layer (distributed/), "
-        "not ported either"
-    )

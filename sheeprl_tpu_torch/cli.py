@@ -2,17 +2,20 @@
 
 ``python -m sheeprl_tpu_torch exp=<preset> [overrides]`` composes the config, merges a
 checkpoint's config when ``checkpoint.resume_from`` is set, checks it and calls the
-algorithm's registered train entry. ``python -m sheeprl_tpu_torch.eval
-checkpoint_path=<run>/checkpoints/ckpt_N [overrides]`` loads the run's saved
-``config.yaml``, applies the overrides, and calls the registered evaluation entry. Both
-run on ``device`` (``cuda`` unless ``device=cpu`` is given). Not ported: multirun
-sweeps, autoresume under the fault policy, the compile cache, the race detector and the
-flight recorder.
+algorithm's registered train entry; with ``-m``/``--multirun`` every override whose
+value is a bare comma-separated list becomes an axis of a grid whose jobs run one after
+another (``expand_multirun``), each under ``multirun_<stamp>/job<i>_<run name>``.
+``python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/checkpoints/ckpt_N
+[overrides]`` loads the run's saved ``config.yaml``, applies the overrides, and calls
+the registered evaluation entry. Both run on ``device`` (``cuda`` unless ``device=cpu``
+is given). Not ported: autoresume under the fault policy, the compile cache, the race
+detector and the flight recorder.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import sys
 from pathlib import Path
@@ -54,7 +57,9 @@ def check_configs(cfg: DotDict) -> None:
     algo = cfg.get("algo", {})
     if not algo or "name" not in algo:
         raise ValueError("No algorithm selected: choose one with 'exp=<preset>' or 'algo=<name>'")
-    get_algorithm(algo["name"])
+    entry = get_algorithm(algo["name"])
+    if entry["decoupled"] and cfg.env.get("sync_env", False) is False and cfg.env.num_envs <= 0:
+        raise ValueError("Decoupled algorithms need at least one environment")
     cnn_keys = algo.get("cnn_keys", {}).get("encoder", [])
     mlp_keys = algo.get("mlp_keys", {}).get("encoder", [])
     if not isinstance(cnn_keys, list) or not isinstance(mlp_keys, list):
@@ -102,21 +107,49 @@ def run_algorithm(cfg: DotDict) -> Any:
     return entry["entrypoint"](ctx, cfg)
 
 
+def expand_multirun(overrides: List[str]) -> List[List[str]]:
+    """Hydra's multirun grid: every override whose value is a bare comma-separated list
+    is a sweep axis, and the jobs are their cartesian product (``algo.lr=1e-4,3e-4
+    seed=1,2``: 4 jobs). A bracketed or quoted value (``cnn_keys.encoder=[rgb,depth]``)
+    is one value, never an axis."""
+    axes: List[List[str]] = []
+    for ov in overrides:
+        key, eq, val = ov.partition("=")
+        if eq and "," in val and not val.lstrip().startswith(("[", "{", "(", "'", '"')):
+            axes.append([f"{key}={v}" for v in val.split(",")])
+        else:
+            axes.append([ov])
+    return [list(combo) for combo in itertools.product(*axes)]
+
+
 def run(args: Optional[List[str]] = None) -> Any:
-    """Train entry: ``python -m sheeprl_tpu_torch exp=... key=value ...``."""
+    """Train entry: ``python -m sheeprl_tpu_torch exp=... key=value ...``. Returns what
+    the algorithm's entry returns; with ``-m``/``--multirun``, the list of what each job
+    returned, the jobs run one after another."""
     _import_algorithms()
     overrides = list(args if args is not None else sys.argv[1:])
-    if {"-m", "--multirun"} & set(overrides):
-        raise NotImplementedError("multirun sweeps are not ported yet: run one configuration per call")
-    cfg = compose(overrides=overrides)
-    if cfg.checkpoint.get("resume_from"):
-        cfg = resume_from_checkpoint(cfg)
-    if not cfg.get("run_name"):
-        cfg.run_name = _default_run_name(cfg)
-    check_configs(cfg)
-    if os.environ.get("SHEEPRL_TPU_QUIET", "0") != "1":
-        print_config(cfg)
-    return run_algorithm(cfg)
+    multirun = bool({"-m", "--multirun"} & set(overrides))
+    overrides = [ov for ov in overrides if ov not in ("-m", "--multirun")]
+    jobs = expand_multirun(overrides) if multirun else [overrides]
+    sweep = multirun and len(jobs) > 1
+    if sweep:
+        stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        print(f"multirun: {len(jobs)} jobs")
+    results = []
+    for i, job in enumerate(jobs):
+        cfg = compose(overrides=job)
+        if cfg.checkpoint.get("resume_from"):
+            cfg = resume_from_checkpoint(cfg)
+        if sweep:
+            cfg.run_name = f"multirun_{stamp}/job{i}_{cfg.get('run_name') or _default_run_name(cfg)}"
+            print(f"multirun job {i}/{len(jobs) - 1}: {' '.join(job)}")
+        elif not cfg.get("run_name"):
+            cfg.run_name = _default_run_name(cfg)
+        check_configs(cfg)
+        if os.environ.get("SHEEPRL_TPU_QUIET", "0") != "1":
+            print_config(cfg)
+        results.append(run_algorithm(cfg))
+    return results if multirun else results[0]
 
 
 def eval_algorithm(cfg: DotDict) -> Any:

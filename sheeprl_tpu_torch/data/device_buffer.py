@@ -311,9 +311,9 @@ class DeviceTransitionRing(DeviceReplayMirror):
         return out
 
 
-def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1, tail: int = 0):
-    """The SAC family's replay path, device or host: ``(ring, prefetcher, run_block,
-    rb_add)``.
+def make_transition_dispatcher(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1):
+    """The SAC family's block dispatcher over device or host replay: ``(ring,
+    dispatcher)``.
 
     ``make_step(example_inputs)`` builds the loop's captured step over static inputs and
     returns ``(step, draw, select)``; ``example_inputs`` is ``{"table", "gather"}``
@@ -321,14 +321,10 @@ def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Se
     target flag; ``gather(envs, rows)`` reads the ring inside the step) or ``{"table",
     "batch"}`` (host replay: ``batch`` holds ``[B, ...]`` per key of ``specs``, ``table``
     the flag). ``select``, where not None, picks the captured step per cumulative step
-    count (``utils/blocks.py::make_train_block``).
-
-    ``run_block(n, start_count, stage_next=True)`` runs ``n`` gradient steps and returns
-    ``tail`` more samples for the caller (DroQ's actor step): index rows ``[tail, 2B]``
-    (device) or ``{key: [tail, B, ...]}`` tensors on the device (host), or None.
-    ``rb_add(data)`` appends one step's rows (``[1, n_envs, ...]`` per key) to the
-    host buffer and the ring."""
-    from sheeprl_tpu_torch.data.prefetch import make_replay_prefetcher
+    count (``utils/blocks.py::make_train_block``). With ``buffer.device`` the ring is a
+    ``DeviceTransitionRing`` and the dispatcher an ``IndexedBlockDispatcher`` (``[G, B]``
+    (env, row) index arrays), else the ring is None and the dispatcher a
+    ``BlockDispatcher`` (``[G, B, ...]`` batches on the device)."""
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, IndexedBlockDispatcher
 
     device = ctx.device
@@ -337,7 +333,33 @@ def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Se
         ring = DeviceTransitionRing(rb.buffer_size, rb.n_envs, specs, device, resolve_store_dtype(cfg.buffer.get("store_dtype")))
         table = torch.zeros(2 * batch_size + 1, dtype=torch.int64, device=device)
         step, draw, select = make_step({"table": table, "gather": ring.gather})
-        dispatcher = IndexedBlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+        return ring, IndexedBlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+    if cfg.buffer.get("store_dtype") is not None and resolve_store_dtype(cfg.buffer.store_dtype) is not None:
+        raise NotImplementedError(
+            f"buffer.store_dtype={cfg.buffer.store_dtype}: the reduced storage dtype is the device ring's "
+            "(buffer.device=True); the host buffer stores the rows as they are"
+        )
+    batch = {k: torch.zeros((batch_size, *shape), dtype=_torch_dtype(dtype), device=device) for k, (shape, dtype) in specs.items()}
+    table = torch.zeros(1, dtype=torch.int64, device=device)
+    step, draw, select = make_step({"table": table, "batch": batch})
+    return None, BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+
+
+def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1, tail: int = 0):
+    """The SAC family's replay path, device or host: ``(ring, prefetcher, run_block,
+    rb_add)``, over ``make_transition_dispatcher``'s ring and dispatcher (its arguments
+    as there).
+
+    ``run_block(n, start_count, stage_next=True)`` runs ``n`` gradient steps and returns
+    ``tail`` more samples for the caller (DroQ's actor step): index rows ``[tail, 2B]``
+    (device) or ``{key: [tail, B, ...]}`` tensors on the device (host), or None.
+    ``rb_add(data)`` appends one step's rows (``[1, n_envs, ...]`` per key) to the
+    host buffer and the ring."""
+    from sheeprl_tpu_torch.data.prefetch import make_replay_prefetcher
+
+    batch_size = cfg.algo.per_rank_batch_size
+    ring, dispatcher = make_transition_dispatcher(ctx, cfg, rb, specs, make_step, target_update_freq, count_offset)
+    if ring is not None:
         prefetcher, rb_lock = None, contextlib.nullcontext()
 
         def run_block(n: int, start_count: int, stage_next: bool = True):
@@ -346,19 +368,7 @@ def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Se
             return np.concatenate([envs_idx[n:], rows_idx[n:]], 1) if tail else None
 
     else:
-        if cfg.buffer.get("store_dtype") is not None and resolve_store_dtype(cfg.buffer.store_dtype) is not None:
-            raise NotImplementedError(
-                f"buffer.store_dtype={cfg.buffer.store_dtype}: the reduced storage dtype is the device ring's "
-                "(buffer.device=True); the host buffer stores the rows as they are"
-            )
-        ring = None
-        batch = {
-            k: torch.zeros((batch_size, *shape), dtype=_torch_dtype(dtype), device=device) for k, (shape, dtype) in specs.items()
-        }
-        table = torch.zeros(1, dtype=torch.int64, device=device)
-        step, draw, select = make_step({"table": table, "batch": batch})
-        dispatcher = BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
-        prefetcher, rb_lock, sample_block = make_replay_prefetcher(rb, device, cfg, batch_size, 1)
+        prefetcher, rb_lock, sample_block = make_replay_prefetcher(rb, ctx.device, cfg, batch_size, 1)
 
         def run_block(n: int, start_count: int, stage_next: bool = True):
             block = prefetcher.get(n + tail, stage_next=stage_next) if prefetcher is not None else sample_block(n + tail)

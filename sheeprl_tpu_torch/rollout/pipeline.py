@@ -2,7 +2,9 @@
 (counterpart of ``sheeprl_tpu/rollout/pipeline.py``).
 
 * ``depth=0``: synchronous. Each ``act`` runs the policy, copies its outputs to the
-  host (a blocking copy) and returns them: the plain acting path.
+  host and returns them: the plain acting path. On a card the copy goes through pinned
+  memory and waits on an event recorded after it on the current stream, so the host
+  waits for this stream's work only, not for other threads' streams.
 * ``depth=k>=1``: policy lag. Each ``act`` launches the policy on the newest
   observation, starts the copy of its outputs into pinned host memory at once (a
   ``non_blocking`` copy, then a CUDA event: the counterpart of the reference's
@@ -82,7 +84,7 @@ class PipelinedPlayer:
         call's ``depth`` calls ago otherwise."""
         out = tuple(self._policy(*args, **kwargs))
         if self.depth == 0:
-            return self._post(tuple(t.detach().cpu().numpy() for t in out))
+            return self._post(_HostCopy(out, self._buffers(out)).wait())
         self._queue.append(_HostCopy(out, self._buffers(out)))
         fut = self._queue.popleft() if len(self._queue) > self.depth else self._queue[0]
         return self._post(fut.wait())

@@ -24,6 +24,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.__main__",
     "sheeprl_tpu_torch.algos",
     "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.decoupled",
     "sheeprl_tpu_torch.algos.dreamer_loop",
     "sheeprl_tpu_torch.algos.dreamer_v1.agent",
     "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
@@ -62,6 +63,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.ppo.evaluate",
     "sheeprl_tpu_torch.algos.ppo.loss",
     "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
     "sheeprl_tpu_torch.algos.ppo.utils",
     "sheeprl_tpu_torch.algos.ppo_recurrent.agent",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
@@ -74,6 +76,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.sac.evaluate",
     "sheeprl_tpu_torch.algos.sac.loss",
     "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled",
     "sheeprl_tpu_torch.algos.sac.utils",
     "sheeprl_tpu_torch.algos.sac_ae",
     "sheeprl_tpu_torch.algos.sac_ae.agent",
@@ -89,6 +92,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.data.buffers",
     "sheeprl_tpu_torch.data.device_buffer",
     "sheeprl_tpu_torch.data.prefetch",
+    "sheeprl_tpu_torch.distributed",
+    "sheeprl_tpu_torch.distributed.publish",
+    "sheeprl_tpu_torch.distributed.transport",
     "sheeprl_tpu_torch.distributions",
     "sheeprl_tpu_torch.envs.core",
     "sheeprl_tpu_torch.envs.dummy",

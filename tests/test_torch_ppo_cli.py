@@ -65,7 +65,7 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch, name):
         ("ppo_dummy", "+mesh.sequence=2", "mesh.sequence"),
         ("ppo_dummy", "buffer.memmap=True", "buffer.memmap"),
         ("ppo_dummy", "algo.precision=fp16", "algo.precision"),
-        ("ppo_dummy", "algo.name=ppo_decoupled", "ppo_decoupled"),
+        ("ppo_decoupled", "+distributed.mode=sebulba", "distributed.mode"),
         ("a2c", "rollout.pipeline_depth=1", "rollout.pipeline_depth"),
         ("ppo_recurrent", "rollout.pipeline_depth=2", "rollout.pipeline_depth"),
         ("ppo_recurrent", "algo.precision=bf16", "algo.precision"),

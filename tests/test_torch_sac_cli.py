@@ -5,8 +5,9 @@ the last one, with host replay and with ``buffer.device=True`` (the transition r
 resume rebuilds it from the checkpointed buffer). Episodes end by a time limit, so the
 final-observation correction runs. The same configs go through both packages' config
 checks. A config key that asks for what these loops lack raises, naming the key; so do
-``sac_decoupled`` and ``ppo_decoupled``, naming the mode they need, and the Dreamer
-loops' refusal of ``rollout.pipeline_depth`` says what their reference does."""
+``sac_decoupled`` and ``ppo_decoupled`` for ``distributed.mode=sebulba``, naming the
+mode they run instead, and the Dreamer loops' refusal of ``rollout.pipeline_depth`` says
+what their reference does."""
 
 from pathlib import Path
 
@@ -18,6 +19,7 @@ SMALL = ["device=cpu", "env.sync_env=True", "env.num_envs=2", "algo.total_steps=
 RUNS = {
     "sac": ["exp=sac", "algo.hidden_size=8", "env.wrapper.vector_shape=[5]", "env.wrapper.action_dim=2"],
     "droq": ["exp=droq", "algo.hidden_size=8", "algo.replay_ratio=2", "env.wrapper.vector_shape=[5]", "env.wrapper.action_dim=2"],
+    "sac_decoupled": ["exp=sac_decoupled", "algo.hidden_size=8", "env.wrapper.vector_shape=[5]", "env.wrapper.action_dim=2"],
     "sac_ae": ["exp=sac_ae", "env.screen_size=16", "env.wrapper.image_size=[3,16,16]", "env.action_repeat=1", "algo.encoder.features_dim=8",
                "algo.encoder.channels=4", "algo.actor.dense_units=8", "algo.critic.dense_units=8"],
 }
@@ -96,7 +98,7 @@ def test_config_checks_match_the_reference(overrides, refused):
         ("sac", "+mesh.data=2", r"mesh\.data"),
         ("sac", "buffer.store_dtype=bf16", r"buffer\.store_dtype"),
         ("sac", "algo.precision=fp16", r"algo\.precision"),
-        ("sac", "algo.name=sac_decoupled", r"sac_decoupled.*two threads of one process.*sebulba"),
+        ("sac_decoupled", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the reference's sac_decoupled then runs .* placed processes"),
         ("droq", "rollout.pipeline_depth=1", r"pipeline_depth=1: the droq loop acts synchronously, as the reference's does"),
         ("droq", "algo.precision=bf16", r"algo\.precision"),
         ("sac_ae", "rollout.pipeline_depth=2", r"pipeline_depth=2: the sac_ae loop acts synchronously"),
@@ -114,8 +116,8 @@ def test_unported_keys_raise_naming_the_key(tmp_path, monkeypatch, exp, override
 @pytest.mark.parametrize(
     "overrides,pattern",
     [
-        # the reference's ppo_decoupled runs two threads by default; only sebulba needs processes
-        (["exp=ppo_dummy", "algo.name=ppo_decoupled"], r"two threads of one process.*only its distributed\.mode=sebulba"),
+        # the reference's ppo_decoupled runs two threads by default, as the port's; only sebulba needs processes
+        (["exp=ppo_decoupled", "+distributed.mode=sebulba"], r"placed processes.*the port runs them as two threads of one process"),
         # DreamerV3's reference reads the key; DreamerV2's and DreamerV1's do not
         (["exp=dreamer_v3_dummy", "env=discrete_dummy", "rollout.pipeline_depth=1"],
          r"reference's dreamer_v3 loop acts through the pipelined player.*acts synchronously and does not use"),
