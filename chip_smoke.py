@@ -140,7 +140,20 @@ result line:
    (``DECOUPLED_CLI``): train, resume, eval at the exps' widths; policy steps/s, acting
    and updating, and their overlap (acting plus updating seconds over wall seconds); a
    ``[decoupled-counts]`` line: no decoupled path launches K1 or K2;
-27. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+27. serve: a freshly initialised checkpoint of PPO (``PPO_ATARI``'s Nature CNN on 4 x 84 x
+   84 frames), recurrent PPO (exp=ppo_recurrent's LSTM 64) and SAC (exp=sac's 256 x 2),
+   each registered in a local registry, then served from one ``PolicyServer`` on the card
+   at ``serve.max_batch_size=32`` (ladder 1..32, one CUDA graph per bucket) at the f32, bf16
+   and int8 tiers in turn, each family driven by ``SERVE_CLIENTS`` client threads x
+   ``SERVE_REQUESTS`` requests: requests/s, client p50 and p99 ms, mean batch fill,
+   startup and capture seconds, the parity stamp; every bucket's graph replay against the
+   eager act function bit for bit (the recurrent rows scattered too); the card's greedy
+   actions against a CPU load of the same checkpoint at the tier, TF32 off (f32 and int8:
+   discrete equal, continuous within ``SERVE_CPU_ATOL``; bf16 reported); kernels and device
+   ms per replay at buckets 1 and 32; no graph captured after warm-up; no K1/K2 launch.
+   Then ``[serve-cli]``: ``python -m sheeprl_tpu_torch.serve`` as a subprocess answers a
+   request and exits 75 on SIGTERM; a ``[serve-counts]`` line;
+28. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
@@ -148,11 +161,11 @@ result line:
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', rssm-scan) zeroes
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
-one JSON line describing every kernel (K1's rows with its launches on every path that
-runs it), and last the line ``{"ok": true, "device": {...}}``. Exits 2 without CUDA.
+one JSON line describing every kernel (each row with its launches on every path it could
+run on, the serve paths' zeros among them), and last the line ``{"ok": true, "device": {...}}``. Exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -169,6 +182,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM, dense, from NVIDIA's data sheet (full 700 W power limit).
@@ -490,6 +504,23 @@ SMALL_PPO_DECOUPLED = ["exp=ppo_decoupled", "algo.rollout_steps=16", "env.num_en
 SAC_DECOUPLED_PUBLISH = ["exp=sac_decoupled", "buffer.device=True", "env.sync_env=True", "algo.total_steps=1024",
                          "algo.learning_starts=256", "checkpoint.every=0", "checkpoint.save_last=True", "metric.log_every=256",
                          "algo.run_test=False"]
+
+# The serving path: a freshly initialised checkpoint of each servable family at its exp's
+# published widths, registered, then served from one PolicyServer at each precision tier
+# (serving cost does not depend on the weights' values): PPO at exp=ppo_atari's
+# Nature-CNN widths (4 x 84 x 84 frames, 512 features, dense 512), recurrent PPO at
+# exp=ppo_recurrent's (LSTM 64 on the dummy env's vector) and SAC at exp=sac's (256 x 2
+# on HalfCheetah-v4's 17-wide vector, 6 actions)
+SERVE_FAMILIES = {
+    "ppo": PPO_ATARI,
+    "ppo_recurrent": ["exp=ppo_recurrent", "env=discrete_dummy", "algo.mlp_keys.encoder=[state]"],
+    "sac": ["exp=sac"],
+}
+SERVE_TIERS = ("f32", "bf16", "int8")
+SERVE_MAX_BATCH = 32  # the ladder 1, 2, 4, 8, 16, 32
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 256  # client threads x requests each, per family and tier
+SERVE_WARMUP_REQUESTS = 16  # each client's untimed requests before them
+SERVE_CPU_ATOL = 1e-3  # continuous actions, card against CPU, TF32 off
 
 
 def log(msg: str) -> None:
@@ -2673,6 +2704,301 @@ def phase_sac_decoupled_publish(device: torch.device, workdir: Path) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------- serving
+
+
+def register_serve_models(device: torch.device, registry: Path, families: dict = SERVE_FAMILIES) -> dict:
+    """A freshly initialised checkpoint of each family (seeded), its run config beside
+    it, registered under the family's name. Returns ``{name: observation template}``."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.config.core import compose, save_config
+    from sheeprl_tpu_torch.parallel.context import make_run_context
+    from sheeprl_tpu_torch.utils.env import make_env
+    from sheeprl_tpu_torch.utils.model_manager import LocalModelManager
+    from sheeprl_tpu_torch.utils.policy import build_policy
+
+    manager, templates = LocalModelManager(registry / "registry"), {}
+    for name, overrides in families.items():
+        cfg = compose(overrides=[*overrides, f"device={device.type}", "env.num_envs=1", "env.capture_video=False"])
+        ctx = make_run_context(cfg)
+        env = make_env(cfg, cfg.seed, 0, None, "serve")()
+        policy, agent = build_policy(ctx, cfg, env.observation_space, env.action_space)
+        env.close()
+        run = registry / "runs" / name
+        ckpt = CheckpointManager(run / "checkpoints").save(0, {"params": agent.state_dict()})
+        save_config(cfg, run / "config.yaml")
+        manager.register_model(str(ckpt), name)
+        templates[name] = policy.obs_template
+    return templates
+
+
+def _serve_obs(template: dict, rng, n: int) -> dict:
+    return {k: (rng.integers(0, 256, (n, *s)) if np.issubdtype(np.dtype(d), np.integer) else rng.standard_normal((n, *s))).astype(np.dtype(d))
+            for k, (s, d) in template.items()}
+
+
+def drive_clients(port: int, policy: str, template: dict, clients: int, requests: int, stateful: bool) -> dict:
+    """``clients`` threads, each with its own ``PolicyClient`` and ``requests`` requests
+    on seeded observations (one session per client for a stateful policy): requests/s,
+    client-side p50 and p99 ms, mean batch fill."""
+    import threading
+
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+
+    rows = [_serve_obs(template, np.random.default_rng(100 + i), 4) for i in range(clients)]
+    latencies, fills, errors = [[] for _ in range(clients)], [[] for _ in range(clients)], []
+    barrier = threading.Barrier(clients + 1)
+
+    def worker(i):
+        try:
+            with PolicyClient("127.0.0.1", port) as client:
+                barrier.wait()
+                for r in range(requests):
+                    obs = {k: v[r % 4] for k, v in rows[i].items()}
+                    t = time.perf_counter()
+                    _, meta = client.act(obs, policy, session=f"client{i}" if stateful else None)
+                    latencies[i].append((time.perf_counter() - t) * 1e3)
+                    fills[i].append(meta["batch_fill"] * meta["bucket"])
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    start = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - start
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve clients of {policy}: {errors or 'a client did not finish'}")
+    lat = np.concatenate([np.asarray(x) for x in latencies])
+    return {"requests": int(lat.size), "requests_per_s": lat.size / seconds, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "mean_batch_fill": float(np.mean(np.concatenate(fills)))}
+
+
+def server_side(ep) -> dict:
+    """The server's side of the requests an endpoint answered since its metrics were last
+    reset: enqueue to batch done, and the dispatch alone (padding, copies, the replay and
+    the wait on its event)."""
+    m = ep.metrics.compute()
+    return {"server_p50_ms": m["Serve/latency_ms/p50"], "server_p99_ms": m["Serve/latency_ms/p99"],
+            "infer_p50_ms": m["Serve/infer_ms/p50"], "infer_p99_ms": m["Serve/infer_ms/p99"], "dispatches": int(m["Serve/dispatches"])}
+
+
+def drive_clients_elsewhere(port: int, policy: str, template: dict, clients: int, requests: int, stateful: bool) -> dict:
+    """``drive_clients`` from a child process: the same load with the clients' Python off
+    the server's interpreter lock (``[serve]`` drives in-process threads, which share it)."""
+    code = ("import json, sys\nimport chip_smoke as cs\na = json.loads(sys.argv[1])\n"
+            "t = {k: (tuple(s), d) for k, (s, d) in a['template'].items()}\n"
+            "print('RESULT ' + json.dumps(cs.drive_clients(a['port'], a['policy'], t, a['clients'], a['requests'], a['stateful'])))\n")
+    arg = json.dumps({"port": port, "policy": policy, "template": template, "clients": clients, "requests": requests, "stateful": stateful})
+    proc = subprocess.run([sys.executable, "-c", code, arg], cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"serve clients in a child process: exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def _bucket_inputs(ep, bucket: int, seed: int) -> tuple:
+    """A bucket's seeded observations, and for a stateful policy the rows and
+    ``is_first`` of a batch that continues sessions 0..bucket-1."""
+    obs = _serve_obs(ep.policy.obs_template, np.random.default_rng(seed), bucket)
+    if ep.state_cache is None:
+        return obs, None, None
+    return obs, np.arange(bucket, dtype=np.int64), np.zeros((bucket, 1), np.float32)
+
+
+def check_serve_replays(ep, device: torch.device) -> dict:
+    """Each bucket's graph replay against the eager act function on the same inputs (and,
+    stateful, the same gathered rows): bit for bit, the scattered rows too."""
+    from sheeprl_tpu_torch.serve.state_cache import _tree_map
+
+    policy, cache = ep.policy, ep.state_cache
+    for bucket, graph in ep.graphs.items():
+        obs, idx, is_first = _bucket_inputs(ep, bucket, 7 + bucket)
+        with torch.no_grad():
+            obs_t = policy.obs_tensors(obs)
+            if cache is None:
+                want = policy.act_fn(policy.params, obs_t).cpu().numpy()
+            else:
+                idx_t = torch.as_tensor(idx, device=device)
+                rows = _tree_map(lambda t: t.clone(), cache.gather(idx_t))
+                want, new_rows = policy.act_fn(policy.params, obs_t, torch.as_tensor(is_first, device=device), rows)
+                want, new_rows = want.cpu().numpy(), _tree_map(lambda t: t.cpu().clone(), new_rows)
+        got = graph(obs, idx, is_first, stream=ep.stream, done=ep.done)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{ep.canonical} bucket {bucket}: the graph replay differs from the eager act function "
+                                 f"(max |diff| {np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)))})")
+        if cache is not None:
+            after = _tree_map(lambda t: t.cpu(), cache.gather(torch.as_tensor(idx, device=device)))
+            same = _tree_map(lambda a, b: bool(torch.equal(a, b)), after, new_rows)
+            if not all(torch.utils._pytree.tree_leaves(same)):
+                raise AssertionError(f"{ep.canonical} bucket {bucket}: the graph's scattered state differs from the eager step's")
+    return {"buckets_bit_equal": sorted(ep.graphs)}
+
+
+def check_serve_cpu(ep, tier: str, registry: Path, device: torch.device, n: int = 64) -> dict:
+    """The card's greedy actions (eager, TF32 off) against a CPU load of the same
+    registered checkpoint at the same tier, on ``n`` seeded observations (stateful: an
+    episode's first step). f32 and int8: discrete equal, continuous within
+    ``SERVE_CPU_ATOL``; bf16 (the card's and the CPU's bfloat16 products round apart):
+    the agreement fraction, reported."""
+    from sheeprl_tpu_torch.config.core import load_config
+    from sheeprl_tpu_torch.parallel.context import RunContext, compute_dtype
+    from sheeprl_tpu_torch.precision import action_agreement
+    from sheeprl_tpu_torch.utils.policy import load_policy
+
+    payload = registry / "registry" / ep.name / f"v{ep.version}"
+    run_cfg = load_config(payload / "config.yaml")
+    ctx = RunContext(torch.device("cpu"), int(run_cfg.seed), compute_dtype(run_cfg.mesh.precision))
+    cpu = load_policy(ctx, run_cfg, str(payload), precision=tier)
+    obs = _serve_obs(ep.policy.obs_template, np.random.default_rng(11), n)
+    set_tf32(False)
+    try:
+        with torch.no_grad():
+            args = lambda p: (p.params, p.obs_tensors(obs)) + ((torch.ones((n, 1), device=p.device), p.zero_state_fn(n)) if p.stateful else ())  # noqa: E731
+            card = ep.policy.act_fn(*args(ep.policy))
+            host = cpu.act_fn(*args(cpu))
+            card, host = (card[0], host[0]) if ep.policy.stateful else (card, host)
+            card, host = card.cpu().numpy(), host.numpy()
+    finally:
+        set_tf32(True)
+    agreement = action_agreement(host, card, continuous=ep.policy.is_continuous, atol=SERVE_CPU_ATOL)
+    max_err = float(np.max(np.abs(card.astype(np.float64) - host.astype(np.float64))))
+    if tier != "bf16" and agreement != 1.0:
+        raise AssertionError(f"{ep.canonical} {tier}: card against CPU agreement {agreement}, max |diff| {max_err}")
+    return {"card_cpu_agreement": agreement, "card_cpu_max_abs_diff": max_err}
+
+
+def profile_replays(ep, bucket: int, label: str, calls: int = 20) -> dict:
+    """Kernels and device ms per replay of one bucket's graph (``profile_calls``), and
+    its device ms per replay between CUDA events (graph replays back to back)."""
+    graph = ep.graphs[bucket].graph
+    prof = profile_calls(graph.replay, calls, label, {"bucket": bucket})
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        graph.replay()
+    start.record()
+    for _ in range(calls):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return {"kernels_per_replay": prof.get("kernels_per_call"), "device_ms_per_replay": prof.get("device_ms_per_call"),
+            "event_ms_per_replay": start.elapsed_time(end) / calls}
+
+
+def phase_serve(device: torch.device, workdir: Path, families: dict = SERVE_FAMILIES, tiers=SERVE_TIERS,
+                max_batch: int = SERVE_MAX_BATCH, clients: int = SERVE_CLIENTS, requests: int = SERVE_REQUESTS) -> dict:
+    """``[serve]``: register each family's checkpoint, then per tier one ``PolicyServer``
+    on ``device`` serving all of them: startup and capture seconds, ``clients`` x
+    ``requests`` per family (requests/s, p50/p99 ms, mean batch fill), the parity stamp,
+    graph replays against the eager act function bit for bit, the card against the CPU,
+    kernels and device ms per replay at buckets 1 and ``max_batch``, no capture after
+    warm-up, no K1/K2 launch. At the first tier the first family is driven once more by
+    the same clients from a child process (``drive_clients_elsewhere``), and the server
+    reports its side of the requests (enqueue to reply, and the dispatch alone)."""
+    import threading
+
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    set_tf32(True)
+    templates = register_serve_models(device, workdir, families)
+    out = {}
+    for tier in tiers:
+        zero_launches()
+        cfg = compose(config_name="serve_cli", overrides=[
+            f"serve.policies=[{','.join(f'{n}:latest' for n in families)}]", f"model_manager.registry_dir={workdir / 'registry'}",
+            f"device={device.type}", f"serve.max_batch_size={max_batch}", f"serve.precision={tier}", "serve.log_every_s=0",
+        ])
+        server = PolicyServer(cfg)
+        rc = {}
+        thread = threading.Thread(target=lambda: rc.update(rc=server.run()), daemon=True)
+        thread.start()
+        while server.listener is None:
+            time.sleep(0.01)
+        rows = {}
+        try:
+            for name in families:
+                ep = server.endpoints[server.aliases[f"{name}:latest"]]
+                row = {"startup_seconds": server.startup_seconds, "capture_seconds_all_policies": server.precompile_seconds,
+                       "parity": server.parity.get(ep.canonical)}
+                # untimed: the first requests pay first uses (connections, the endpoint's stream)
+                drive_clients(server.listener.port, f"{name}:latest", templates[name], clients, SERVE_WARMUP_REQUESTS, ep.policy.stateful)
+                ep.metrics.reset()
+                row.update(drive_clients(server.listener.port, f"{name}:latest", templates[name], clients, requests, ep.policy.stateful))
+                row.update(server_side(ep))
+                if tier == tiers[0] and name == next(iter(families)):
+                    ep.metrics.reset()
+                    elsewhere = drive_clients_elsewhere(server.listener.port, f"{name}:latest", templates[name], clients, requests,
+                                                        ep.policy.stateful)
+                    row["clients_in_a_child_process"] = {**elsewhere, **server_side(ep)}
+                rows[name] = row
+        finally:
+            server.shutdown()
+            thread.join(timeout=120)
+        counts = launch_counts()
+        summary = server.summary()
+        for name, row in rows.items():
+            ep = server.endpoints[server.aliases[f"{name}:latest"]]
+            row.update(check_serve_replays(ep, device))
+            row.update(check_serve_cpu(ep, tier, workdir, device))
+            if device.type == "cuda":
+                for bucket in (1, max_batch):
+                    row[f"bucket{bucket}"] = profile_replays(ep, bucket, f"[serve] {name} {tier} bucket {bucket}")
+            row["captures_after_warm"] = server.watchdog.captures_after_warm
+            row["k1_k2_launches"] = counts
+            log(f"[serve] {name} {tier} " + json.dumps(row))
+        if (rc.get("rc") != 0 or server.watchdog.violations or any(counts.values())
+                or summary["accepted"] != summary["replied"] or summary["dropped"]):
+            raise AssertionError(f"[serve] {tier}: rc {rc.get('rc')}, watchdog violations {server.watchdog.violations}, K1/K2 "
+                                 f"launches {counts}, accepted {summary['accepted']}, replied {summary['replied']}, dropped {summary['dropped']}")
+        out[tier] = rows
+        del server
+    return {"tiers": out, "templates": templates}
+
+
+def phase_serve_cli(device: torch.device, workdir: Path, template: dict, policy: str = "sac") -> dict:
+    """``python -m sheeprl_tpu_torch.serve`` as a subprocess over ``phase_serve``'s
+    registry (``template``: the policy's observation template): it writes its ready
+    file, answers a request, and exits 75 on SIGTERM after draining."""
+    import signal
+
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+
+    ready = workdir / "ready.json"
+    cmd = [sys.executable, "-m", "sheeprl_tpu_torch.serve", f"serve.policies=[{policy}:latest]",
+           f"model_manager.registry_dir={workdir / 'registry'}", f"serve.ready_file={ready}", "serve.max_batch_size=4",
+           "serve.log_every_s=0", f"device={device.type}"]
+    start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        while not ready.is_file():
+            if proc.poll() is not None or time.perf_counter() - start > 300:
+                raise AssertionError(f"[serve-cli] no ready file; exit {proc.poll()}: {proc.communicate(timeout=30)[0][-4000:]}")
+            time.sleep(0.1)
+        info = json.loads(ready.read_text())
+        ready_s = time.perf_counter() - start
+        with PolicyClient(info["host"], int(info["port"])) as client:
+            pong = client.ping()
+            action, _ = client.act({k: v[0] for k, v in _serve_obs(template, np.random.default_rng(5), 1).items()}, f"{policy}:latest")
+        proc.send_signal(signal.SIGTERM)
+        output, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    row = {"ready_seconds": ready_s, "exit_code": proc.returncode, "policies": pong["policies"], "action_shape": list(np.shape(action)),
+           "startup_seconds": info["startup_seconds"]}
+    log("[serve-cli] " + json.dumps(row))
+    if proc.returncode != 75 or not np.all(np.isfinite(action)):
+        raise AssertionError(f"[serve-cli] exit code {proc.returncode} (want 75), action {action}: {output[-4000:]}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
@@ -2836,6 +3162,17 @@ def main() -> int:
                                                for c, r in dec_cli.items()},
         "publications_adopted": [dec_publish["adopted"], dec_publish["publications"]],
     }))
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = timed("serve", phase_serve, device, Path(tmp))
+        serve_cli = timed("serve-cli", phase_serve_cli, device, Path(tmp), serve["templates"]["sac"])
+    serve_paths = {f"serve_{name}_{tier}": row["k1_k2_launches"] for tier, rows in serve["tiers"].items() for name, row in rows.items()}
+    log("[serve-counts] " + json.dumps({
+        "k1_k2_launches": serve_paths,
+        "captures_after_warm": {f"{n}_{t}": r["captures_after_warm"] for t, rows in serve["tiers"].items() for n, r in rows.items()},
+        "requests_per_s": {f"{n}_{t}": r["requests_per_s"] for t, rows in serve["tiers"].items() for n, r in rows.items()},
+        "p99_ms": {f"{n}_{t}": r["p99_ms"] for t, rows in serve["tiers"].items() for n, r in rows.items()},
+        "serve_cli_exit_code": serve_cli["exit_code"],
+    }))
     scan = timed("rssm-scan", phase_rssm_scan, device)
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
@@ -2858,7 +3195,12 @@ def main() -> int:
         # the thread-decoupled entries', which run no K1 either (checked zero in their phases)
         **{f"{c}_cli": {"fwd": r["train"]["k1_k2_launches"]["layernorm_gru"], "bwd": r["train"]["k1_k2_launches"]["layernorm_gru_bwd"]}
            for c, r in dec_cli.items()},
+        # the serving paths (each family at each tier), which run no K1 either (checked zero in [serve])
+        **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in serve_paths.items()},
     }
+    # K2's: its one path, the scan bench, and the serving paths (none)
+    k2_paths = {"rssm_scan": {"fwd": scan["launches"]["rssm_step"], "bwd": scan["launches"]["rssm_step_bwd"]},
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()}}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -2881,8 +3223,8 @@ def main() -> int:
                 "library_ms": None,
             }
         )
-        if name.startswith("layernorm_gru"):
-            line["kernels"][-1]["launches_by_path"] = {p: r["fwd" if name.endswith("fwd") else "bwd"] for p, r in k1_paths.items()}
+        paths = k1_paths if name.startswith("layernorm_gru") else k2_paths
+        line["kernels"][-1]["launches_by_path"] = {p: r["fwd" if name.endswith("fwd") else "bwd"] for p, r in paths.items()}
     log(f"[done] {time.perf_counter() - t0:.1f} s; eval launches {ev['launches']}; train steps/s "
         + ", ".join(f"{r['precision']} {r['actor']} {r['grad_steps_per_s']:.2f}" for r in train)
         + "; graphed train steps/s " + ", ".join(f"{t['mode']} {t['grad_steps_per_s']:.2f}" for t in graphed[0]["turns"])
@@ -2899,7 +3241,8 @@ def main() -> int:
         + "; ppo-cli policy steps/s " + ", ".join(f"depth {d} {r['train']['policy_steps_per_s']:.1f} (acting share {r['train']['acting_share']:.3f})" for d, r in ppo_cli.items())
         + "; SAC-family graphed gradient steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in g["turns"]) for n, g in sac_graph.items())
         + "; SAC-family cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in sac_cli.items())
-        + "; decoupled cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in dec_cli.items()))
+        + "; decoupled cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in dec_cli.items())
+        + "; serve requests/s " + ", ".join(f"{n} {t} {r['requests_per_s']:.0f}" for t, rows in serve["tiers"].items() for n, r in rows.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

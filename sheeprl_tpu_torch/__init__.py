@@ -6,10 +6,11 @@ imports ``torch`` and nothing of JAX or of the reference package. Each kernel th
 reference wrote in Pallas is a hand-written CUDA kernel here (``csrc/``), with a plain
 PyTorch version of the same math beside it (``ops/``).
 
-Ported so far: DreamerV3 training through the train entry (``python -m
-sheeprl_tpu_torch exp=<preset> ...``) and inference through the evaluation entry
-(``python -m sheeprl_tpu_torch.eval checkpoint_path=<dir>``), with the LayerNorm-GRU
-forward and backward kernels.
+Entries: training (``python -m sheeprl_tpu_torch exp=<preset> ...``), evaluation
+(``python -m sheeprl_tpu_torch.eval checkpoint_path=<dir or name:selector>``),
+registration in the local model registry (``python -m sheeprl_tpu_torch.registration``)
+and serving (``python -m sheeprl_tpu_torch.serve serve.policies=[name:selector]``).
+``README.md`` lists the algorithms ported so far.
 """
 
 __version__ = "0.1.0"

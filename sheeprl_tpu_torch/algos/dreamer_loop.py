@@ -31,7 +31,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, parse_actions_dim
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, TestResult, prepare_obs, test
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads, refuse_unported  # noqa: F401  (the Dreamers import them from here)
+from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint  # noqa: F401  (the Dreamers import them from here)
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
@@ -505,6 +505,7 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
         test_reward = test(parts.task_player or player_step, player_state_init, ctx, cfg, log_dir).reward
         if logger is not None:
             logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step)
+    register_last_checkpoint(cfg, log_dir)
     if logger is not None:
         logger.close()
     return TrainResult(log_dir, policy_step, run_grad_steps, last_path, seconds, train_seconds, env_seconds_total, test_reward)

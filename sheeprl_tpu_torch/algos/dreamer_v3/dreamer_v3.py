@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_loop import (
+    REGISTERS,
     LoopParts,
     TrainResult,
     act,
@@ -397,4 +398,4 @@ def main(ctx, cfg) -> TrainResult:
             exploration=None,
         )
 
-    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm",))
+    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm", REGISTERS))

@@ -145,3 +145,26 @@ def parameter_list_from_jax(tree: Mapping[str, Any], module: nn.Module, name: st
     tree = tree["params"] if set(tree) == {"params"} else tree
     state = module_state_from_jax(tree, module, name)
     return [state[k] for k, _ in module.named_parameters()]
+
+
+def reference_ndim(module: nn.Module) -> Dict[str, int]:
+    """For each entry of ``module.state_dict()``, the rank of the reference leaf that
+    ``module_state_from_jax`` carries onto it: a ``Linear`` weight comes from a 2-D
+    Dense kernel ``[in, out]``, a ``Conv2d`` or ``ConvTranspose2d`` weight from a 4-D
+    kernel; every other entry (biases, LayerNorm scales, a stacked ``[N, in, out]``
+    kernel and its ``[N, out]`` bias, a 0-d leaf) has the reference leaf's layout as it
+    stands."""
+    out = {k: v.dim() for k, v in module.state_dict().items()}
+    for name, m in module.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(m, nn.Linear):
+            out[f"{prefix}weight"] = 2
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            out[f"{prefix}weight"] = 4
+    return out
+
+
+def dense_kernels(module: nn.Module) -> List[str]:
+    """The entries of ``module.state_dict()`` that come from 2-D Dense kernels (the
+    ``Linear`` weights, ``[out, in]`` here, ``[in, out]`` in the reference)."""
+    return [f"{name}.weight" if name else "weight" for name, m in module.named_modules() if isinstance(m, nn.Linear)]

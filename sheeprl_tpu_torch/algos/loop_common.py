@@ -1,7 +1,9 @@
 """What every train loop of the port shares (the Dreamer loop, ``dreamer_loop.py``, the
 PPO family's, ``ppo/ppo.py``, and the SAC family's, ``sac/sac.py``): ``grads`` (one loss's gradient over a parameter
 list), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
-names the ones it reads itself) and ``TrainResult`` (what a train entry returns)."""
+names the ones it reads itself: ``REGISTERS`` where its reference registers the run's
+last checkpoint in the model registry), ``register_last_checkpoint`` and
+``TrainResult`` (what a train entry returns)."""
 
 from __future__ import annotations
 
@@ -47,6 +49,20 @@ def _sebulba_refusal(cfg: Dict[str, Any], value: Any) -> str:
     return f"distributed.mode={value!r}: the {name} loop has no player/learner split, as the reference's has not (it does not read the key)"
 
 
+#: the key a loop whose reference registers its last checkpoint names in ``handled``
+REGISTERS = "model_manager.disabled"
+
+
+def _registration_refusal(cfg: Dict[str, Any], value: Any) -> str:
+    """Only the ppo, sac and dreamer_v3 loops of the reference register their last
+    checkpoint at the end of a run (``maybe_register_models``)."""
+    name = (cfg.get("algo") or {}).get("name")
+    return (
+        f"model_manager.disabled={value!r}: the reference's {name} loop does not register its checkpoint at the end "
+        "of a run (only ppo, sac and dreamer_v3 do); register one with python -m sheeprl_tpu_torch.registration"
+    )
+
+
 # (key, test on its value, what the reference does there that the port does not yet, or
 # a function of the config and the value that words the whole refusal)
 _NOT_PORTED = (
@@ -59,7 +75,7 @@ _NOT_PORTED = (
     ("obs.flight_recorder", bool, "the flight recorder"),
     ("analysis.strict", bool, "strict mode"),
     ("fault.autoresume", bool, "the training guard"),
-    ("model_manager.disabled", lambda v: v is not None and not v, "the model manager"),
+    (REGISTERS, lambda v: v is not None and not v, _registration_refusal),
     ("logger.name", lambda v: v not in (None, "tensorboard"), "the MLflow logger"),
     ("algo.world_model.decoupled_rssm", bool, "the decoupled RSSM"),
     ("mesh.devices", lambda v: v not in (None, 1, "auto"), "more than one device"),
@@ -84,6 +100,15 @@ def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
             if callable(what):
                 raise NotImplementedError(what(cfg, node))
             raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
+
+
+def register_last_checkpoint(cfg: Dict[str, Any], log_dir: str) -> None:
+    """With ``model_manager.disabled=False``, register the run's last checkpoint (the
+    end of the ppo, sac and dreamer_v3 loops; the other loops refuse the key)."""
+    if not (cfg.get("model_manager") or {}).get("disabled", True):
+        from sheeprl_tpu_torch.utils.model_manager import maybe_register_models
+
+        maybe_register_models(cfg, log_dir)
 
 
 class TrainResult(NamedTuple):

@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads, refuse_unported
+from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint
 from sheeprl_tpu_torch.algos.ppo.agent import build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, env_actions, log_prob_and_entropy, prepare_obs, sample_actions, test
@@ -354,12 +354,14 @@ class PPOTrainFns:
         return float(self.lr_schedule(torch.tensor(grad_step)))
 
 
-def refuse_ppo_unported(cfg, pipelined: bool) -> None:
+def refuse_ppo_unported(cfg, pipelined: bool, registers: bool = False) -> None:
     """The reference's keys that the PPO family's loops do not have: ``refuse_unported``'s
     list, and a memmapped rollout (the port keeps the rollout in memory and on the
     device). ``pipelined``: the loop runs the pipelined player (PPO's); A2C's and
-    recurrent PPO's act synchronously, as the reference's do."""
-    refuse_unported(cfg, handled=("rollout.pipeline_depth",) if pipelined else ())
+    recurrent PPO's act synchronously, as the reference's do. ``registers``: the loop
+    registers its last checkpoint (PPO's, as the reference's ``ppo.py``)."""
+    handled = (("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ())
+    refuse_unported(cfg, handled=handled)
     if cfg.buffer.get("memmap", False):
         raise NotImplementedError("buffer.memmap=True: the PPO family's rollout lives in memory and on the device in the PyTorch port")
 
@@ -472,6 +474,7 @@ class PPOFamilyLoop:
             test_reward = test_fn()
             if self.logger is not None:
                 self.logger.log_metrics({"Test/cumulative_reward": test_reward}, self.policy_step)
+        register_last_checkpoint(self.cfg, self.log_dir)
         if self.logger is not None:
             self.logger.close()
         return TrainResult(self.log_dir, self.policy_step, grad_steps, self.last_path, seconds, train_seconds, env_seconds, test_reward)
@@ -552,7 +555,7 @@ class PPOActing:
 def main(ctx, cfg) -> TrainResult:
     """PPO's train loop: act through the pipelined player, fold the truncation bootstrap
     into the rewards, GAE on the device, then the captured update."""
-    refuse_ppo_unported(cfg, pipelined=True)
+    refuse_ppo_unported(cfg, pipelined=True, registers=True)
     device = ctx.device
     loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS)
     envs = loop.envs

@@ -24,7 +24,7 @@ names (``cell``, ``attn_*``, ``pre_mlp``, ``post_mlp``, ``actor_heads_<i>`` ->
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,10 +109,10 @@ class RecurrentPPOAgent(nn.Module):
         self.actor_heads = make_heads(self.actor_backbone.output_dim, action_dims, is_continuous)
         self.critic = MLP(feat, (dense_units,) * mlp_layers, 1, activation=dense_act, layer_norm=layer_norm)
 
-    def _heads(self, hidden: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    def _heads(self, hidden: torch.Tensor, value: bool = True) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         feat = self.post_mlp(hidden) if self.post_rnn_mlp else hidden
         pre_actor = self.actor_backbone(feat)
-        return [h(pre_actor).float() for h in self.actor_heads], self.critic(feat).float()
+        return [h(pre_actor).float() for h in self.actor_heads], self.critic(feat).float() if value else None
 
     def _rnn_input(self, obs: Dict[str, torch.Tensor], prev_actions: torch.Tensor) -> torch.Tensor:
         feat = self.feature_extractor(obs)
@@ -122,9 +122,10 @@ class RecurrentPPOAgent(nn.Module):
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.attn_heads, x.shape[-1] // self.attn_heads)
 
-    def step(self, obs: Dict[str, torch.Tensor], prev_actions: torch.Tensor, is_first: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]):
+    def step(self, obs: Dict[str, torch.Tensor], prev_actions: torch.Tensor, is_first: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor], value: bool = True):
         """One env step (``[B, ...]`` inputs, ``is_first`` ``[B, 1]``): ``(actor_out,
-        value, new_state)``."""
+        value, new_state)``; ``value=False`` skips the critic (the value is None), as
+        serving does."""
         x = self._rnn_input(obs, (1 - is_first) * prev_actions)
         if self.sequence_model == "attention":
             window, valid = state  # [B, W, H], [B, W]
@@ -140,12 +141,12 @@ class RecurrentPPOAgent(nn.Module):
             s = torch.where(valid[:, None, None, :] > 0, s, torch.finfo(torch.float32).min)
             o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
             out = self.attn_ln(xp + self.attn_out(o.reshape(xp.shape[0], -1).to(xp.dtype)))
-            actor_out, value = self._heads(out.float())
-            return actor_out, value, (window, valid)
+            actor_out, v = self._heads(out.float(), value)
+            return actor_out, v, (window, valid)
         c, h = ((1 - is_first) * s for s in state)
         c, h = self.cell((c, h), self.cell.project(x))
-        actor_out, value = self._heads(h.float())
-        return actor_out, value, (c, h)
+        actor_out, v = self._heads(h.float(), value)
+        return actor_out, v, (c, h)
 
     def forward(self, obs: Dict[str, torch.Tensor], prev_actions: torch.Tensor, is_first: torch.Tensor, initial_state: Tuple[torch.Tensor, torch.Tensor]):
         """A sequence (``[T, B, ...]`` inputs) from ``initial_state``, the carry reset

@@ -35,7 +35,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_loop import capture_step, fill_draws, load_opt_states
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import ema_target
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads, refuse_unported
+from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer, make_optimizer
 from sheeprl_tpu_torch.algos.sac.agent import action_dim, build_agent, vector_dim
 from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
@@ -183,13 +183,17 @@ def refuse_precision_override(cfg) -> None:
         )
 
 
-def run_sac_loop(ctx, cfg, setup: Callable[..., SACParts], aggregator_keys=AGGREGATOR_KEYS, pipelined: bool = False, prefill_on_resume: bool = False) -> TrainResult:
+def run_sac_loop(
+    ctx, cfg, setup: Callable[..., SACParts], aggregator_keys=AGGREGATOR_KEYS, pipelined: bool = False, prefill_on_resume: bool = False,
+    registers: bool = False,
+) -> TrainResult:
     """The SAC family's train loop. ``setup(ctx, cfg, obs_space, act_space)`` returns the
     algorithm's ``SACParts``. ``prefill_on_resume``: a resumed run acts randomly again
     while ``learning_starts`` lasts (SAC-AE's reference does; SAC's and DroQ's keep the
-    policy)."""
+    policy). ``registers``: the run's last checkpoint is registered at its end with
+    ``model_manager.disabled=False`` (SAC's reference does; DroQ's and SAC-AE's do not)."""
     # only SAC's loop reads rollout.pipeline_depth; DroQ's and SAC-AE's act synchronously, as their references do
-    refuse_unported(cfg, handled=("rollout.pipeline_depth",) if pipelined else ())
+    refuse_unported(cfg, handled=(("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ()))
     device = ctx.device
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")
@@ -365,6 +369,7 @@ def run_sac_loop(ctx, cfg, setup: Callable[..., SACParts], aggregator_keys=AGGRE
         test_reward = test(parts.greedy, parts.to_rows, ctx, cfg, log_dir).reward
         if logger is not None:
             logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step)
+    register_last_checkpoint(cfg, log_dir)
     if logger is not None:
         logger.close()
     return TrainResult(log_dir, policy_step, grad_count - start_grad_count, last_path, seconds, train_seconds, env_seconds, test_reward)
@@ -401,4 +406,4 @@ def sample_tanh(actor, rows: torch.Tensor, generator: torch.Generator) -> torch.
 
 @register_algorithm(name="sac")
 def main(ctx, cfg) -> TrainResult:
-    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True)
+    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True)

@@ -7,8 +7,11 @@ value is a bare comma-separated list becomes an axis of a grid whose jobs run on
 another (``expand_multirun``), each under ``multirun_<stamp>/job<i>_<run name>``.
 ``python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/checkpoints/ckpt_N
 [overrides]`` loads the run's saved ``config.yaml``, applies the overrides, and calls
-the registered evaluation entry. Both run on ``device`` (``cuda`` unless ``device=cpu``
-is given). Not ported: autoresume under the fault policy, the compile cache, the race
+the registered evaluation entry; the checkpoint may also be a registry spec
+``name[:version|stage|latest]`` (``serve/router.py``). ``python -m
+sheeprl_tpu_torch.registration checkpoint_path=<ckpt>`` registers a checkpoint in the
+model registry. The train and eval entries run on ``device`` (``cuda`` unless
+``device=cpu`` is given). Not ported: autoresume under the fault policy, the compile cache, the race
 detector and the flight recorder.
 """
 
@@ -169,7 +172,12 @@ def eval_algorithm(cfg: DotDict) -> Any:
 def _load_checkpoint_cfg(overrides: List[str], path_key: str) -> tuple:
     """Extract ``<path_key>=...`` from the overrides, load the checkpoint run's
     ``config.yaml`` (two levels up, beside the checkpoint, or inside it) and apply the
-    remaining overrides on top."""
+    remaining overrides on top.
+
+    The value may also be a registry spec ``name[:version|stage|latest]``: it resolves
+    through the model registry (a ``model_manager.registry_dir=`` override, or the
+    default ``models_registry``) to the registered payload, which holds its own
+    ``config.yaml``."""
     ckpt = None
     rest = []
     for ov in overrides:
@@ -180,6 +188,11 @@ def _load_checkpoint_cfg(overrides: List[str], path_key: str) -> tuple:
     if ckpt is None:
         raise ValueError(f"this entry point requires {path_key}=<path>")
     ckpt_path = Path(ckpt)
+    if not ckpt_path.exists() and not ckpt.startswith(("/", ".", "~")):
+        from sheeprl_tpu_torch.serve.router import resolve_registry_checkpoint
+
+        name, version, ckpt_path = resolve_registry_checkpoint(ckpt, rest)
+        print(f"resolved {ckpt!r} -> {name} v{version} ({ckpt_path})")
     run_dir = ckpt_path.parent.parent if ckpt_path.is_dir() else ckpt_path.parent
     cfg_path = run_dir / "config.yaml"
     if not cfg_path.is_file():
@@ -210,3 +223,25 @@ def evaluate(args: Optional[List[str]] = None) -> Any:
     if not overridden & {"env.capture_video", "capture_video"}:
         cfg.env.capture_video = True
     return eval_algorithm(cfg)
+
+
+def registration(args: Optional[List[str]] = None) -> int:
+    """Model-registration entry: ``python -m sheeprl_tpu_torch.registration
+    checkpoint_path=<ckpt_dir> [model_manager.name=...] [model_manager.registry_dir=...]``
+    registers a training checkpoint as a new version in the model registry and returns
+    the version."""
+    from sheeprl_tpu_torch.utils.model_manager import build_model_manager
+
+    overrides = list(args if args is not None else sys.argv[1:])
+    cfg, ckpt_path = _load_checkpoint_cfg(overrides, "checkpoint_path")
+    mm_cfg = cfg.get("model_manager", {}) or {}
+    name = mm_cfg.get("name") or f"{cfg.algo.name}_{cfg.env.id}"
+    manager = build_model_manager(cfg)
+    version = manager.register_model(
+        str(ckpt_path),
+        name,
+        model_keys=list(mm_cfg.get("models", {}) or []),
+        metadata={"algo": cfg.algo.name, "env": cfg.env.id, "seed": cfg.seed},
+    )
+    print(f"Registered {name} version {version}")
+    return version

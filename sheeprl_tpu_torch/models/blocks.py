@@ -71,8 +71,8 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt == torch.float32:
-            return F.linear(x.float(), self.weight, self.bias)
+        if dt == torch.float32:  # parameters cast down (a bf16 serving tier) compute in float32 too
+            return F.linear(x.float(), self.weight.float(), None if self.bias is None else self.bias.float())
         return _add_bias(F.linear(x.to(dt), self.weight.to(dt)), self.bias, -1)
 
 
@@ -82,7 +82,7 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
-            return self._conv_forward(x.float(), self.weight, self.bias)
+            return self._conv_forward(x.float(), self.weight.float(), None if self.bias is None else self.bias.float())
         return _add_bias(self._conv_forward(x.to(dt), self.weight.to(dt), None), self.bias, 1)
 
 

@@ -20,11 +20,17 @@ what the tests run.
 Launch counts: the kernels' wrappers count the launches they record while the graph is
 captured. A capture launches nothing, so those counts are taken back and become
 ``launches_per_replay``, which every replay adds to the counters (``ops/counters.py``).
+
+``capture_count()`` is the number of graphs this process has captured: the policy
+server's watchdog (``serve/watchdog.py``) holds it still after startup. A step that
+draws from generators of its own names them (``generators=``): their states are
+registered with the graph, so each replay advances their Philox offsets.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
@@ -32,6 +38,14 @@ import torch
 from sheeprl_tpu_torch.ops import counters
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
+
+_capture_lock = threading.Lock()
+_captured = 0
+
+
+def capture_count() -> int:
+    """How many graphs this process has captured so far."""
+    return _captured
 
 
 def tree_tensors(tree: Any) -> List[torch.Tensor]:
@@ -54,6 +68,7 @@ class StepGraph:
         inputs: Any,
         state: Sequence[torch.Tensor] = (),
         warmup: int = WARMUP_STEPS,
+        generators: Sequence[torch.Generator] = (),
     ):
         self.fn = fn
         self.inputs = inputs
@@ -62,14 +77,15 @@ class StepGraph:
         self.outputs: Dict[str, torch.Tensor] = {}
         self.launches_per_replay: Dict[str, int] = {}
         if self.device.type == "cuda":
-            self._capture(list(state), warmup)
+            self._capture(list(state), warmup, list(generators))
 
     @torch.no_grad()
     def _restore(self, state: List[torch.Tensor], saved: List[torch.Tensor]) -> None:
         if state:
             torch._foreach_copy_(state, saved)
 
-    def _capture(self, state: List[torch.Tensor], warmup: int) -> None:
+    def _capture(self, state: List[torch.Tensor], warmup: int, generators: List[torch.Generator]) -> None:
+        global _captured
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         current = torch.cuda.current_stream(self.device)
@@ -81,6 +97,10 @@ class StepGraph:
         current.wait_stream(side)
         before = counters.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with _capture_lock:
+            _captured += 1
         # No garbage collection while capturing: a collection that frees an earlier
         # graph caught in a reference cycle resets it, which a capturing stream forbids
         # (an H100 run failed so, mid-capture of a 1,024-step loop)
@@ -91,7 +111,7 @@ class StepGraph:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self.outputs = self.fn(self.inputs)
         except Exception as exc:
-            raise RuntimeError(f"capturing the train step as a CUDA graph failed on {self.device}") from exc
+            raise RuntimeError(f"capturing the step as a CUDA graph failed on {self.device}") from exc
         finally:
             gc.enable()
             recorded = counters.launch_counts()

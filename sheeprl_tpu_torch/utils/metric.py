@@ -1,7 +1,9 @@
 """Metric aggregation (counterpart of ``sheeprl_tpu/utils/metric.py``).
 
 Host-side accumulators fed with Python floats or 0-d tensors; ``compute()`` returns the
-means and drops metrics that saw nothing finite. The port runs one process, so
+means and drops metrics that saw nothing finite. A ``histogram`` metric (the policy
+server's latencies) computes ``p50/p95/p99/mean/count``, flattened into
+``<name>/<key>`` scalars. The port runs one process, so
 ``make_aggregator`` always returns a ``MetricAggregator``.
 """
 
@@ -51,7 +53,41 @@ class LastMetric(MeanMetric):
         return self._last
 
 
-_METRIC_TYPES = {"mean": MeanMetric, "sum": SumMetric, "last": LastMetric}
+class HistogramMetric:
+    """A latency distribution: ``compute()`` returns ``p50/p95/p99/mean/count`` (a dict,
+    or None when empty). A ring of ``max_samples`` values keeps the window recent: past
+    it the oldest are overwritten."""
+
+    def __init__(self, max_samples: int = 65536):
+        self._max = int(max_samples)
+        self._values: list = []
+        self._next = 0  # the ring's write head once it is full
+        self._count = 0
+
+    def update(self, value: Any) -> None:
+        arr = np.asarray(value, dtype=np.float64).reshape(-1)
+        for v in arr[np.isfinite(arr)]:
+            if len(self._values) < self._max:
+                self._values.append(float(v))
+            else:
+                self._values[self._next] = float(v)
+                self._next = (self._next + 1) % self._max
+            self._count += 1
+
+    def compute(self) -> Optional[Dict[str, float]]:
+        if not self._values:
+            return None
+        vals = np.asarray(self._values)
+        p50, p95, p99 = np.percentile(vals, [50.0, 95.0, 99.0])
+        return {"p50": float(p50), "p95": float(p95), "p99": float(p99), "mean": float(vals.mean()), "count": float(self._count)}
+
+    def reset(self) -> None:
+        self._values = []
+        self._next = 0
+        self._count = 0
+
+
+_METRIC_TYPES = {"mean": MeanMetric, "sum": SumMetric, "last": LastMetric, "histogram": HistogramMetric}
 
 
 class MetricAggregator:
@@ -95,7 +131,10 @@ class MetricAggregator:
             v = metric.compute()
             if v is None or (isinstance(v, float) and math.isnan(v)):
                 continue
-            out[name] = v
+            if isinstance(v, dict):
+                out.update({f"{name}/{k}": float(sv) for k, sv in v.items() if not math.isnan(sv)})
+            else:
+                out[name] = v
         return out
 
     def reset(self) -> None:

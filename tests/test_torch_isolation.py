@@ -38,10 +38,13 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.dreamer_v2.utils",
     "sheeprl_tpu_torch.algos.dreamer_v3.agent",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
-    "sheeprl_tpu_torch.algos.dreamer_v3.loss",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v3.loss",
     "sheeprl_tpu_torch.algos.dreamer_v3.params",
     "sheeprl_tpu_torch.algos.dreamer_v3.utils",
+    "sheeprl_tpu_torch.algos.droq",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
     "sheeprl_tpu_torch.algos.loop_common",
     "sheeprl_tpu_torch.algos.p2e",
     "sheeprl_tpu_torch.algos.p2e_dv1.agent",
@@ -68,9 +71,6 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.algos.ppo_recurrent.agent",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
-    "sheeprl_tpu_torch.algos.droq",
-    "sheeprl_tpu_torch.algos.droq.droq",
-    "sheeprl_tpu_torch.algos.droq.evaluate",
     "sheeprl_tpu_torch.algos.sac",
     "sheeprl_tpu_torch.algos.sac.agent",
     "sheeprl_tpu_torch.algos.sac.evaluate",
@@ -101,17 +101,33 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.envs.spaces",
     "sheeprl_tpu_torch.envs.vector",
     "sheeprl_tpu_torch.envs.wrappers",
+    "sheeprl_tpu_torch.fault",
+    "sheeprl_tpu_torch.fault.preemption",
     "sheeprl_tpu_torch.models.blocks",
+    "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.ops.counters",
     "sheeprl_tpu_torch.ops.gru",
     "sheeprl_tpu_torch.ops.ring_attention",
     "sheeprl_tpu_torch.ops.rssm_step",
-    "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.parallel.context",
+    "sheeprl_tpu_torch.precision",
+    "sheeprl_tpu_torch.precision.loss_scale",
+    "sheeprl_tpu_torch.precision.parity",
     "sheeprl_tpu_torch.precision.policy",
+    "sheeprl_tpu_torch.precision.quantize",
+    "sheeprl_tpu_torch.registration",
     "sheeprl_tpu_torch.rollout",
     "sheeprl_tpu_torch.rollout.pipeline",
     "sheeprl_tpu_torch.rollout.pool",
+    "sheeprl_tpu_torch.serve",
+    "sheeprl_tpu_torch.serve.__main__",
+    "sheeprl_tpu_torch.serve.batching",
+    "sheeprl_tpu_torch.serve.client",
+    "sheeprl_tpu_torch.serve.precompile",
+    "sheeprl_tpu_torch.serve.router",
+    "sheeprl_tpu_torch.serve.server",
+    "sheeprl_tpu_torch.serve.state_cache",
+    "sheeprl_tpu_torch.serve.watchdog",
     "sheeprl_tpu_torch.utils.blocks",
     "sheeprl_tpu_torch.utils.env",
     "sheeprl_tpu_torch.utils.graphs",
@@ -119,6 +135,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.utils.logger",
     "sheeprl_tpu_torch.utils.memmap",
     "sheeprl_tpu_torch.utils.metric",
+    "sheeprl_tpu_torch.utils.model_manager",
     "sheeprl_tpu_torch.utils.policy",
     "sheeprl_tpu_torch.utils.registry",
     "sheeprl_tpu_torch.utils.timer",
