@@ -153,15 +153,35 @@ result line:
    ms per replay at buckets 1 and 32; no graph captured after warm-up; no K1/K2 launch.
    Then ``[serve-cli]``: ``python -m sheeprl_tpu_torch.serve`` as a subprocess answers a
    request and exits 75 on SIGTERM; a ``[serve-counts]`` line;
-28. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
+28. the Anakin engine and its populations: ``[anakin-ppo-graph]`` and ``[anakin-sac-graph]``:
+   ``exp=ppo_anakin`` and ``exp=sac_anakin`` at their published widths (batched CartPole
+   and Pendulum on the card), a captured iteration or dispatch against the eager one from
+   the same carry and draws, bit for bit; then eager, graph, graph, eager: env and
+   gradient steps/s, device ms and kernels per dispatch, busy share, host ms per dispatch,
+   peak and reserved memory; ``[anakin-pop]``: the two ``_pop`` presets (16 members), the
+   capture seconds and the memory they add, the rates per member and in all, member 0
+   against a standalone run bit for bit; ``[anakin-agreement]``: a small iteration and
+   dispatch of each on the card against the CPU, TF32 off, under ``[train-agreement]``'s
+   limits; ``[anakin-cli]``: each of the four exps trains, resumes and evaluates through
+   the entries at cut total steps (``ANAKIN_CLI``); an ``[anakin-counts]`` line: no
+   Anakin path launches K1 or K2;
+29. rssm-scan: the port's ``fused_step_bench`` at T 64 x B 16 x K 1024 x H 512 in bf16
    (the fused step's only path): the three variants' eager and device ms per scan, 64
    launches of each fused-step kernel per ``full_fused`` scan (and of each LayerNorm-GRU
    kernel per ``post_fused`` scan), and each fused variant's states and gradient against
-   ``plain``'s (``RSSM_SCAN_TOL``).
+   ``plain``'s (``RSSM_SCAN_TOL``);
+30. entries: the phases above that drive the train and eval entries through the CLI
+   (train-cli, dv2-train-cli, dv1-train-cli, p2e-dv1/2/3-cli, ppo-cli, a2c-cli,
+   ppo-recurrent-cli, the SAC family's and the decoupled entries' cli phases,
+   anakin-cli; ``entry_phases``) run last, in three worker processes side by side
+   (``ENTRY_GROUPS``, ``run_entry_workers``: ``chip_smoke.py --entries NAME,... --out
+   PATH``), each group's phases in order; their lines print when all have ended, then
+   the ``[dv2-counts]``, ``[p2e-counts]``, ``[ppo-counts]``, ``[sac-counts]``,
+   ``[decoupled-counts]`` and ``[anakin-counts]`` lines.
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, rssm-scan) zeroes
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, the Anakin phases, rssm-scan) zeroes
 the kernels' launch counters just before it and reads them just after; a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
 one JSON line describing every kernel (each row with its launches on every path it could
@@ -172,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -518,7 +539,7 @@ SERVE_FAMILIES = {
 }
 SERVE_TIERS = ("f32", "bf16", "int8")
 SERVE_MAX_BATCH = 32  # the ladder 1, 2, 4, 8, 16, 32
-SERVE_CLIENTS, SERVE_REQUESTS = 8, 256  # client threads x requests each, per family and tier
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 128  # client threads x requests each, per family and tier
 SERVE_WARMUP_REQUESTS = 16  # each client's untimed requests before them
 SERVE_CPU_ATOL = 1e-3  # continuous actions, card against CPU, TF32 off
 
@@ -2999,15 +3020,637 @@ def phase_serve_cli(device: torch.device, workdir: Path, template: dict, policy:
     return row
 
 
-def main() -> int:
+# --------------------------------------------------------------------------- Anakin and population
+
+ANAKIN_CLI = {
+    # exp: (cut overrides, first checkpoint); PPO: two updates, SAC: the prefill and two dispatches
+    "ppo_anakin": (["algo.total_steps=65536", "checkpoint.every=32768", "metric.log_every=32768"], "ckpt_32768"),
+    "ppo_anakin_pop": (["algo.total_steps=16384", "checkpoint.every=8192", "metric.log_every=8192"], "ckpt_8192"),
+    "sac_anakin": (["algo.total_steps=21376", "checkpoint.every=13184", "metric.log_every=8192"], "ckpt_13184"),
+    "sac_anakin_pop": (["algo.total_steps=9088", "checkpoint.every=7040", "metric.log_every=4096"], "ckpt_7040"),
+}
+SMALL_ANAKIN_PPO = ["exp=ppo_anakin", "env.num_envs=16", "algo.rollout_steps=16", "algo.per_rank_batch_size=64", "algo.update_epochs=2",
+                    "mesh.precision=32-true"]
+SMALL_ANAKIN_SAC = ["exp=sac_anakin", "env.num_envs=16", "algo.hidden_size=64", "algo.per_rank_batch_size=64", "buffer.size=1024",
+                    "mesh.precision=32-true"]
+
+
+def _anakin_parts(overrides: list, device: torch.device):
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.engine.anakin import anakin_env
+    from sheeprl_tpu_torch.engine.population import population_spec
+
+    cfg = compose(overrides=[*overrides, f"device={device.type}"])
+    env, params = anakin_env(cfg)
+    return cfg, env, params, population_spec(cfg, "sac" if cfg.algo.name == "sac" else "ppo")
+
+
+def _leaves(carry) -> list:
+    from sheeprl_tpu_torch.utils.graphs import tree_tensors
+
+    return [t.detach().clone() for t in tree_tensors(carry)]
+
+
+def _as_carry(like, flat: list):
+    """``flat`` (``_leaves`` of a carry shaped as ``like``) back in the carry's tree."""
+    leaves = iter(flat)
+
+    def rebuild(tree):
+        if isinstance(tree, dict):
+            return {k: rebuild(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(v) for v in tree)
+        return next(leaves) if isinstance(tree, torch.Tensor) else tree
+
+    return rebuild(like)
+
+
+def _unequal_leaves(a, b) -> list:
+    """Indices of the leaves in which two carries differ in any bit."""
+    la, lb = _leaves(a), _leaves(b)
+    if len(la) != len(lb):
+        return [f"{len(la)} leaves against {len(lb)}"]
+    return [i for i, (x, y) in enumerate(zip(la, lb)) if x.device != y.device or not torch.equal(x, y)]
+
+
+def _ppo_draws(member, gen: torch.Generator) -> dict:
+    """Seeded draws for a ``PPOAnakin(injected=True)``'s whole rollout: Gumbel noise per
+    head, the envs' reset draws."""
+    T, N = member.T, member.num_envs
+    draws = {"actions": [-torch.log(-torch.log(torch.rand(buf.shape, generator=gen, device=gen.device).clamp(1e-20, 1.0)))
+                         for buf in member.inputs["actions"]],
+             "reset": member.env.reset_draws(member.env_params, (T, N), gen, gen.device)}
+    return draws
+
+
+def _inject_ppo(member, draws: dict) -> None:
+    with torch.no_grad():
+        for buf, d in zip(member.inputs["actions"], draws["actions"]):
+            buf.copy_(d)
+        member.inputs["reset"].copy_(draws["reset"])
+
+
+def _sac_draws(member, steps: int, rows_before: int, train: bool, gen: torch.Generator) -> dict:
+    """Seeded draws for ``steps`` iterations of a ``SACAnakin(injected=True)``: the acting
+    noise (or the prefill's env actions), the reset draws, ring indices within the rows
+    each iteration's update can see, the update's normals."""
+    dev, N, B, A = gen.device, member.num_envs, member.batch_size, member.act_dim
+    G = member.inputs["envs"].shape[1]
+    if train:
+        act = torch.randn((steps, N, A), generator=gen, device=dev)
+    else:
+        act = member.env.sample_action(member.env_params, (steps, N), gen, dev)
+    filled = torch.clamp(torch.arange(rows_before + 1, rows_before + steps + 1, device=dev), max=member.ring.capacity).float()
+    return {
+        "act": act, "reset": member.env.reset_draws(member.env_params, (steps, N), gen, dev),
+        "envs": torch.randint(0, N, (steps, G, B), generator=gen, device=dev),
+        "rows": (torch.rand((steps, G, B), generator=gen, device=dev) * filled[:, None, None]).long(),
+        "next": torch.randn((steps, G, B, A), generator=gen, device=dev), "new": torch.randn((steps, G, B, A), generator=gen, device=dev),
+    }
+
+
+def _inject_sac(member, draws: dict) -> None:
+    with torch.no_grad():
+        for k, v in draws.items():
+            member.inputs[k][: len(v)].copy_(v.to(member.inputs[k].device))
+
+
+def _dispatch_turns(label: str, runs: dict, env_steps: int, grad_steps: int, reps: int) -> list:
+    """Eager, graph, graph, eager: ``reps`` dispatches each (``runs[mode]()`` enqueues one),
+    timed to a synchronize; env steps/s and gradient steps/s, the host's ms to enqueue a
+    dispatch, device ms, kernels and the busy share of one profiled dispatch, peak and
+    reserved memory."""
+    turns = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        fn = runs[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host = []
+        start = time.perf_counter()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_calls(fn, 1, f"{label} {mode} dispatch", {"mode": mode})
+        device_ms = prof.get("device_ms_per_call")
+        turns.append({
+            "mode": mode, "env_steps_per_s": reps * env_steps / seconds, "grad_steps_per_s": reps * grad_steps / seconds,
+            "host_ms_per_dispatch": 1e3 * sum(host) / reps, "device_ms_per_dispatch": device_ms,
+            "kernels_per_dispatch": prof.get("kernels_per_call"),
+            "busy_share_timed": device_ms * reps / seconds / 1e3 if device_ms else None,
+            "peak_allocated_bytes": peak, "reserved_bytes": torch.cuda.memory_reserved(),
+        })
+    log(f"{label} turns " + json.dumps(turns))
+    return turns
+
+
+def phase_anakin_ppo_graph(device: torch.device) -> dict:
+    """``exp=ppo_anakin`` at its published widths (256 batched CartPole envs x 128 steps, 4
+    epochs x 16 minibatches of 2,048, bf16-mixed): one iteration replayed from captured
+    graphs against the eager iteration from the same carry, draws and permutations, bit
+    for bit; then eager, graph, graph, eager; no K1/K2 launch."""
+    from sheeprl_tpu_torch.engine.anakin import PPOAnakin
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    set_tf32(True)
+    label = "[anakin-ppo-graph]"
+    cfg, env, params, _ = _anakin_parts(["exp=ppo_anakin"], device)
+    num_updates = int(cfg.algo.total_steps) // (cfg.env.num_envs * cfg.algo.rollout_steps)
+    members = {mode: PPOAnakin(RunContext(device, 31, torch.bfloat16), cfg, env, params, "state", num_updates, capture=mode == "graph", injected=True)
+               for mode in ("graph", "eager")}
+    gen = torch.Generator(device=device).manual_seed(8)
+    draws = _ppo_draws(members["graph"], gen)
+    perms = members["graph"].fns.permutations(gen)
+    coefs = torch.tensor([cfg.algo.clip_coef, cfg.algo.ent_coef], dtype=torch.float32, device=device)
+    if _unequal_leaves(members["graph"].carry(), members["eager"].carry()):
+        raise AssertionError(f"{label}: the two members start from different carries")
+    zero_launches()
+    out = {}
+    for mode, m in members.items():
+        _inject_ppo(m, draws)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out[mode] = m.iterate(coefs, perms)
+        torch.cuda.synchronize()
+        out[f"{mode}_seconds"] = time.perf_counter() - start
+    counts = launch_counts()
+    differ = _unequal_leaves(members["graph"].carry(), members["eager"].carry())
+    losses = {k: float(v) for k, v in out["graph"].items()}
+    row = {"envs": cfg.env.num_envs, "rollout_steps": cfg.algo.rollout_steps, "grad_steps_per_iteration": members["graph"].fns.grad_steps_per_update,
+           "first_graph_iteration_seconds": out["graph_seconds"], "first_eager_iteration_seconds": out["eager_seconds"],
+           "carry_leaves_differing": differ, "metrics": losses, "k1_k2_launches": counts}
+    log(f"{label} parity " + json.dumps(row))
+    if differ or any(counts.values()) or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{label}: the captured iteration differs from the eager one in carry leaves {differ}, or launched {counts}")
+    env_steps = cfg.env.num_envs * cfg.algo.rollout_steps
+    runs = {mode: (lambda m=m: m.iterate(coefs, perms)) for mode, m in members.items()}
+    row["turns"] = _dispatch_turns(label, runs, env_steps, members["graph"].fns.grad_steps_per_update, 3)
+    row["breakdown"] = _ppo_breakdown(members["graph"], coefs, perms)
+    log(f"{label} where a graphed iteration's device time goes (ms) " + json.dumps(row["breakdown"]))
+    return row
+
+
+def _env_step_ms(env, params, n: int, device: torch.device) -> float:
+    """Device ms of one batched env step with its auto-reset (``n`` envs, random actions,
+    injected reset draws) from a CUDA graph: the env's share of an Anakin step."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    state, _ = env.reset(params, env.reset_draws(params, (n,), gen, device))
+    actions = env.sample_action(params, (n,), gen, device)
+    draws = env.reset_draws(params, (n,), gen, device)
+    return graph_ms(lambda: env.step_autoreset(params, state, actions, draws=draws))
+
+
+def _ppo_breakdown(m, coefs, perms) -> dict:
+    """A graphed iteration split by CUDA events between its parts (each device-bound):
+    the rollout's replays, the bootstrap value and GAE, the update; and the batched env
+    step alone, times the rollout's steps."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import flat_batch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        m.t.zero_()
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(m.T):
+        m._rollout_step()
+    ev[1].record()
+    traj = m.traj
+    returns, advantages = m.fns.gae_fn(traj["rewards"][..., None], traj["values"][..., None], traj["dones"][..., None], m._bootstrap()["v"])
+    ev[2].record()
+    m.fns.launch_update_coefs(flat_batch(traj, returns, advantages, [m.obs_key, "actions", "logprobs", "values"]), perms, coefs)
+    ev[3].record()
+    torch.cuda.synchronize()
+    env_ms = _env_step_ms(m.env, m.env_params, m.num_envs, m.device) * m.T
+    rollout = ev[0].elapsed_time(ev[1])
+    return {"rollout": rollout, "of_it_env_steps": env_ms, "of_it_acting_and_bookkeeping": rollout - env_ms,
+            "bootstrap_and_gae": ev[1].elapsed_time(ev[2]), "update": ev[2].elapsed_time(ev[3])}
+
+
+def phase_anakin_sac_graph(device: torch.device) -> dict:
+    """``exp=sac_anakin`` at its published widths (128 batched Pendulum envs, MLPs 256 x 2,
+    batch 256, a 1,000,000-row ring on the card, 64 iterations a dispatch, bf16-mixed):
+    the prefill (39 iterations) and one training dispatch replayed from captured graphs
+    against the eager ones from the same carry and draws, bit for bit; then eager, graph,
+    graph, eager over training dispatches; no K1/K2 launch."""
+    from sheeprl_tpu_torch.engine.anakin import SACAnakin, sac_ring
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    set_tf32(True)
+    label = "[anakin-sac-graph]"
+    cfg, env, params, _ = _anakin_parts(["exp=sac_anakin"], device)
+    steps, prefill = int(cfg.algo.anakin_steps_per_dispatch), int(cfg.algo.learning_starts) // int(cfg.env.num_envs)
+    members = {mode: SACAnakin(RunContext(device, 41, torch.bfloat16), cfg, env, params, "state", sac_ring(cfg, env, params, device),
+                               capture=mode == "graph", injected=True, injected_steps=max(steps, prefill))
+               for mode in ("graph", "eager")}
+    gen = torch.Generator(device=device).manual_seed(9)
+    g0 = members["graph"]
+    pre = _sac_draws(g0, prefill, 0, False, gen)
+    train = _sac_draws(g0, steps, prefill, True, gen)
+    zero_launches()
+    seconds = {}
+    for mode, m in members.items():
+        _inject_sac(m, pre)
+        m.dispatch(prefill, 0, False)
+        _inject_sac(m, train)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        met = m.dispatch(steps, 1, True)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - start
+    counts = launch_counts()
+    differ = _unequal_leaves(members["graph"].carry(), members["eager"].carry())
+    losses = {k: float(v) for k, v in met.items()}
+    row = {"envs": cfg.env.num_envs, "ring_rows_per_env": g0.ring.capacity, "ring_bytes": sum(a.numel() * a.element_size() for a in g0.arrays.values()),
+           "steps_per_dispatch": steps, "prefill_steps": prefill, "first_training_dispatch_seconds": seconds,
+           "carry_leaves_differing": differ, "metrics": losses, "k1_k2_launches": counts}
+    log(f"{label} parity " + json.dumps(row))
+    if differ or any(counts.values()) or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{label}: the captured dispatch differs from the eager one in carry leaves {differ}, or launched {counts}")
+    runs = {mode: (lambda m=m: m.dispatch(steps, 1, True)) for mode, m in members.items()}
+    row["turns"] = _dispatch_turns(label, runs, steps * cfg.env.num_envs, steps, 2)
+    # per iteration: a training one, a prefill one (uniform actions: env, ring write, no
+    # update) and the batched env step alone, each device-bound (CUDA events)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    g0.dispatch(steps, 1, True)
+    ev[1].record()
+    g0.dispatch(steps, 0, False)
+    ev[2].record()
+    torch.cuda.synchronize()
+    train_ms, prefill_ms = ev[0].elapsed_time(ev[1]) / steps, ev[1].elapsed_time(ev[2]) / steps
+    env_ms = _env_step_ms(env, params, g0.num_envs, device)
+    row["breakdown"] = {"training_iteration": train_ms, "prefill_iteration": prefill_ms, "of_it_env_step": env_ms,
+                        "policy_acting_and_update": train_ms - prefill_ms}
+    log(f"{label} where a graphed iteration's device time goes (ms) " + json.dumps(row["breakdown"]))
+    return row
+
+
+def _ppo_pop(device: torch.device) -> dict:
+    from sheeprl_tpu_torch.engine.anakin import build_ppo_members
+    from sheeprl_tpu_torch.engine.population import PopulationSpec
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    cfg, env, params, pop = _anakin_parts(["exp=ppo_anakin_pop"], device)
+    num_updates = int(cfg.algo.total_steps) // (cfg.env.num_envs * cfg.algo.rollout_steps)
+    members, tables = build_ppo_members(RunContext(device, 51, torch.bfloat16), cfg, env, params, "state", num_updates, pop)
+    start0 = _leaves(members[0].carry())
+
+    def dispatch(u: int):
+        return [m.iterate(tables[i][u]) for i, m in enumerate(members)]
+
+    def alone(u_count: int):
+        (one,), (table,) = build_ppo_members(RunContext(device, 99, torch.bfloat16), cfg, env, params, "state", num_updates, PopulationSpec())
+        one.load_carry(_as_carry(one.carry(), start0))
+        for u in range(u_count):
+            one.iterate(table[u])
+        return one
+
+    def capture():  # the rollout's and the bootstrap's graphs of every member; the update's are captured in its first dispatch
+        for m in members:
+            m._programs()
+
+    return {"cfg": cfg, "members": members, "dispatch": dispatch, "alone": alone, "env_steps": cfg.env.num_envs * cfg.algo.rollout_steps,
+            "grad_steps": members[0].fns.grad_steps_per_update, "capture": capture, "first": lambda: dispatch(0), "steady": [1, 2]}
+
+
+def _sac_pop(device: torch.device) -> dict:
+    from sheeprl_tpu_torch.engine.anakin import build_sac_members
+    from sheeprl_tpu_torch.engine.population import PopulationSpec
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    cfg, env, params, pop = _anakin_parts(["exp=sac_anakin_pop"], device)
+    steps, prefill = int(cfg.algo.anakin_steps_per_dispatch), int(cfg.algo.learning_starts) // int(cfg.env.num_envs)
+    members = build_sac_members(RunContext(device, 61, torch.bfloat16), cfg, env, params, "state", pop)
+    start0 = _leaves(members[0].carry())
+
+    def dispatch(u: int):
+        return [m.dispatch(prefill, 0, False) if u < 0 else m.dispatch(steps, 1, True) for m in members]
+
+    def alone(u_count: int):
+        (one,) = build_sac_members(RunContext(device, 99, torch.bfloat16), cfg, env, params, "state", PopulationSpec())
+        one.load_carry(_as_carry(one.carry(), start0))
+        one.dispatch(prefill, 0, False)
+        for _ in range(u_count):
+            one.dispatch(steps, 1, True)
+        return one
+
+    def capture():  # both graphs of every member (the prefill's and the training one)
+        for m in members:
+            m._program(0, False)
+            m._program(1, True)
+
+    def first():
+        dispatch(-1)
+        return dispatch(0)
+
+    return {"cfg": cfg, "members": members, "dispatch": dispatch, "alone": alone, "env_steps": steps * cfg.env.num_envs,
+            "grad_steps": steps, "capture": capture, "first": first, "steady": [1, 2]}
+
+
+def phase_anakin_pop(device: torch.device) -> dict:
+    """The two population presets at their published sizes (``exp=ppo_anakin_pop``: 16
+    members x 64 envs; ``exp=sac_anakin_pop``: 16 x 32 envs, a 250,000-row ring each,
+    bf16-mixed): every member's graphs captured (seconds; PPO captures its update's
+    graphs in the first dispatch), the reserved memory the captures and the first
+    dispatch add, two steady dispatches timed (env and gradient steps/s per member and in
+    all), and member 0 against a standalone run from its starting carry, bit for bit; no
+    K1/K2 launch."""
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(True)
+    rows = {}
+    for name, make in (("ppo_anakin_pop", _ppo_pop), ("sac_anakin_pop", _sac_pop)):
+        label = f"[anakin-pop] {name}"
+        zero_launches()
+        parts = make(device)
+        k = len(parts["members"])
+        torch.cuda.synchronize()
+        gc.collect()  # graphs of an earlier phase in reference cycles: freed now, not during this one
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        start = time.perf_counter()
+        parts["capture"]()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - start
+        start = time.perf_counter()
+        parts["first"]()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - start
+        graph_bytes = torch.cuda.memory_reserved() - reserved0
+        start = time.perf_counter()
+        for u in parts["steady"]:
+            parts["dispatch"](u)
+        torch.cuda.synchronize()
+        steady_s = (time.perf_counter() - start) / len(parts["steady"])
+        counts = launch_counts()
+        alone = parts["alone"](1 + len(parts["steady"]))
+        differ = _unequal_leaves(parts["members"][0].carry(), alone.carry())
+        row = {"members": k, "envs_per_member": parts["cfg"].env.num_envs, "capture_seconds": capture_s, "first_dispatch_seconds": first_s,
+               "steady_dispatch_seconds": steady_s, "reserved_bytes_added_by_captures_and_first_dispatch": graph_bytes,
+               "env_steps_per_s_per_member": parts["env_steps"] / steady_s, "env_steps_per_s_total": k * parts["env_steps"] / steady_s,
+               "grad_steps_per_s_per_member": parts["grad_steps"] / steady_s, "grad_steps_per_s_total": k * parts["grad_steps"] / steady_s,
+               "member0_leaves_differing_from_standalone": differ, "k1_k2_launches": counts}
+        log(f"{label} " + json.dumps(row))
+        if differ or any(counts.values()):
+            raise AssertionError(f"{label}: member 0 differs from its standalone run in leaves {differ}, or launched {counts}")
+        rows[name] = row
+        del parts, alone
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _agreement_row(label: str, a_cpu, a_dev, before: dict, lr: float, met_c: dict, met_d: dict, opt_c: dict, opt_d: dict, extra: dict) -> dict:
+    """``[train-agreement]``'s limits on one module's parameter change, the Adam moments
+    and the losses, CPU (``a_cpu``) against the card (``a_dev``)."""
+    tol = TRAIN_AGREEMENT_TOL
+    sd = a_dev.state_dict()
+    diff = torch.cat([(sd[k].float().cpu() - v.float()).abs().flatten() for k, v in a_cpu.state_dict().items()])
+    moved = torch.cat([(v.float() - before[k].float()).abs().flatten() for k, v in a_cpu.state_dict().items()])
+    steps = {"max_of_lr": (diff.max() / lr).item(), "share_over": (diff > tol["step_of_lr"] * lr).float().mean().item(),
+             "moved_max_of_lr": (moved.max() / lr).item()}
+    moments = _moment_diff(_tree_cpu(opt_d), opt_c)
+    metrics = {k: (float(met_c[k]), float(met_d[k])) for k in met_c}
+    bad = [k for k, (c, d) in metrics.items() if abs(c - d) > tol["metrics_atol"] + tol["metrics_rtol"] * abs(c)]
+    if steps["share_over"] > tol["off_share"] or steps["moved_max_of_lr"] <= 0:
+        bad.append(f"parameter change {steps}")
+    if moments > tol["moments_rtol"]:
+        bad.append(f"moments {moments}")
+    row = {"steps": steps, "moments_rel": moments, "metrics": metrics, **extra}
+    log(f"{label} " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"{label}: the card disagrees with the CPU: {bad}")
+    return row
+
+
+def phase_anakin_agreement(device: torch.device) -> dict:
+    """One small Anakin PPO iteration (16 envs x 16 steps, 2 epochs x 4 minibatches) and
+    one small SAC prefill plus training dispatch (16 envs, MLPs 64 x 2, batch 64, 8 + 8
+    iterations) on the card (captured) against the CPU: same weights, carry and draws,
+    float32, TF32 off, under ``[train-agreement]``'s limits; the collected batch and the
+    ring's rows within 1e-4."""
+    from sheeprl_tpu_torch.engine.anakin import PPOAnakin, SACAnakin, sac_ring
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+    from sheeprl_tpu_torch.parallel.context import RunContext
+
+    set_tf32(False)
+    cpu = torch.device("cpu")
+    zero_launches()
+    cfg, env, params, _ = _anakin_parts(SMALL_ANAKIN_PPO, cpu)
+    reset = env.reset_draws(params, (cfg.env.num_envs,), torch.Generator().manual_seed(3))
+    ppo = {d.type: PPOAnakin(RunContext(d, 21), cfg, env, params, "state", 4, injected=True, reset_draws=reset.to(d)) for d in (cpu, device)}
+    gen = torch.Generator().manual_seed(4)
+    draws, perms = _ppo_draws(ppo["cpu"], gen), ppo["cpu"].fns.permutations(gen)
+    before = {k: v.clone() for k, v in ppo["cpu"].agent.state_dict().items()}
+    met, batch = {}, {}
+    for dev, m in ppo.items():
+        _inject_ppo(m, {"actions": [a.to(m.device) for a in draws["actions"]], "reset": draws["reset"].to(m.device)})
+        met[dev] = m.iterate(torch.tensor([cfg.algo.clip_coef, cfg.algo.ent_coef], device=m.device), perms.to(m.device))
+        batch[dev] = {k: v.detach().float().cpu() for k, v in m.last_batch.items()}
+    batch_off = max((batch["cpu"][k] - batch["cuda"][k]).abs().max().item() for k in batch["cpu"])
+    out = {"ppo": _agreement_row("[anakin-agreement] ppo", ppo["cpu"].agent, ppo["cuda"].agent, before, cfg.algo.optimizer.lr, met["cpu"], met["cuda"],
+                                 {"agent": ppo["cpu"].fns.opt_state}, {"agent": ppo["cuda"].fns.opt_state}, {"batch_max_diff": batch_off})}
+    if batch_off > 1e-4:
+        raise AssertionError(f"[anakin-agreement] ppo: the collected batches differ by {batch_off}")
+    cfg, env, params, _ = _anakin_parts(SMALL_ANAKIN_SAC, cpu)
+    reset = env.reset_draws(params, (cfg.env.num_envs,), torch.Generator().manual_seed(6))
+    sac = {d.type: SACAnakin(RunContext(d, 22), cfg, env, params, "state", sac_ring(cfg, env, params, d), injected=True, injected_steps=8,
+                             reset_draws=reset.to(d)) for d in (cpu, device)}
+    gen = torch.Generator().manual_seed(5)
+    pre, train = _sac_draws(sac["cpu"], 8, 0, False, gen), _sac_draws(sac["cpu"], 8, 8, True, gen)
+    before = {k: v.clone() for k, v in sac["cpu"].agent.state_dict().items()}
+    for dev, m in sac.items():
+        _inject_sac(m, pre)
+        m.dispatch(8, 0, False)
+        _inject_sac(m, train)
+        met[dev] = m.dispatch(8, 1, True)
+    ring_off = max((sac["cpu"].arrays[k] - sac["cuda"].arrays[k].cpu()).abs().max().item() for k in sac["cpu"].arrays)
+    out["sac"] = _agreement_row("[anakin-agreement] sac", sac["cpu"].agent, sac["cuda"].agent, before, cfg.algo.critic.optimizer.lr, met["cpu"],
+                                met["cuda"], sac["cpu"].opt_states, sac["cuda"].opt_states, {"ring_max_diff": ring_off})
+    counts = launch_counts()
+    if ring_off > 1e-4 or any(counts.values()):
+        raise AssertionError(f"[anakin-agreement] sac: the rings differ by {ring_off}, or K1/K2 launched {counts}")
+    out["k1_k2_launches"] = counts
+    return out
+
+
+def phase_anakin_cli(device: torch.device, workdir: Path) -> dict:
+    """Each Anakin exp through the train entry at its published widths (``ANAKIN_CLI``: cut
+    total steps): train, resume from its first checkpoint to the same end, evaluate the
+    last checkpoint through the eval entry; K1/K2 launches counted around each run (none)."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate, run
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(True)
+    rows = {}
+    for exp, (cuts, first_ckpt) in ANAKIN_CLI.items():
+        tag = f"[anakin-cli] {exp}"
+        overrides = [f"exp={exp}", *cuts, f"device={device.type}", f"log_root={workdir / exp}"]
+        row = {}
+        zero_launches()
+        first = run(overrides)
+        row["train"] = {"policy_steps": first.policy_steps, "grad_steps": first.grad_steps, "seconds": first.seconds,
+                        "policy_steps_per_s": first.policy_steps / first.seconds, "test_reward": first.test_reward, "k1_k2_launches": launch_counts()}
+        mid = next(p for p in CheckpointManager(Path(first.log_dir) / "checkpoints").list_checkpoints() if p.name == first_ckpt)
+        zero_launches()
+        resumed = run([*overrides, f"checkpoint.resume_from={mid}"])
+        start = int(first_ckpt.split("_")[1])
+        row["resume"] = {"policy_steps": resumed.policy_steps - start, "grad_steps": resumed.grad_steps, "seconds": resumed.seconds,
+                         "k1_k2_launches": launch_counts()}
+        zero_launches()
+        result = evaluate([f"checkpoint_path={resumed.checkpoint}", "env.capture_video=False", f"log_root={workdir / exp}"])
+        row["eval"] = {"steps": result.steps, "reward": result.reward, "k1_k2_launches": launch_counts()}
+        log(f"{tag} " + json.dumps(row))
+        if (first.grad_steps <= 0 or resumed.policy_steps != first.policy_steps or not 0 < resumed.grad_steps < first.grad_steps
+                or result.steps <= 0 or not math.isfinite(result.reward) or any(any(r["k1_k2_launches"].values()) for r in row.values())):
+            raise AssertionError(f"{tag}: {row}")
+        rows[exp] = row
+    return rows
+
+
+def entry_phases(device: torch.device) -> dict:
+    """The phases that drive the train and eval entries (train, resume, eval through the
+    CLI), by the names ``[phases]`` reports, each a thunk that runs it in a temporary
+    directory of its own and returns its row."""
+
+    def in_tmp(fn, *args, **kwargs):
+        def thunk():
+            with tempfile.TemporaryDirectory() as tmp:
+                return fn(device, Path(tmp), *args, **kwargs)
+
+        return thunk
+
+    phases = {
+        "train-cli": in_tmp(phase_train_cli),
+        "train-cli-device": in_tmp(phase_train_cli, device_replay=True),
+        **{f"dv2-train-cli-{buffer}": in_tmp(phase_dv2_train_cli, buffer) for buffer in ("device", "episode")},
+        "dv1-train-cli": in_tmp(phase_dv1_train_cli),
+        **{f"p2e-dv{version}-cli": in_tmp(phase_p2e_cli, version, overrides, schedule) for version, overrides, schedule in (
+            (1, P2E_DV1_OVERRIDES, P2E_DV1_CLI), (2, P2E_DV2_OVERRIDES, P2E_DV2_CLI), (3, P2E_DV3_CLI_OVERRIDES, P2E_DV3_CLI))},
+        **{f"ppo-cli-depth{depth}": in_tmp(phase_entry_cli, [*PPO_ATARI, *PPO_CLI, f"rollout.pipeline_depth={depth}"],
+                                           f"[ppo-cli] pipeline_depth={depth}", "ckpt_1024") for depth in (0, 1)},
+        "a2c-cli": in_tmp(phase_entry_cli, A2C_CLI, "[a2c-cli]", "ckpt_512"),
+        **{f"ppo-recurrent-cli-{model}": in_tmp(phase_entry_cli, [*PPO_REC_CLI, f"algo.sequence_model={model}"],
+                                                f"[ppo-recurrent-cli] {model}", "ckpt_512") for model in ("lstm", "attention")},
+    }
+    for case, (overrides, first_ckpt) in SAC_CLI.items():
+        algo = overrides[0].split("=")[1]
+        phases[f"{case}-cli"] = in_tmp(phase_entry_cli, [*overrides, "env.sync_env=True", *SAC_CLI_STEPS[algo]],
+                                       f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=False)
+    for case, (overrides, first_ckpt, halves) in DECOUPLED_CLI.items():
+        algo = "ppo" if "algo.name=ppo" in overrides else overrides[0].split("=")[1]
+        phases[f"{case}-cli"] = in_tmp(phase_entry_cli, overrides, f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=halves)
+    phases["anakin-cli"] = in_tmp(phase_anakin_cli)
+    return phases
+
+
+# The entry phases are host-bound (Python, env stepping, checkpoints, captures), so after
+# the measured phases ENTRY_GROUPS' worker processes run them side by side on the card,
+# each group's phases in order; the groups take about equal seconds alone (an H100 host:
+# ~135 s each). Their rates are read under that sharing; each run's launch counts are its
+# own (every process has its own counters, zeroed around each run).
+ENTRY_GROUPS = (
+    ("p2e-dv2-cli", "p2e-dv3-cli", "sac_decoupled_host-cli", "sac_decoupled_device-cli", "ppo_decoupled-cli", "ppo_coupled-cli"),
+    ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "dv2-train-cli-episode"),
+    ("anakin-cli", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli", "ppo-recurrent-cli-lstm",
+     "ppo-recurrent-cli-attention", "dv1-train-cli"),
+)
+ENTRY_TIMEOUT_S = 600  # all workers; alone they take ~140 s each
+ENTRY_THREADS = 2  # torch's CPU threads in each worker: three workers share the host's cores
+
+
+def port_ready() -> bool:
+    """False without CUDA; else puts the checkout on the path and imports the port (which
+    fails outside a checkout of the repo) and quiets the train entry's config dump."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU only", file=sys.stderr)
-        return 2
+        return False
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import sheeprl_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    import sheeprl_tpu_torch  # noqa: F401
 
-    os.environ["SHEEPRL_TPU_QUIET"] = "1"  # the train entry prints no config dump
+    os.environ["SHEEPRL_TPU_QUIET"] = "1"
+    return True
 
+
+def entry_worker(names: list, out: Path) -> int:
+    """``chip_smoke.py --entries NAME,... --out PATH``: run the named entry phases one after
+    another in this process and write their rows and seconds to ``PATH`` as JSON."""
+    if not port_ready():
+        return 2
+    torch.set_num_threads(ENTRY_THREADS)
+    device = torch.device("cuda", 0)
+    phase_build()  # loads the libraries the main process built
+    phases = entry_phases(device)
+    rows, seconds = {}, {}
+    for name in names:
+        start = time.perf_counter()
+        rows[name] = phases[name]()
+        seconds[name] = round(time.perf_counter() - start, 1)
+    out.write_text(json.dumps({"rows": rows, "seconds": seconds, "peak_reserved_bytes": torch.cuda.max_memory_reserved(device)}))
+    return 0
+
+
+def run_entry_workers(device: torch.device, groups=ENTRY_GROUPS, timeout: float = ENTRY_TIMEOUT_S) -> tuple:
+    """Every entry phase, ``groups`` of them in worker processes side by side (``--entries``);
+    each worker's output printed after all have ended. Raises if a worker fails or the
+    workers outlast ``timeout``; kills every worker's process group (its envs' processes
+    too) before it returns. Returns ``(rows, seconds)`` by phase name."""
+    import signal
+
+    if sorted(n for g in groups for n in g) != sorted(entry_phases(device)):
+        raise AssertionError(f"[entries] the groups {groups} do not hold each entry phase once")
+    gc.collect()  # an earlier phase's graphs in reference cycles
+    torch.cuda.empty_cache()
+    log(f"[entries] {len(groups)} worker processes; this process keeps {torch.cuda.memory_reserved(device)} bytes reserved")
+    rows, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        workers = []
+        try:
+            for i, names in enumerate(groups):
+                files = [Path(tmp) / f"worker{i}.{ext}" for ext in ("json", "out", "err")]
+                with open(files[1], "w") as so, open(files[2], "w") as se:
+                    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--entries", ",".join(names), "--out", str(files[0])],
+                                            stdout=so, stderr=se, start_new_session=True)
+                workers.append((names, files, proc))
+            deadline = time.monotonic() + timeout
+            for _, _, proc in workers:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        finally:
+            for _, _, proc in workers:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            for _, (_, stdout, stderr), _ in workers:
+                print(stdout.read_text(), end="", flush=True)
+                print(stderr.read_text(), end="", file=sys.stderr, flush=True)
+        for names, (result, _, stderr), proc in workers:
+            if proc.returncode != 0 or not result.is_file():
+                raise AssertionError(f"[entries] the worker of {names} exited {proc.returncode}: {stderr.read_text()[-4000:]}")
+            data = json.loads(result.read_text())
+            rows.update(data["rows"])
+            seconds.update(data["seconds"])
+            log(f"[entries] {names[0]}'s worker: {sum(data['seconds'].values()):.1f} s of phases, peak {data['peak_reserved_bytes']} bytes reserved")
+    return rows, seconds
+
+
+def main() -> int:
+    if not port_ready():
+        return 2
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     seconds = {}
@@ -3041,21 +3684,8 @@ def main() -> int:
         phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1),
     ])
     graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4), phase_train_graph(device, env="continuous_dummy")])
-    with tempfile.TemporaryDirectory() as tmp:
-        cli = timed("train-cli", phase_train_cli, device, Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_device = timed("train-cli-device", phase_train_cli, device, Path(tmp), device_replay=True)
     timed("dv2-train-agreement", phase_train_agreement, device, SMALL_DV2, "[dv2-train-agreement]")
     dv2_graph = timed("dv2-train-graph", phase_train_graph, device, overrides=DV2_OVERRIDES, tag="[dv2-train-graph]")
-    dv2_cli = {}
-    for buffer in ("device", "episode"):
-        with tempfile.TemporaryDirectory() as tmp:
-            dv2_cli[buffer] = timed(f"dv2-train-cli-{buffer}", phase_dv2_train_cli, device, Path(tmp), buffer)
-    log("[dv2-counts] " + json.dumps({
-        "k1_per_replay_capture": dv2_graph["k1_per_replay_capture"], "k1_per_replay_profiler": dv2_graph["k1_per_replay_profiler"],
-        "k1_per_step_plan": dv2_graph["k1_per_step_plan"],
-        "train_cli": {b: {k: c[k] for k in ("train", "resume", "eval")} for b, c in dv2_cli.items()},
-    }))
     timed("dv1-train-agreement", phase_train_agreement, device, SMALL_DV1, "[dv1-train-agreement]")
     timed("p2e-dv1-train-agreement", phase_train_agreement, device, SMALL_P2E_DV1, "[p2e-dv1-train-agreement]")
     timed("p2e-dv2-train-agreement", phase_train_agreement, device, SMALL_P2E_DV2, "[p2e-dv2-train-agreement]")
@@ -3067,12 +3697,6 @@ def main() -> int:
         phase_train_graph(device, timed_steps=4, overrides=P2E_DV2_OVERRIDES, tag="[p2e-dv2-train-graph]"),
         phase_train_graph(device, env="continuous_dummy", overrides=P2E_DV2_OVERRIDES, tag="[p2e-dv2-train-graph]"),
     ])
-    with tempfile.TemporaryDirectory() as tmp:
-        dv1_cli = timed("dv1-train-cli", phase_dv1_train_cli, device, Path(tmp))
-    p2e_cli = {}
-    for version, overrides, schedule in ((1, P2E_DV1_OVERRIDES, P2E_DV1_CLI), (2, P2E_DV2_OVERRIDES, P2E_DV2_CLI)):
-        with tempfile.TemporaryDirectory() as tmp:
-            p2e_cli[version] = timed(f"p2e-dv{version}-cli", phase_p2e_cli, device, Path(tmp), version, overrides, schedule)
     timed("dv3-decoupled-train-agreement", phase_train_agreement, device, SMALL_DV3_DECOUPLED, "[dv3-decoupled-train-agreement]")
     dec_graph = timed(
         "dv3-decoupled-train-graph", phase_train_graph, device, timed_steps=2, overrides=DV3_DECOUPLED_OVERRIDES, tag="[dv3-decoupled-train-graph]"
@@ -3083,19 +3707,6 @@ def main() -> int:
         phase_train_graph(device, timed_steps=2, overrides=P2E_DV3_OVERRIDES, tag="[p2e-dv3-train-graph]"),
         phase_train_graph(device, env="continuous_dummy", overrides=P2E_DV3_OVERRIDES, tag="[p2e-dv3-train-graph]"),
     ])
-    with tempfile.TemporaryDirectory() as tmp:
-        p2e_cli[3] = timed("p2e-dv3-cli", phase_p2e_cli, device, Path(tmp), 3, P2E_DV3_CLI_OVERRIDES, P2E_DV3_CLI)
-    graph_counts = ("k1_per_replay_capture", "k1_per_replay_profiler", "k1_per_eager_step_profiler", "k1_per_step_plan")
-    log("[p2e-counts] " + json.dumps({
-        "p2e_dv2_exploration": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_graph},
-        "p2e_dv3_exploration_xl": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_dv3_graph},
-        "dv3_decoupled_s": {k: dec_graph[k] for k in graph_counts},
-        "dv1_train_graph_k1_per_replay_capture": dv1_graph["k1_per_replay_capture"],
-        "p2e_dv1_train_graph_k1_per_replay_capture": p2e_dv1_graph["k1_per_replay_capture"],
-        "train_cli": {f"p2e_dv{v}": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in runs.items() if "grad_steps" in r}
-                      for v, runs in p2e_cli.items()},
-        "dv1_train_cli": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in dv1_cli.items() if "grad_steps" in r},
-    }))
     timed("ppo-train-agreement", lambda: [
         phase_ppo_train_agreement(device, SMALL_PPO, "[ppo-train-agreement]"),
         phase_ppo_train_agreement(device, SMALL_A2C, "[a2c-train-agreement]"),
@@ -3103,65 +3714,16 @@ def main() -> int:
         phase_ppo_train_agreement(device, [*SMALL_PPO_REC, "algo.sequence_model=attention"], "[ppo-recurrent-train-agreement] attention"),
     ])
     ppo_graph = timed("ppo-train-graph", lambda: [phase_ppo_train_graph(device), phase_ppo_train_graph(device, env="continuous_dummy")])
-    ppo_cli = {}
-    for depth in (0, 1):
-        with tempfile.TemporaryDirectory() as tmp:
-            ppo_cli[depth] = timed(f"ppo-cli-depth{depth}", phase_entry_cli, device, Path(tmp),
-                                   [*PPO_ATARI, *PPO_CLI, f"rollout.pipeline_depth={depth}"], f"[ppo-cli] pipeline_depth={depth}", "ckpt_1024")
-    with tempfile.TemporaryDirectory() as tmp:
-        a2c_cli = timed("a2c-cli", phase_entry_cli, device, Path(tmp), A2C_CLI, "[a2c-cli]", "ckpt_512")
-    rec_cli = {}
-    for model in ("lstm", "attention"):
-        with tempfile.TemporaryDirectory() as tmp:
-            rec_cli[model] = timed(f"ppo-recurrent-cli-{model}", phase_entry_cli, device, Path(tmp),
-                                   [*PPO_REC_CLI, f"algo.sequence_model={model}"], f"[ppo-recurrent-cli] {model}", "ckpt_512")
-    log("[ppo-counts] " + json.dumps({
-        "k1_k2_launches": {"ppo_train_graph": ppo_graph[0]["k1_k2_launches"],
-                           **{f"ppo_cli_depth{d}": {k: r[k]["k1_k2_launches"] for k in r} for d, r in ppo_cli.items()},
-                           "a2c_cli": {k: r["k1_k2_launches"] for k, r in a2c_cli.items()},
-                           **{f"ppo_recurrent_cli_{m}": {k: r[k]["k1_k2_launches"] for k in r} for m, r in rec_cli.items()}},
-        "ppo_cli_policy_steps_per_s": {d: r["train"]["policy_steps_per_s"] for d, r in ppo_cli.items()},
-        "ppo_cli_acting_share": {d: r["train"]["acting_share"] for d, r in ppo_cli.items()},
-    }))
     for name, small in SMALL_SAC.items():
         timed(f"{name.replace('_', '-')}-train-agreement", phase_sac_train_agreement, device, small, f"[{name.replace('_', '-')}-train-agreement]")
     sac_graph = {}
     for name, (overrides, steps, blocks, profiled, rows) in SAC_GRAPH.items():
         tag = name.replace("_", "-")
         sac_graph[name] = timed(f"{tag}-train-graph", phase_sac_train_graph, device, overrides, f"[{tag}-train-graph]", steps, blocks, profiled, rows)
-    sac_cli = {}
-    for case, (overrides, first_ckpt) in SAC_CLI.items():
-        algo = overrides[0].split("=")[1]
-        with tempfile.TemporaryDirectory() as tmp:
-            sac_cli[case] = timed(f"{case}-cli", phase_entry_cli, device, Path(tmp), [*overrides, "env.sync_env=True", *SAC_CLI_STEPS[algo]],
-                                  f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=False)
-    log("[sac-counts] " + json.dumps({
-        "k1_k2_launches": {**{f"{n}_train_graph": g["k1_k2_launches"] for n, g in sac_graph.items()},
-                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in sac_cli.items()}},
-        "graph_grad_steps_per_s": {n: [t["grad_steps_per_s"] for t in g["turns"]] for n, g in sac_graph.items()},
-        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in sac_cli.items()},
-        "cli_acting_share": {c: r["train"]["acting_share"] for c, r in sac_cli.items()},
-    }))
     with tempfile.TemporaryDirectory() as tmp:
         dec_agree = timed("ppo-decoupled-agreement", phase_ppo_decoupled_agreement, device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         dec_publish = timed("sac-decoupled-publish", phase_sac_decoupled_publish, device, Path(tmp))
-    dec_cli = {}
-    for case, (overrides, first_ckpt, halves) in DECOUPLED_CLI.items():
-        algo = "ppo" if "algo.name=ppo" in overrides else overrides[0].split("=")[1]
-        with tempfile.TemporaryDirectory() as tmp:
-            dec_cli[case] = timed(f"{case}-cli", phase_entry_cli, device, Path(tmp), overrides, f"[{algo.replace('_', '-')}-cli] {case}",
-                                  first_ckpt, resume_halves=halves)
-    # overlap: the player's acting and the learner's updating seconds over the run's wall seconds
-    log("[decoupled-counts] " + json.dumps({
-        "k1_k2_launches": {"ppo_decoupled_agreement": dec_agree["k1_k2_launches"], "sac_decoupled_publish": dec_publish["k1_k2_launches"],
-                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in dec_cli.items()}},
-        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in dec_cli.items()},
-        "cli_acting_policy_steps_per_s": {c: r["train"]["acting_policy_steps_per_s"] for c, r in dec_cli.items()},
-        "cli_acting_plus_updating_over_wall": {c: (r["train"]["acting_seconds"] + r["train"]["updating_seconds"]) / r["train"]["seconds"]
-                                               for c, r in dec_cli.items()},
-        "publications_adopted": [dec_publish["adopted"], dec_publish["publications"]],
-    }))
     with tempfile.TemporaryDirectory() as tmp:
         serve = timed("serve", phase_serve, device, Path(tmp))
         serve_cli = timed("serve-cli", phase_serve_cli, device, Path(tmp), serve["templates"]["sac"])
@@ -3173,7 +3735,77 @@ def main() -> int:
         "p99_ms": {f"{n}_{t}": r["p99_ms"] for t, rows in serve["tiers"].items() for n, r in rows.items()},
         "serve_cli_exit_code": serve_cli["exit_code"],
     }))
+    ak_ppo = timed("anakin-ppo-graph", phase_anakin_ppo_graph, device)
+    ak_sac = timed("anakin-sac-graph", phase_anakin_sac_graph, device)
+    ak_pop = timed("anakin-pop", phase_anakin_pop, device)
+    ak_agree = timed("anakin-agreement", phase_anakin_agreement, device)
     scan = timed("rssm-scan", phase_rssm_scan, device)
+
+    entries, entry_seconds = timed("entries", run_entry_workers, device)
+    seconds.update(entry_seconds)
+    cli, cli_device = entries["train-cli"], entries["train-cli-device"]
+    dv2_cli = {buffer: entries[f"dv2-train-cli-{buffer}"] for buffer in ("device", "episode")}
+    dv1_cli = entries["dv1-train-cli"]
+    p2e_cli = {version: entries[f"p2e-dv{version}-cli"] for version in (1, 2, 3)}
+    ppo_cli = {depth: entries[f"ppo-cli-depth{depth}"] for depth in (0, 1)}
+    a2c_cli = entries["a2c-cli"]
+    rec_cli = {model: entries[f"ppo-recurrent-cli-{model}"] for model in ("lstm", "attention")}
+    sac_cli = {case: entries[f"{case}-cli"] for case in SAC_CLI}
+    dec_cli = {case: entries[f"{case}-cli"] for case in DECOUPLED_CLI}
+    ak_cli = entries["anakin-cli"]
+
+    log("[dv2-counts] " + json.dumps({
+        "k1_per_replay_capture": dv2_graph["k1_per_replay_capture"], "k1_per_replay_profiler": dv2_graph["k1_per_replay_profiler"],
+        "k1_per_step_plan": dv2_graph["k1_per_step_plan"],
+        "train_cli": {b: {k: c[k] for k in ("train", "resume", "eval")} for b, c in dv2_cli.items()},
+    }))
+    graph_counts = ("k1_per_replay_capture", "k1_per_replay_profiler", "k1_per_eager_step_profiler", "k1_per_step_plan")
+    log("[p2e-counts] " + json.dumps({
+        "p2e_dv2_exploration": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_graph},
+        "p2e_dv3_exploration_xl": {g["actor"]: {k: g[k] for k in graph_counts} for g in p2e_dv3_graph},
+        "dv3_decoupled_s": {k: dec_graph[k] for k in graph_counts},
+        "dv1_train_graph_k1_per_replay_capture": dv1_graph["k1_per_replay_capture"],
+        "p2e_dv1_train_graph_k1_per_replay_capture": p2e_dv1_graph["k1_per_replay_capture"],
+        "train_cli": {f"p2e_dv{v}": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in runs.items() if "grad_steps" in r}
+                      for v, runs in p2e_cli.items()},
+        "dv1_train_cli": {k: {c: r[c] for c in ("grad_steps", "fwd", "bwd")} for k, r in dv1_cli.items() if "grad_steps" in r},
+    }))
+    log("[ppo-counts] " + json.dumps({
+        "k1_k2_launches": {"ppo_train_graph": ppo_graph[0]["k1_k2_launches"],
+                           **{f"ppo_cli_depth{d}": {k: r[k]["k1_k2_launches"] for k in r} for d, r in ppo_cli.items()},
+                           "a2c_cli": {k: r["k1_k2_launches"] for k, r in a2c_cli.items()},
+                           **{f"ppo_recurrent_cli_{m}": {k: r[k]["k1_k2_launches"] for k in r} for m, r in rec_cli.items()}},
+        "ppo_cli_policy_steps_per_s": {d: r["train"]["policy_steps_per_s"] for d, r in ppo_cli.items()},
+        "ppo_cli_acting_share": {d: r["train"]["acting_share"] for d, r in ppo_cli.items()},
+    }))
+    log("[sac-counts] " + json.dumps({
+        "k1_k2_launches": {**{f"{n}_train_graph": g["k1_k2_launches"] for n, g in sac_graph.items()},
+                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in sac_cli.items()}},
+        "graph_grad_steps_per_s": {n: [t["grad_steps_per_s"] for t in g["turns"]] for n, g in sac_graph.items()},
+        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in sac_cli.items()},
+        "cli_acting_share": {c: r["train"]["acting_share"] for c, r in sac_cli.items()},
+    }))
+    # overlap: the player's acting and the learner's updating seconds over the run's wall seconds
+    log("[decoupled-counts] " + json.dumps({
+        "k1_k2_launches": {"ppo_decoupled_agreement": dec_agree["k1_k2_launches"], "sac_decoupled_publish": dec_publish["k1_k2_launches"],
+                           **{f"{c}_cli": {k: r[k]["k1_k2_launches"] for k in r} for c, r in dec_cli.items()}},
+        "cli_policy_steps_per_s": {c: r["train"]["policy_steps_per_s"] for c, r in dec_cli.items()},
+        "cli_acting_policy_steps_per_s": {c: r["train"]["acting_policy_steps_per_s"] for c, r in dec_cli.items()},
+        "cli_acting_plus_updating_over_wall": {c: (r["train"]["acting_seconds"] + r["train"]["updating_seconds"]) / r["train"]["seconds"]
+                                               for c, r in dec_cli.items()},
+        "publications_adopted": [dec_publish["adopted"], dec_publish["publications"]],
+    }))
+    anakin_paths = {"anakin_ppo_graph": ak_ppo["k1_k2_launches"], "anakin_sac_graph": ak_sac["k1_k2_launches"],
+                    **{f"anakin_pop_{n}": r["k1_k2_launches"] for n, r in ak_pop.items()}, "anakin_agreement": ak_agree["k1_k2_launches"],
+                    **{f"anakin_cli_{e}_{k}": r[k]["k1_k2_launches"] for e, r in ak_cli.items() for k in ("train", "resume", "eval")}}
+    log("[anakin-counts] " + json.dumps({
+        "k1_k2_launches": anakin_paths,
+        "graph_env_steps_per_s": {"ppo": [t["env_steps_per_s"] for t in ak_ppo["turns"]], "sac": [t["env_steps_per_s"] for t in ak_sac["turns"]]},
+        "pop_env_steps_per_s_total": {n: r["env_steps_per_s_total"] for n, r in ak_pop.items()},
+        "cli_policy_steps_per_s": {e: r["train"]["policy_steps_per_s"] for e, r in ak_cli.items()},
+    }))
+    if any(any(c.values()) for c in anakin_paths.values()):
+        raise AssertionError(f"[anakin-counts] an Anakin path launched K1 or K2: {anakin_paths}")
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
     # K1's launches on every path that runs it, each counted from zero around its run
@@ -3197,10 +3829,13 @@ def main() -> int:
            for c, r in dec_cli.items()},
         # the serving paths (each family at each tier), which run no K1 either (checked zero in [serve])
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in serve_paths.items()},
+        # the Anakin and population paths, which run no K1 either (checked zero in [anakin-counts])
+        **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in anakin_paths.items()},
     }
     # K2's: its one path, the scan bench, and the serving paths (none)
     k2_paths = {"rssm_scan": {"fwd": scan["launches"]["rssm_step"], "bwd": scan["launches"]["rssm_step_bwd"]},
-                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()}}
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()},
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in anakin_paths.items()}}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -3242,7 +3877,9 @@ def main() -> int:
         + "; SAC-family graphed gradient steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['grad_steps_per_s']:.1f}" for t in g["turns"]) for n, g in sac_graph.items())
         + "; SAC-family cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in sac_cli.items())
         + "; decoupled cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in dec_cli.items())
-        + "; serve requests/s " + ", ".join(f"{n} {t} {r['requests_per_s']:.0f}" for t, rows in serve["tiers"].items() for n, r in rows.items()))
+        + "; serve requests/s " + ", ".join(f"{n} {t} {r['requests_per_s']:.0f}" for t, rows in serve["tiers"].items() for n, r in rows.items())
+        + "; Anakin env steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['env_steps_per_s']:.0f}" for t in g["turns"]) for n, g in (("ppo", ak_ppo), ("sac", ak_sac)))
+        + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -3250,4 +3887,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--entries"] and sys.argv[3:4] == ["--out"] and len(sys.argv) == 5:
+        sys.exit(entry_worker(sys.argv[2].split(","), Path(sys.argv[4])))
     sys.exit(main())

@@ -49,6 +49,16 @@ def _sebulba_refusal(cfg: Dict[str, Any], value: Any) -> str:
     return f"distributed.mode={value!r}: the {name} loop has no player/learner split, as the reference's has not (it does not read the key)"
 
 
+def _anakin_refusal(cfg: Dict[str, Any], value: Any) -> str:
+    """Only the ppo and sac loops read ``algo.anakin``; they hand the run to the Anakin
+    engine before they refuse anything."""
+    name = (cfg.get("algo") or {}).get("name")
+    return (
+        f"algo.anakin={value!r}: the {name} loop does not run the Anakin engine, as the reference's does not (it does "
+        "not read the key); only the ppo and sac loops hand a run to the engine (engine/anakin.py)"
+    )
+
+
 #: the key a loop whose reference registers its last checkpoint names in ``handled``
 REGISTERS = "model_manager.disabled"
 
@@ -69,7 +79,7 @@ _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
     ("distributed.mode", lambda v: v not in (None, "thread"), _sebulba_refusal),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
-    ("algo.anakin", bool, "the Anakin engine"),
+    ("algo.anakin", bool, _anakin_refusal),
     ("obs.enabled", bool, "the training monitor"),
     ("obs.health", bool, "the health diagnostics"),
     ("obs.flight_recorder", bool, "the flight recorder"),

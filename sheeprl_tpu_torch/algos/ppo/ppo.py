@@ -16,7 +16,11 @@ in a CUDA graph corrects each replay by its own count. A learning-rate schedule
 (``lr_schedule``: PPO's ``anneal_lr``, optax's ``polynomial_schedule``) is computed on
 the device from the same count, so a replayed update anneals as the reference's does.
 ``load_state`` copies a saved state into a live one in place (an older checkpoint's
-count is a Python int).
+count is a Python int). ``inject_lr`` (a population's learning-rate sweep,
+``engine/population.py``; the counterpart of ``optax.inject_hyperparams``) keeps the
+learning rate as a 0-d float32 tensor ``lr`` in the state, so each member's state
+carries its own rate under one update program; without it the rate is a Python float
+and the update is as it was.
 
 The update (``PPOTrainFns.train_fn``, the reference's one jitted call): the minibatch
 step over static inputs (the rollout, the minibatch's indices, the clip and entropy
@@ -62,10 +66,15 @@ class Optimizer:
     parameters and the state in place and returns the gradients' global norm before
     clipping."""
 
-    def __init__(self, name: str, lr: float, max_grad_norm: float = 0.0, lr_schedule: Optional[Callable] = None, **hp: Any):
+    def __init__(
+        self, name: str, lr: float, max_grad_norm: float = 0.0, lr_schedule: Optional[Callable] = None, inject_lr: bool = False, **hp: Any
+    ):
         if name not in OPTIMIZERS:
             raise ValueError(f"Unknown optimizer: {name}")
+        if inject_lr and lr_schedule is not None:
+            raise ValueError("inject_lr (population lr sweep) and a lr schedule are mutually exclusive")
         self.name = name
+        self.inject_lr = bool(inject_lr)
         self.lr = float(lr)
         self.max_grad_norm = float(max_grad_norm or 0.0)
         # count (0-d tensor, the updates before this one) -> lr (0-d float32 tensor)
@@ -76,6 +85,8 @@ class Optimizer:
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
         device = params[0].device if len(params) else None
         state: Dict[str, Any] = {"count": torch.zeros((), dtype=torch.int64, device=device)}
+        if self.inject_lr:
+            state["lr"] = torch.tensor(self.lr, dtype=torch.float32, device=device)
         if self.name in ("adam", "adamw", "rmsprop_tf"):
             state["nu"] = zeros()
         if self.name in ("adam", "adamw") or (self.name == "rmsprop_tf" and self.hp["centered"]):
@@ -93,11 +104,14 @@ class Optimizer:
             torch._foreach_mul_(g, scale)
         if self.lr_schedule is not None:  # evaluated at the count before this update, as optax's
             lr_t = self.lr_schedule(state["count"])
+        elif self.inject_lr:
+            lr_t = state["lr"]
         state["count"].add_(1)
         count, lr, hp = state["count"], self.lr, self.hp
+        float_lr = self.lr_schedule is None and not self.inject_lr
 
         def apply_(updates: List[torch.Tensor]) -> None:  # params += -lr * updates
-            if self.lr_schedule is None:
+            if float_lr:
                 torch._foreach_add_(params, updates, alpha=-lr)
             else:
                 torch._foreach_add_(params, torch._foreach_mul(updates, -lr_t))
@@ -136,7 +150,7 @@ class Optimizer:
                 var = [n.clone() for n in nu]
             torch._foreach_add_(var, hp["eps"])
             upd = torch._foreach_div(g, torch._foreach_sqrt(var))
-            torch._foreach_mul_(upd, -lr if self.lr_schedule is None else -lr_t)
+            torch._foreach_mul_(upd, -lr if float_lr else -lr_t)
             trace = state["trace"]
             torch._foreach_mul_(trace, hp["momentum"])
             torch._foreach_add_(trace, upd)
@@ -152,8 +166,10 @@ class Optimizer:
         if set(saved) != set(state):
             raise ValueError(f"optimizer state keys {sorted(saved)} do not match {sorted(state)}")
         state["count"].fill_(int(saved["count"]))
+        if "lr" in state:
+            state["lr"].fill_(float(saved["lr"]))
         for key in state:
-            if key != "count":
+            if key not in ("count", "lr"):
                 if len(saved[key]) != len(state[key]):
                     raise ValueError(f"optimizer state '{key}' holds {len(saved[key])} tensors, expected {len(state[key])}")
                 for dst, src in zip(state[key], saved[key]):
@@ -171,10 +187,11 @@ def polynomial_schedule(init_value: float, end_value: float, power: float, trans
     return schedule
 
 
-def make_optimizer(opt_cfg: Dict[str, Any], max_grad_norm: float, lr_schedule: Optional[Callable] = None) -> Optimizer:
+def make_optimizer(opt_cfg: Dict[str, Any], max_grad_norm: float, lr_schedule: Optional[Callable] = None, inject_lr: bool = False) -> Optimizer:
     """The optimizer an ``optimizer`` config section asks for (``name``: adam | adamw |
     sgd | rmsprop_tf), with global-norm clipping when ``max_grad_norm > 0``, and the
-    learning rate of ``lr_schedule`` (a count -> lr function) where one is given."""
+    learning rate of ``lr_schedule`` (a count -> lr function) where one is given, or in
+    the state (``inject_lr``)."""
     name = opt_cfg.get("name", "adam")
     lr = opt_cfg.get("lr", 1e-3)
     if name == "adam":
@@ -194,7 +211,7 @@ def make_optimizer(opt_cfg: Dict[str, Any], max_grad_norm: float, lr_schedule: O
         )
     else:
         raise ValueError(f"Unknown optimizer: {name}")
-    return Optimizer(name, lr, max_grad_norm, lr_schedule, **hp)
+    return Optimizer(name, lr, max_grad_norm, lr_schedule, inject_lr, **hp)
 
 
 class MinibatchUpdate:
@@ -256,9 +273,10 @@ class PPOTrainFns:
     """The PPO functions of the train loop (the reference's jitted ones): ``act``,
     ``values``, ``gae_fn`` and ``train_fn`` over ``agent``'s parameters and the
     optimizer state ``opt_state``. ``capture=False`` runs the update eagerly on a card
-    too (the graph's parity check)."""
+    too (the graph's parity check). ``inject_lr``: the learning rate lives in the
+    optimizer state (a population's sweep)."""
 
-    def __init__(self, ctx, agent, cfg, obs_keys: Sequence[str], num_updates: int, capture: bool = True):
+    def __init__(self, ctx, agent, cfg, obs_keys: Sequence[str], num_updates: int, capture: bool = True, inject_lr: bool = False):
         if cfg.algo.per_rank_batch_size <= 0:
             raise ValueError("algo.per_rank_batch_size must be positive")
         num_envs, rollout_steps = cfg.env.num_envs, cfg.algo.rollout_steps
@@ -277,8 +295,13 @@ class PPOTrainFns:
         self.grad_steps_per_update = cfg.algo.update_epochs * self.num_minibatches
         self.lr_schedule = None
         if cfg.algo.anneal_lr:
+            if inject_lr:
+                raise ValueError(
+                    "algo.anneal_lr=True cannot combine with a population learning-rate "
+                    "sweep (the swept rate is a per-member constant in the optimizer state)"
+                )
             self.lr_schedule = polynomial_schedule(cfg.algo.optimizer.lr, 1e-8, 1.0, num_updates * self.grad_steps_per_update)
-        self.opt = make_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, self.lr_schedule)
+        self.opt = make_optimizer(cfg.algo.optimizer, cfg.algo.max_grad_norm, self.lr_schedule, inject_lr)
         self.params = list(agent.parameters())
         self.opt_state = self.opt.init(self.params)
         self.compute_dtype = train_policy(cfg, ctx)
@@ -335,12 +358,17 @@ class PPOTrainFns:
     def launch_update(self, data: Dict[str, torch.Tensor], perms: torch.Tensor, clip_coef: float, ent_coef: float) -> torch.Tensor:
         """``train_fn``'s update, launched without waiting for it: its mean losses stay a
         tensor on the device (``losses`` reads them)."""
+        return self.launch_update_coefs(data, perms, torch.tensor([clip_coef, ent_coef], dtype=torch.float32))
+
+    def launch_update_coefs(self, data: Dict[str, torch.Tensor], perms: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
+        """``launch_update`` with the clip and entropy coefficients as one ``[2]`` float32
+        tensor, which may already lie on the device (the Anakin engine's, so that no
+        host copy waits on the stream)."""
         if tuple(perms.shape) != (self.cfg.algo.update_epochs, self.batch_n):
             raise ValueError(f"perms has shape {tuple(perms.shape)}, expected (update_epochs, N) = {(self.cfg.algo.update_epochs, self.batch_n)}")
         if self._update is None:
             state = self.params + tree_tensors(self.opt_state)
             self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_size,), state, self.capture)
-        coefs = torch.tensor([clip_coef, ent_coef], dtype=torch.float32)
         return self._update(data, perms.reshape(-1, self.mb_size), coefs)
 
     @staticmethod
@@ -480,10 +508,12 @@ class PPOFamilyLoop:
         return TrainResult(self.log_dir, self.policy_step, grad_steps, self.last_path, seconds, train_seconds, env_seconds, test_reward)
 
 
-def annealed_coefs(cfg, update: int, num_updates: int) -> Tuple[float, float]:
+def annealed_coefs(cfg, update: int, num_updates: int, clip_coef: Optional[float] = None, ent_coef: Optional[float] = None) -> Tuple[float, float]:
     """The update's clip and entropy coefficients (``algo.anneal_clip_coef``,
-    ``algo.anneal_ent_coef``: linear decay to 0 over the run's updates)."""
-    clip_coef, ent_coef = cfg.algo.clip_coef, cfg.algo.ent_coef
+    ``algo.anneal_ent_coef``: linear decay to 0 over the run's updates) from the config's
+    initial values, or the given ones (a population member's sweep)."""
+    clip_coef = cfg.algo.clip_coef if clip_coef is None else clip_coef
+    ent_coef = cfg.algo.ent_coef if ent_coef is None else ent_coef
     if cfg.algo.anneal_clip_coef:
         clip_coef = polynomial_decay(update, initial=clip_coef, final=0.0, max_decay_steps=num_updates)
     if cfg.algo.anneal_ent_coef:
@@ -554,7 +584,12 @@ class PPOActing:
 @register_algorithm(name="ppo")
 def main(ctx, cfg) -> TrainResult:
     """PPO's train loop: act through the pipelined player, fold the truncation bootstrap
-    into the rewards, GAE on the device, then the captured update."""
+    into the rewards, GAE on the device, then the captured update. ``algo.anakin=True``
+    hands the run to the Anakin engine (``engine/anakin.py``)."""
+    from sheeprl_tpu_torch.engine.anakin import anakin_enabled, ppo_anakin
+
+    if anakin_enabled(cfg):
+        return ppo_anakin(ctx, cfg)
     refuse_ppo_unported(cfg, pipelined=True, registers=True)
     device = ctx.device
     loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS)

@@ -63,9 +63,10 @@ class SACDraws(NamedTuple):
     new: Any
 
 
-def make_optimizers(cfg, max_grad_norm: float = 0.0, names: Sequence[str] = ("actor", "critic", "alpha")) -> Dict[str, Optimizer]:
-    """``algo.<name>.optimizer`` for each name (``alpha``: never clipped)."""
-    return {n: make_optimizer(cfg.algo[n].optimizer, 0.0 if n == "alpha" else max_grad_norm) for n in names}
+def make_optimizers(cfg, max_grad_norm: float = 0.0, names: Sequence[str] = ("actor", "critic", "alpha"), inject: Sequence[str] = ()) -> Dict[str, Optimizer]:
+    """``algo.<name>.optimizer`` for each name (``alpha``: never clipped); the names in
+    ``inject`` keep their learning rate in the state (a population's sweep)."""
+    return {n: make_optimizer(cfg.algo[n].optimizer, 0.0 if n == "alpha" else max_grad_norm, inject_lr=n in inject) for n in names}
 
 
 def init_opt_states(opts: Dict[str, Optimizer], params: Dict[str, Sequence[torch.Tensor]]) -> Dict[str, Any]:
@@ -103,13 +104,13 @@ def actor_and_alpha_step(agent, opts, opt_states, actor_in: torch.Tensor, q_fn: 
     return al.detach(), tl.detach()
 
 
-def make_sac_update(agent, cfg, act_dim: int):
+def make_sac_update(agent, cfg, act_dim: int, inject: Sequence[str] = ()):
     """``(update, opts, opt_states)``: ``update(opt_states, batch, update_target, draws)``
     is one SAC gradient step in place on ``agent`` and ``opt_states``; ``batch`` holds
     ``obs``, ``next_obs``, ``actions`` ``[B, ...]`` and ``rewards``, ``dones`` ``[B,
     1]``; ``draws`` a ``SACDraws`` of ``[B, act_dim]`` normals. Returns the losses by
-    name."""
-    opts = make_optimizers(cfg, cfg.algo.get("max_grad_norm", 0.0) or 0.0)
+    name. ``inject``: the optimizers whose learning rate lives in their state."""
+    opts = make_optimizers(cfg, cfg.algo.get("max_grad_norm", 0.0) or 0.0, inject=inject)
     opt_states = init_opt_states(opts, {"actor": agent.actor.parameters(), "critic": agent.critic.parameters(), "alpha": [agent.log_alpha]})
     gamma, tau, target_entropy = float(cfg.algo.gamma), float(cfg.algo.tau), -float(act_dim)
 
@@ -406,4 +407,8 @@ def sample_tanh(actor, rows: torch.Tensor, generator: torch.Generator) -> torch.
 
 @register_algorithm(name="sac")
 def main(ctx, cfg) -> TrainResult:
+    from sheeprl_tpu_torch.engine.anakin import anakin_enabled, sac_anakin
+
+    if anakin_enabled(cfg):  # the Anakin engine
+        return sac_anakin(ctx, cfg)
     return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True)

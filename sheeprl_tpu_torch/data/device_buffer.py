@@ -301,14 +301,59 @@ class DeviceTransitionRing(DeviceReplayMirror):
         before its add); ``data[k]`` is ``[1, n_envs, ...]``."""
         self.add(data, range(self.n_envs), [position] * self.n_envs)
 
-    def gather(self, envs: torch.Tensor, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def gather(self, envs: torch.Tensor, rows: torch.Tensor, arrays: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         out = {}
-        for k, buf in self.arrays.items():
+        for k, buf in (self.arrays if arrays is None else arrays).items():
             picked = buf[envs, rows]
             if k in self._cast:
                 picked = picked.to(self._cast[k])
             out[k] = picked.reshape(envs.shape[0], *self._row_shapes[k])
         return out
+
+    # The Anakin engine's ring (``engine/anakin.py``): it carries ring arrays of this
+    # layout through its captured dispatch, writes each step's row at ``rows_added %
+    # capacity`` (``rows_added`` a tensor on the device) and samples on the device.
+
+    def population_arrays(self, size: int) -> Dict[str, torch.Tensor]:
+        """Fresh ring arrays with a leading member axis, ``[size, n_envs, cap, flat]``
+        per key, allocated at the stacked shape (stacking ``size`` copies would hold
+        ``size`` more rings for a moment). Member ``m``'s ring is the view ``[m]``."""
+        return {k: torch.zeros((int(size), *a.shape), dtype=a.dtype, device=self.device) for k, a in self.arrays.items()}
+
+    def make_scan_writer(self):
+        """``write(arrays, rows, rows_added)``: one transition row for every env, in
+        place, at slot ``rows_added % capacity`` (``rows_added``, the rows added before
+        this one, a 0-d integer tensor); ``rows[k]`` is ``[n_envs, *row_shape]``."""
+        cap, n_envs, flat = self.capacity, self.n_envs, dict(self._flat)
+
+        def write(arrays: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor], rows_added: torch.Tensor) -> Dict[str, torch.Tensor]:
+            pos = torch.remainder(rows_added, cap).reshape(1)
+            for k, buf in arrays.items():
+                buf.index_copy_(1, pos, rows[k].reshape(n_envs, 1, flat[k]).to(buf.dtype))
+            return arrays
+
+        return write
+
+    def sample_indices(self, filled: torch.Tensor, generator: Optional[torch.Generator], batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(envs, rows)``, ``[B]`` int64 each, drawn on the device: rows uniform over
+        ``[0, max(filled, 1))`` and envs uniform over ``[0, n_envs)``, the host buffer's
+        ``sample`` distribution. ``filled`` is a 0-d tensor, so the bound is read on the
+        device (``torch.randint`` takes no tensor bound): a 62-bit draw modulo it."""
+        device = filled.device
+        rows = torch.randint(0, 1 << 62, (batch_size,), generator=generator, device=device) % torch.clamp(filled, min=1)
+        envs = torch.randint(0, self.n_envs, (batch_size,), generator=generator, device=device)
+        return envs, rows
+
+    def make_sample_gather(self, batch_size: int):
+        """``sample_gather(arrays, filled, generator, indices=None) -> batch``: the
+        device draw of ``sample_indices`` (or the injected ``(envs, rows)``) and the
+        gather of the ``[B, *row_shape]`` rows, the reduced storage planes cast back."""
+
+        def sample_gather(arrays, filled, generator, indices=None):
+            envs, rows = indices if indices is not None else self.sample_indices(filled, generator, batch_size)
+            return self.gather(envs, rows, arrays)
+
+        return sample_gather
 
 
 def make_transition_dispatcher(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1):

@@ -25,10 +25,10 @@ port does (``algos/ppo/utils.py::sample_actions``); ``greedy=True``, the default
 nothing. Discrete actions come out int32, as the reference's do. Dreamer, DroQ and
 SAC-AE policies are refused with the reference's message.
 
-``extract_policy_params``: the port writes the host loop's layout only, ``params`` at
-the top of the checkpoint. The reference's Anakin runs keep them inside the scan
-``carry`` and its population runs add a member axis; neither engine is ported, so such a
-checkpoint raises, naming its key.
+``extract_policy_params``: a host loop's checkpoint holds ``params`` at its top; an Anakin
+run's (``engine/anakin.py``) keeps them in its ``carry``, and a population's carry adds a
+leading member axis, of which member 0 (the run's own generators) is the one evaluation
+and serving use.
 """
 
 from __future__ import annotations
@@ -65,14 +65,17 @@ def policy_family(algo_name: str) -> str:
 
 
 def extract_policy_params(state: Dict[str, Any], cfg: Any, algo: str) -> Any:
+    """The policy's parameters from a loaded checkpoint, whatever the run's layout."""
     if "params" in state:
         return state["params"]
-    if "carry" in state:
-        raise NotImplementedError(
-            f"{algo}: the checkpoint keeps its parameters under 'carry' (an algo.anakin run, or a population "
-            "run's member axis), a layout the PyTorch port does not load yet"
-        )
-    raise KeyError(f"{algo}: the checkpoint has no 'params' (keys: {sorted(state)})")
+    if "carry" not in state:
+        raise KeyError(f"{algo}: the checkpoint has no 'params' (keys: {sorted(state)})")
+    params = state["carry"]["params"]
+    from sheeprl_tpu_torch.engine.population import PopulationSpec, slice_member
+
+    if PopulationSpec.from_cfg(cfg, algo).enabled:
+        params = slice_member(params, 0)
+    return params
 
 
 @dataclass

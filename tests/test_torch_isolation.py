@@ -96,6 +96,15 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.distributed.publish",
     "sheeprl_tpu_torch.distributed.transport",
     "sheeprl_tpu_torch.distributions",
+    "sheeprl_tpu_torch.engine",
+    "sheeprl_tpu_torch.engine.anakin",
+    "sheeprl_tpu_torch.engine.population",
+    "sheeprl_tpu_torch.envs.batched",
+    "sheeprl_tpu_torch.envs.batched.cartpole",
+    "sheeprl_tpu_torch.envs.batched.core",
+    "sheeprl_tpu_torch.envs.batched.gym_adapter",
+    "sheeprl_tpu_torch.envs.batched.mountain_car",
+    "sheeprl_tpu_torch.envs.batched.pendulum",
     "sheeprl_tpu_torch.envs.core",
     "sheeprl_tpu_torch.envs.dummy",
     "sheeprl_tpu_torch.envs.spaces",

@@ -352,8 +352,13 @@ def test_pipelined_player_depth_zero_is_synchronous_and_depth_k_lags():
 
 
 def test_extract_policy_params_reads_the_host_loop_layout_and_refuses_others():
+    from sheeprl_tpu_torch.config.core import compose
     from sheeprl_tpu_torch.utils.policy import extract_policy_params
 
     assert extract_policy_params({"params": {"w": 1}}, None, "ppo") == {"w": 1}
-    with pytest.raises(NotImplementedError, match="carry"):
-        extract_policy_params({"carry": {"params": {}}}, None, "ppo")
+    # an Anakin run's carry, and a population's: member 0 of its stacked parameters
+    w = torch.arange(6.0).reshape(3, 2)
+    assert extract_policy_params({"carry": {"params": {"w": w}}}, compose(overrides=["exp=ppo_anakin"]), "ppo")["w"] is w
+    assert torch.equal(extract_policy_params({"carry": {"params": {"w": w}}}, compose(overrides=["exp=ppo_anakin_pop"]), "ppo")["w"], w[0])
+    with pytest.raises(KeyError, match="params"):
+        extract_policy_params({"opt_state": {}}, None, "ppo")
