@@ -173,16 +173,32 @@ result line:
 30. entries: the phases above that drive the train and eval entries through the CLI
    (train-cli, dv2-train-cli, dv1-train-cli, p2e-dv1/2/3-cli, ppo-cli, a2c-cli,
    ppo-recurrent-cli, the SAC family's and the decoupled entries' cli phases,
-   anakin-cli; ``entry_phases``) run last, in three worker processes side by side
-   (``ENTRY_GROUPS``, ``run_entry_workers``: ``chip_smoke.py --entries NAME,... --out
-   PATH``), each group's phases in order; their lines print when all have ended, then
-   the ``[dv2-counts]``, ``[p2e-counts]``, ``[ppo-counts]``, ``[sac-counts]``,
-   ``[decoupled-counts]`` and ``[anakin-counts]`` lines.
+   anakin-cli, and the Sebulba phases below; ``entry_phases``) run last, in four worker
+   processes side by side (``ENTRY_GROUPS``, the Sebulba phases in a worker of their own; ``run_entry_workers``: ``chip_smoke.py
+   --entries NAME,... --out PATH``), each group's phases in order; their lines print when
+   all have ended, then the ``[dv2-counts]``, ``[p2e-counts]``, ``[ppo-counts]``,
+   ``[sac-counts]``, ``[decoupled-counts]``, ``[anakin-counts]`` and ``[sebulba-counts]``
+   lines. The Sebulba phases run ``python -m sheeprl_tpu_torch.sebulba`` (a launcher, a
+   learner process and actor processes, each with a CUDA context of its own on the card):
+   ``[sebulba-sac-cli]``: ``exp=sac_decoupled``'s widths (MLPs 256 x 2, batch 256) with two
+   actors of 4 sync envs at ``[sac-decoupled-cli]``'s steps; the learner's summary accounts
+   for every block (blocks, env steps, gradient steps replayed from each actor's
+   ``Ratio``, publications, bytes), its rates, ms per publication, staleness and each
+   process's peak memory; then a placement resumed from the learner's checkpoint, and
+   the eval entry on the resumed run's; ``[sebulba-ppo-cli]``: ``[ppo-decoupled-cli]``'s
+   run with one actor beside the thread mode's, their ``SHEEPRL_TPU_BATCH_DIGEST`` lines
+   equal line for line; ``[sebulba-kill]``: two actors (``SEBULBA_KILL``), actor 0
+   SIGKILLed by ``chaos.kill_actor_at_step``: its generation 1 reconnects and finishes,
+   the learner's gradient-step trace rises strictly inside the kill window, exit 0; the
+   ``[sebulba-counts]`` line: every Sebulba process launches no K1 or K2, and the Sebulba
+   rates beside the thread mode's.
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
 batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, the Anakin phases, rssm-scan) zeroes
-the kernels' launch counters just before it and reads them just after; a replayed graph
+the kernels' launch counters just before it and reads them just after (a Sebulba
+process's counters start at zero with the process: the learner's summary carries its
+own and each actor's); a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
 one JSON line describing every kernel (each row with its launches on every path it could
 run on, the serve paths' zeros among them), and last the line ``{"ok": true, "device": {...}}``. Exits 2 without CUDA.
@@ -539,7 +555,7 @@ SERVE_FAMILIES = {
 }
 SERVE_TIERS = ("f32", "bf16", "int8")
 SERVE_MAX_BATCH = 32  # the ladder 1, 2, 4, 8, 16, 32
-SERVE_CLIENTS, SERVE_REQUESTS = 8, 128  # client threads x requests each, per family and tier
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 64  # client threads x requests each, per family and tier
 SERVE_WARMUP_REQUESTS = 16  # each client's untimed requests before them
 SERVE_CPU_ATOL = 1e-3  # continuous actions, card against CPU, TF32 off
 
@@ -3523,6 +3539,196 @@ def phase_anakin_cli(device: torch.device, workdir: Path) -> dict:
     return rows
 
 
+# --------------------------------------------------------------------------- Sebulba
+# the placed-process mode (python -m sheeprl_tpu_torch.sebulba): [sebulba-sac-cli] at
+# exp=sac_decoupled's widths, two actors of 4 sync envs, [sac-decoupled-cli]'s steps;
+# [sebulba-ppo-cli] at [ppo-decoupled-cli]'s run with one actor; [sebulba-kill] at small
+# widths, learning from the first iteration (every block takes a gradient step) and a
+# long run, so that actor 1 still acts while actor 0's respawn starts
+SEBULBA_SAC = ["exp=sac_decoupled", "env.sync_env=True", *SAC_CLI_STEPS["sac"], "distributed.num_actors=2", "algo.run_test=False"]
+SEBULBA_KILL = ["exp=sac_decoupled", "algo.hidden_size=64", "algo.per_rank_batch_size=64", "env.sync_env=True", "algo.total_steps=32000",
+                "algo.learning_starts=0", "algo.replay_ratio=0.25", "buffer.size=65536", "checkpoint.every=0", "metric.log_level=0",
+                "algo.run_test=False", "distributed.num_actors=2", "distributed.respawn_backoff_s=0.2", "chaos.kill_actor_at_step=100",
+                "chaos.kill_actor_index=0"]
+SEBULBA_TIMEOUT_S = 300
+
+
+def _sebulba(module: str, overrides: list, workdir: Path, tag: str, **env_extra) -> tuple:
+    """``python -m <module> <overrides>`` in a session of its own (its children in its
+    process group, killed whole on the way out); raises unless it exits 0. A run that
+    outlasts ``SEBULBA_TIMEOUT_S`` first gets SIGABRT in every process of its group, which
+    prints each one's Python stacks into the output (``PYTHONFAULTHANDLER``). Returns the
+    learner's summary (``SHEEPRL_TPU_SEBULBA_SUMMARY``, if written) and the output."""
+    import signal
+
+    out_path, summary_path = workdir / f"{tag}.out", workdir / f"{tag}.json"
+    env = {**os.environ, "OMP_NUM_THREADS": str(ENTRY_THREADS), "SHEEPRL_TPU_SEBULBA_SUMMARY": str(summary_path),
+           "PYTHONFAULTHANDLER": "1", "PYTHONUNBUFFERED": "1", **{k: str(v) for k, v in env_extra.items()}}
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", module, *overrides], cwd=Path(__file__).resolve().parent, env=env,
+                                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=SEBULBA_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGABRT)
+            time.sleep(3.0)
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    output = out_path.read_text()
+    if rc != 0:
+        raise AssertionError(f"[{tag}] {module} exited {rc}:\n{output[-20000:]}")
+    return (json.loads(summary_path.read_text()) if summary_path.is_file() else None), output
+
+
+def _no_kernels(paths: dict, tag: str) -> None:
+    if any(any(c.values()) for c in paths.values()):
+        raise AssertionError(f"[{tag}] a Sebulba process launched K1 or K2: {paths}")
+
+
+def _process_paths(summary: dict, prefix: str) -> dict:
+    """Each process's launch counts from a learner's summary, by path name."""
+    return {f"{prefix}_learner": summary["learner"]["launches"],
+            **{f"{prefix}_actor{k}": a["launches"] for k, a in summary["actors"].items()}}
+
+
+def _trace_rates(summary: dict, num_envs: int) -> dict:
+    """Policy and gradient steps/s between the learner's first and last block, and over
+    the learner's whole loop (the actors' start-up included)."""
+    (t0, g0), (t1, g1) = summary["grad_step_trace"][0], summary["grad_step_trace"][-1]
+    blocks = len(summary["grad_step_trace"])
+    return {"policy_steps_per_s": (blocks - 1) * num_envs / (t1 - t0), "grad_steps_per_s": (g1 - g0) / (t1 - t0),
+            "loop_policy_steps_per_s": summary["env_steps_total"] / summary["wall_time_s"], "loop_seconds": summary["wall_time_s"]}
+
+
+def _sac_expected(cfg, num_actors: int) -> tuple:
+    """Blocks, env steps, gradient steps and publications a SAC placement must account
+    for: each actor's ``Ratio`` replayed as the actor calls it."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    num_envs = int(cfg.env.num_envs)
+    per_iter = num_envs * num_actors
+    iters = int(cfg.algo.total_steps) // per_iter
+    starts = int(cfg.algo.learning_starts) // per_iter
+    grad, pubs = 0, 0
+    for _ in range(num_actors):
+        ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+        for it in range(starts, iters + 1):
+            g = max(ratio((it * per_iter - max(starts - 1, 0) * per_iter) / num_actors), 0) if it >= max(starts, 1) else 0
+            grad, pubs = grad + g, pubs + (g > 0)
+    return num_actors * iters, num_actors * iters * num_envs, grad, pubs
+
+
+def phase_sebulba_sac_cli(device: torch.device, workdir: Path) -> dict:
+    """``[sebulba-sac-cli]``: train with two actors, account for every block, resume the
+    learner from its checkpoint, evaluate the resumed run's last checkpoint."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    overrides = [*SEBULBA_SAC, f"device={device.type}", f"log_root={workdir / 'logs'}"]
+    cfg = compose(overrides=overrides)
+    num_actors = int(cfg.distributed.num_actors)
+    s, output = _sebulba("sheeprl_tpu_torch.sebulba", overrides, workdir, "sebulba-sac-cli")
+    blocks, env_steps, grad, pubs = _sac_expected(cfg, num_actors)
+    got = (s["blocks"], s["env_steps_total"], s["cumulative_grad_steps"], s["publishes"])
+    trace = s["grad_step_trace"]
+    batch_bytes = grad * int(cfg.algo.per_rank_batch_size) * (2 * 17 + 6 + 2) * 4  # obs, next_obs, actions, reward, done
+    actor_bytes = sum(4 * n for n in (17 * 256 + 256, 256 * 256 + 256, 256 * 12 + 12))  # MLP 256 x 2, mean and log-std heads
+    if (got != (blocks, env_steps, grad, pubs) or s["error"] is not None or len(trace) != blocks or trace[-1][1] != grad
+            or s["bytes_received"] < batch_bytes or not pubs * actor_bytes <= s["bytes_published"] <= (pubs + num_actors) * num_actors * (actor_bytes + 8192)
+            or sorted(s["actors"]) != [f"{i}_g0" for i in range(num_actors)]):
+        raise AssertionError(f"[sebulba-sac-cli] the summary does not account for every block: blocks, env steps, gradient steps, "
+                             f"publications {got} against {(blocks, env_steps, grad, pubs)}; {len(trace)} trace points; bytes "
+                             f"received {s['bytes_received']} (blocks {batch_bytes}), published {s['bytes_published']} "
+                             f"(one publication {actor_bytes}); actors {sorted(s['actors'])}; error {s['error']}")
+    paths = _process_paths(s, "sebulba_sac")
+    row = {"summary_counts": dict(zip(("blocks", "env_steps", "grad_steps", "publishes"), got)), **_trace_rates(s, int(cfg.env.num_envs)),
+           "publish_ms": s["publish_ms"], "staleness_steps": s["staleness_steps"],
+           "peak_bytes": {"learner": s["learner"]["peak_bytes"], **{k: a["peak_bytes"] for k, a in s["actors"].items()}},
+           "bytes_received": s["bytes_received"], "bytes_published": s["bytes_published"]}
+    log("[sebulba-sac-cli] train: " + json.dumps(row))
+    # the resume as a dry run with one actor (one block): it loads the learner's
+    # parameters and optimizer state, takes a block's gradient steps and checkpoints
+    first = next(p for p in sorted(Path(s["checkpoint"]).parent.iterdir()) if p.name == "ckpt_1024")
+    r, _ = _sebulba("sheeprl_tpu_torch.sebulba", [*overrides, f"checkpoint.resume_from={first}", "dry_run=True", "distributed.num_actors=1"],
+                    workdir, "sebulba-sac-resume")
+    counts = [int(CheckpointManager.load(c)["opt_state"]["critic"]["count"]) for c in (first, r["checkpoint"])]
+    if r["blocks"] != 1 or r["cumulative_grad_steps"] <= 0 or counts[1] != counts[0] + r["cumulative_grad_steps"] or r["error"] is not None:
+        raise AssertionError(f"[sebulba-sac-cli] resume from {first}: {r['blocks']} blocks, {r['cumulative_grad_steps']} gradient steps, "
+                             f"the critic's optimizer count {counts[0]} -> {counts[1]}")
+    paths.update(_process_paths(r, "sebulba_sac_resume"))
+    zero_launches()
+    result = evaluate([f"checkpoint_path={r['checkpoint']}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    paths["sebulba_sac_eval"] = launch_counts()
+    _no_kernels(paths, "sebulba-sac-cli")
+    if not math.isfinite(result.reward) or result.steps <= 0:
+        raise AssertionError(f"[sebulba-sac-cli] eval: {result.steps} steps, reward {result.reward}")
+    log(f"[sebulba-sac-cli] resumed from {first.name}: {r['cumulative_grad_steps']} gradient steps, the critic's optimizer count "
+        f"{counts[0]} -> {counts[1]}; eval of {Path(r['checkpoint']).name}: reward {result.reward}, {result.steps} steps; K1/K2 launches {paths}")
+    return {"train": row, "resume_grad_steps": r["cumulative_grad_steps"], "k1_k2_launches": paths,
+            "launcher_lines": [ln for ln in output.splitlines() if ln.startswith("[sebulba]") and "spawning" not in ln]}
+
+
+def phase_sebulba_ppo_cli(device: torch.device, workdir: Path) -> dict:
+    """``[sebulba-ppo-cli]``: ``[ppo-decoupled-cli]``'s run placed with one actor, beside
+    the thread mode's run in this process; the learner consumes the thread path's batches
+    line for line."""
+    import concurrent.futures as cf
+
+    from sheeprl_tpu_torch.cli import run
+
+    base = ["exp=ppo_decoupled", *_PPO_DECOUPLED_CLI, f"device={device.type}"]
+    digests = {m: workdir / f"{m}.digest" for m in ("thread", "sebulba")}
+    with cf.ThreadPoolExecutor(1) as pool:
+        placed = pool.submit(_sebulba, "sheeprl_tpu_torch.sebulba", [*base, f"log_root={workdir / 'sebulba'}", "distributed.num_actors=1"],
+                             workdir, "sebulba-ppo-cli", SHEEPRL_TPU_BATCH_DIGEST=digests["sebulba"])
+        os.environ["SHEEPRL_TPU_BATCH_DIGEST"] = str(digests["thread"])
+        try:
+            run([*base, f"log_root={workdir / 'thread'}"])
+        finally:
+            del os.environ["SHEEPRL_TPU_BATCH_DIGEST"]
+        s, _ = placed.result()
+    lines = {m: p.read_text().splitlines() for m, p in digests.items()}
+    if len(lines["thread"]) != 4 or lines["sebulba"] != lines["thread"] or (s["blocks"], s["publishes"]) != (4, 4) or s["error"]:
+        raise AssertionError(f"[sebulba-ppo-cli] batch digests: thread {lines['thread']}, sebulba {lines['sebulba']}; "
+                             f"{s['blocks']} blocks, {s['publishes']} publications, error {s['error']}")
+    paths = _process_paths(s, "sebulba_ppo")
+    _no_kernels(paths, "sebulba-ppo-cli")
+    row = {"digest_lines_equal": len(lines["thread"]), **_trace_rates(s, 128 * 4), "publish_ms": s["publish_ms"],
+           "staleness_steps": s["staleness_steps"], "k1_k2_launches": paths,
+           "peak_bytes": {"learner": s["learner"]["peak_bytes"], **{k: a["peak_bytes"] for k, a in s["actors"].items()}}}
+    log("[sebulba-ppo-cli] " + json.dumps(row))
+    return row
+
+
+def phase_sebulba_kill(device: torch.device, workdir: Path) -> dict:
+    """``[sebulba-kill]``: actor 0 SIGKILLed; its generation 1 reconnects and finishes, the
+    learner's gradient-step trace rises strictly inside the kill window, exit 0."""
+    overrides = [*SEBULBA_KILL, f"device={device.type}", f"log_root={workdir / 'logs'}"]
+    s, output = _sebulba("sheeprl_tpu_torch.sebulba", overrides, workdir, "sebulba-kill")
+    events = s["events"]
+    kill_t = next((t for t, a, g, e in events if (a, g, e) == (0, 0, "closed")), None)
+    respawn_t = next((t for t, a, g, e in events if (a, g, e) == (0, 1, "connected")), None)
+    done = {(a, g) for _, a, g, e in events if e == "done"}
+    inside = [g for t, g in s["grad_step_trace"] if kill_t is not None and respawn_t is not None and kill_t < t < respawn_t]
+    if (kill_t is None or respawn_t is None or respawn_t <= kill_t or done != {(0, 1), (1, 0)} or len(inside) < 2
+            or any(b <= a for a, b in zip(inside, inside[1:])) or s["error"] is not None):
+        raise AssertionError(f"[sebulba-kill] events {events}; {len(inside)} trace points in the kill window, "
+                             f"rising strictly: {all(b > a for a, b in zip(inside, inside[1:]))}; error {s['error']}")
+    paths = _process_paths(s, "sebulba_kill")
+    _no_kernels(paths, "sebulba-kill")
+    row = {"kill_window_s": respawn_t - kill_t, "trace_points_in_window": len(inside), "grad_steps_in_window": inside[-1] - inside[0],
+           "blocks": s["blocks"], "grad_steps": s["cumulative_grad_steps"], "k1_k2_launches": paths,
+           "launcher_lines": [ln for ln in output.splitlines() if ln.startswith("[sebulba]") and "spawning" not in ln]}
+    log("[sebulba-kill] " + json.dumps(row))
+    return row
+
+
 def entry_phases(device: torch.device) -> dict:
     """The phases that drive the train and eval entries (train, resume, eval through the
     CLI), by the names ``[phases]`` reports, each a thunk that runs it in a temporary
@@ -3556,6 +3762,9 @@ def entry_phases(device: torch.device) -> dict:
         algo = "ppo" if "algo.name=ppo" in overrides else overrides[0].split("=")[1]
         phases[f"{case}-cli"] = in_tmp(phase_entry_cli, overrides, f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=halves)
     phases["anakin-cli"] = in_tmp(phase_anakin_cli)
+    phases["sebulba-sac-cli"] = in_tmp(phase_sebulba_sac_cli)
+    phases["sebulba-ppo-cli"] = in_tmp(phase_sebulba_ppo_cli)
+    phases["sebulba-kill"] = in_tmp(phase_sebulba_kill)
     return phases
 
 
@@ -3569,9 +3778,11 @@ ENTRY_GROUPS = (
     ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "dv2-train-cli-episode"),
     ("anakin-cli", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli", "ppo-recurrent-cli-lstm",
      "ppo-recurrent-cli-attention", "dv1-train-cli"),
+    # the Sebulba phases spawn processes of their own: their worker mostly waits
+    ("sebulba-sac-cli", "sebulba-kill", "sebulba-ppo-cli"),
 )
 ENTRY_TIMEOUT_S = 600  # all workers; alone they take ~140 s each
-ENTRY_THREADS = 2  # torch's CPU threads in each worker: three workers share the host's cores
+ENTRY_THREADS = 2  # torch's CPU threads in each worker: the workers share the host's cores
 
 
 def port_ready() -> bool:
@@ -3753,6 +3964,7 @@ def main() -> int:
     sac_cli = {case: entries[f"{case}-cli"] for case in SAC_CLI}
     dec_cli = {case: entries[f"{case}-cli"] for case in DECOUPLED_CLI}
     ak_cli = entries["anakin-cli"]
+    sb_sac, sb_ppo, sb_kill = entries["sebulba-sac-cli"], entries["sebulba-ppo-cli"], entries["sebulba-kill"]
 
     log("[dv2-counts] " + json.dumps({
         "k1_per_replay_capture": dv2_graph["k1_per_replay_capture"], "k1_per_replay_profiler": dv2_graph["k1_per_replay_profiler"],
@@ -3806,6 +4018,23 @@ def main() -> int:
     }))
     if any(any(c.values()) for c in anakin_paths.values()):
         raise AssertionError(f"[anakin-counts] an Anakin path launched K1 or K2: {anakin_paths}")
+    sebulba_paths = {**sb_sac["k1_k2_launches"], **sb_ppo["k1_k2_launches"], **sb_kill["k1_k2_launches"]}
+    log("[sebulba-counts] " + json.dumps({
+        "k1_k2_launches": sebulba_paths,
+        # the placed processes against the thread mode's entry at the same widths and steps
+        "policy_steps_per_s": {"sebulba_sac": sb_sac["train"]["policy_steps_per_s"], "sebulba_sac_loop": sb_sac["train"]["loop_policy_steps_per_s"],
+                               "thread_sac_decoupled_host": dec_cli["sac_decoupled_host"]["train"]["policy_steps_per_s"],
+                               "sebulba_ppo": sb_ppo["policy_steps_per_s"], "sebulba_ppo_loop": sb_ppo["loop_policy_steps_per_s"],
+                               "thread_ppo_decoupled": dec_cli["ppo_decoupled"]["train"]["policy_steps_per_s"]},
+        "learner_grad_steps_per_s": {"sebulba_sac": sb_sac["train"]["grad_steps_per_s"],
+                                     "thread_sac_decoupled_host": dec_cli["sac_decoupled_host"]["train"]["grad_steps"]
+                                     / dec_cli["sac_decoupled_host"]["train"]["updating_seconds"]},
+        "publish_ms": {"sac": sb_sac["train"]["publish_ms"], "ppo": sb_ppo["publish_ms"]},
+        "staleness_steps": {"sac": sb_sac["train"]["staleness_steps"], "ppo": sb_ppo["staleness_steps"]},
+        "peak_bytes": {"sac": sb_sac["train"]["peak_bytes"], "ppo": sb_ppo["peak_bytes"]},
+        "kill_window": {k: sb_kill[k] for k in ("kill_window_s", "trace_points_in_window", "grad_steps_in_window")},
+    }))
+    _no_kernels(sebulba_paths, "sebulba-counts")
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
     # K1's launches on every path that runs it, each counted from zero around its run
@@ -3831,11 +4060,14 @@ def main() -> int:
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in serve_paths.items()},
         # the Anakin and population paths, which run no K1 either (checked zero in [anakin-counts])
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in anakin_paths.items()},
+        # every Sebulba process, which runs no K1 either (checked zero in [sebulba-counts])
+        **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in sebulba_paths.items()},
     }
     # K2's: its one path, the scan bench, and the serving paths (none)
     k2_paths = {"rssm_scan": {"fwd": scan["launches"]["rssm_step"], "bwd": scan["launches"]["rssm_step_bwd"]},
                 **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()},
-                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in anakin_paths.items()}}
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in anakin_paths.items()},
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in sebulba_paths.items()}}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -3879,7 +4111,8 @@ def main() -> int:
         + "; decoupled cli policy steps/s " + ", ".join(f"{c} {r['train']['policy_steps_per_s']:.1f}" for c, r in dec_cli.items())
         + "; serve requests/s " + ", ".join(f"{n} {t} {r['requests_per_s']:.0f}" for t, rows in serve["tiers"].items() for n, r in rows.items())
         + "; Anakin env steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['env_steps_per_s']:.0f}" for t in g["turns"]) for n, g in (("ppo", ak_ppo), ("sac", ak_sac)))
-        + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items()))
+        + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items())
+        + f"; Sebulba policy steps/s sac {sb_sac['train']['policy_steps_per_s']:.1f}, ppo {sb_ppo['policy_steps_per_s']:.1f}")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""What the two thread-decoupled entries share (``sac_decoupled``, ``ppo_decoupled``;
-counterparts of ``sheeprl_tpu/algos/{sac,ppo}/*_decoupled.py`` in their default
-``distributed.mode=thread``): the player thread and the streams.
+"""What the two decoupled entries share (``sac_decoupled``, ``ppo_decoupled``;
+counterparts of ``sheeprl_tpu/algos/{sac,ppo}/*_decoupled.py``): in their default
+``distributed.mode=thread``, the player thread and the streams; with
+``distributed.mode=sebulba``, the hand-over to the placed processes (``run_placed``).
 
 The reference runs its player and learner as two threads of one process and leans on
 JAX for their safety: immutable buffers, ordered asynchronous dispatch, and a host lock
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import queue
+import sys
 import threading
 from typing import Any, Callable, Iterator, Optional
 
@@ -31,6 +33,19 @@ import torch
 PLAYER_SEED_OFFSET = 10_000
 POLL_SECONDS = 0.1  # how often a blocked queue operation looks at the stop event
 JOIN_SECONDS = 30.0
+
+
+def run_placed(ctx, cfg, spec, algo: str):
+    """``distributed.mode=sebulba``: as the launcher (``distributed.role=launcher``, the
+    default), place the learner and the actors from this command line's overrides and
+    exit with the learner's code; as a child, run its role (``distributed/sebulba.py``)."""
+    if spec.role == "launcher":
+        from sheeprl_tpu_torch.distributed import launcher
+
+        raise SystemExit(launcher.launch(sys.argv[1:]))
+    from sheeprl_tpu_torch.distributed import sebulba
+
+    return sebulba.run(ctx, cfg, spec, algo=algo)
 
 
 def player_generator(cfg, device: torch.device) -> torch.Generator:

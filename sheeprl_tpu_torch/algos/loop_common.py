@@ -36,17 +36,29 @@ def _pipeline_refusal(cfg: Dict[str, Any], value: Any) -> str:
     )
 
 
+#: the modes of ``distributed.mode`` that the decoupled entries run (they name the key in
+#: ``handled`` for these; ``decoupled_handled``)
+DECOUPLED_MODES = ("thread", "sebulba")
+
+
 def _sebulba_refusal(cfg: Dict[str, Any], value: Any) -> str:
-    """Only the decoupled entries read ``distributed.mode``; their default, ``thread``, is
-    ported."""
+    """Only the decoupled entries read ``distributed.mode``; they run ``thread`` and
+    ``sebulba`` and refuse any other mode."""
     name = (cfg.get("algo") or {}).get("name")
     if name in ("sac_decoupled", "ppo_decoupled"):
         return (
-            f"distributed.mode={value!r}: the reference's {name} then runs its player and learner as placed processes "
-            "(a launcher, a transport channel and weight publishers), which the PyTorch port does not have yet; the "
-            "port runs them as two threads of one process (distributed.mode=thread)"
+            f"distributed.mode={value!r}: the {name} loop runs its player and learner as two threads of one process "
+            "(distributed.mode=thread) or as placed processes (distributed.mode=sebulba, python -m "
+            "sheeprl_tpu_torch.sebulba); there is no other mode"
         )
     return f"distributed.mode={value!r}: the {name} loop has no player/learner split, as the reference's has not (it does not read the key)"
+
+
+def decoupled_handled(cfg: Dict[str, Any]) -> tuple:
+    """``handled`` for a decoupled entry: ``distributed.mode`` when its value is one the
+    entry runs."""
+    mode = (cfg.get("distributed") or {}).get("mode")
+    return ("distributed.mode",) if mode in (None, *DECOUPLED_MODES) else ()
 
 
 def _anakin_refusal(cfg: Dict[str, Any], value: Any) -> str:
@@ -73,12 +85,20 @@ def _registration_refusal(cfg: Dict[str, Any], value: Any) -> str:
     )
 
 
+def _set(value: Any) -> bool:
+    return value is not None
+
+
 # (key, test on its value, what the reference does there that the port does not yet, or
 # a function of the config and the value that words the whole refusal)
 _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
     ("distributed.mode", lambda v: v not in (None, "thread"), _sebulba_refusal),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
+    ("chaos.kill_at_step", _set, "the chaos harness's process kill at a loop boundary (the training guard)"),
+    ("chaos.corrupt_ckpt_at_step", _set, "the chaos harness's checkpoint corruption (the training guard)"),
+    ("chaos.delay_at_step", _set, "the chaos harness's boundary delay (the training guard)"),
+    ("chaos.worker_fault_at_step", _set, "the chaos harness's env-pool worker fault"),
     ("algo.anakin", bool, _anakin_refusal),
     ("obs.enabled", bool, "the training monitor"),
     ("obs.health", bool, "the health diagnostics"),

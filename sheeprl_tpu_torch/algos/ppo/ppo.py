@@ -382,13 +382,14 @@ class PPOTrainFns:
         return float(self.lr_schedule(torch.tensor(grad_step)))
 
 
-def refuse_ppo_unported(cfg, pipelined: bool, registers: bool = False) -> None:
+def refuse_ppo_unported(cfg, pipelined: bool, registers: bool = False, handled: Sequence[str] = ()) -> None:
     """The reference's keys that the PPO family's loops do not have: ``refuse_unported``'s
     list, and a memmapped rollout (the port keeps the rollout in memory and on the
     device). ``pipelined``: the loop runs the pipelined player (PPO's); A2C's and
     recurrent PPO's act synchronously, as the reference's do. ``registers``: the loop
-    registers its last checkpoint (PPO's, as the reference's ``ppo.py``)."""
-    handled = (("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ())
+    registers its last checkpoint (PPO's, as the reference's ``ppo.py``). ``handled``: other
+    keys the loop reads itself."""
+    handled = tuple(handled) + (("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ())
     refuse_unported(cfg, handled=handled)
     if cfg.buffer.get("memmap", False):
         raise NotImplementedError("buffer.memmap=True: the PPO family's rollout lives in memory and on the device in the PyTorch port")

@@ -1,6 +1,7 @@
-"""Decoupled PPO (counterpart of ``sheeprl_tpu/algos/ppo/ppo_decoupled.py``, thread
-mode): the player and the learner as two threads of one process, each launching on a
-CUDA stream of its own (``algos/decoupled.py``).
+"""Decoupled PPO (counterpart of ``sheeprl_tpu/algos/ppo/ppo_decoupled.py``). In its
+default ``distributed.mode=thread`` the player and the learner run as two threads of one
+process, each launching on a CUDA stream of its own (``algos/decoupled.py``); with
+``distributed.mode=sebulba`` they run as placed processes (``distributed/sebulba.py``).
 
 * **The player** (``PlayerThread``) runs the coupled loop's rollout (``ppo.py::
   PPOActing`` at depth 0, with draws of its own): the truncation bootstrap, then GAE on
@@ -26,8 +27,7 @@ Against the reference's coupled entry, the reference's decoupled one computes th
 update from the same rollout; it differs in where the draws come from (its player's
 own key chain) and in what it logs (``Sebulba/param_staleness_steps``, and no
 ``Rollout/*`` counters of an env pool). Not ported: the training guard, flight
-recorder, strict mode and monitor (refused), and the Sebulba placed-process mode
-(``distributed.mode=sebulba``, refused).
+recorder, strict mode and monitor (refused).
 """
 
 from __future__ import annotations
@@ -39,11 +39,12 @@ from typing import Any
 
 import torch
 
-from sheeprl_tpu_torch.algos.decoupled import PlayerThread, on_stream, player_generator, role_stream
-from sheeprl_tpu_torch.algos.loop_common import TrainResult
+from sheeprl_tpu_torch.algos.decoupled import PlayerThread, on_stream, player_generator, role_stream, run_placed
+from sheeprl_tpu_torch.algos.loop_common import TrainResult, decoupled_handled
 from sheeprl_tpu_torch.algos.ppo.agent import build_agent
 from sheeprl_tpu_torch.algos.ppo.ppo import PPOActing, PPOFamilyLoop, PPOTrainFns, annealed_coefs, refuse_ppo_unported
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, test
+from sheeprl_tpu_torch.distributed.placement import placement_from_cfg
 from sheeprl_tpu_torch.distributed.publish import evict_and_put, handoff, make_stamp, receive, staleness_steps
 from sheeprl_tpu_torch.distributed.transport import maybe_digest
 from sheeprl_tpu_torch.utils.metric import record_episode_stats
@@ -52,7 +53,11 @@ from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 @register_algorithm(name="ppo_decoupled", decoupled=True)
 def main(ctx, cfg) -> TrainResult:
-    refuse_ppo_unported(cfg, pipelined=False)  # a memmapped rollout among them, as the coupled entry
+    # a memmapped rollout among them, as the coupled entry
+    refuse_ppo_unported(cfg, pipelined=False, handled=decoupled_handled(cfg))
+    spec = placement_from_cfg(cfg)
+    if spec.is_sebulba:  # placed processes (distributed/sebulba.py)
+        return run_placed(ctx, cfg, spec, "ppo")
     device = ctx.device
     agg_lock = threading.Lock()  # the player records episode stats, the learner reads and resets
     loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS, agg_lock)

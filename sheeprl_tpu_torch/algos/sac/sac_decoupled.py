@@ -1,6 +1,7 @@
-"""Decoupled SAC (counterpart of ``sheeprl_tpu/algos/sac/sac_decoupled.py``, thread
-mode): the player and the learner as two threads of one process, each launching on a
-CUDA stream of its own (``algos/decoupled.py``).
+"""Decoupled SAC (counterpart of ``sheeprl_tpu/algos/sac/sac_decoupled.py``). In its
+default ``distributed.mode=thread`` the player and the learner run as two threads of one
+process, each launching on a CUDA stream of its own (``algos/decoupled.py``); with
+``distributed.mode=sebulba`` they run as placed processes (``distributed/sebulba.py``).
 
 * **The player** (``PlayerThread``) steps the envs and owns the replay buffer and the
   ``Ratio``. It acts on its own copy of the actor, seeded draws of its own, and adopts,
@@ -25,8 +26,7 @@ CUDA stream of its own (``algos/decoupled.py``).
   layout, ``rb`` only from the player's snapshot.
 
 Not ported: the reference's training guard and its emergency save (``fault.autoresume``
-is refused), its flight recorder, strict mode and monitor (refused), and the Sebulba
-placed-process mode (``distributed.mode=sebulba``, refused).
+is refused), its flight recorder, strict mode and monitor (refused).
 """
 
 from __future__ import annotations
@@ -42,9 +42,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.decoupled import PlayerThread, StreamFence, on_stream, player_generator, role_stream
+from sheeprl_tpu_torch.algos.decoupled import PlayerThread, StreamFence, on_stream, player_generator, role_stream, run_placed
 from sheeprl_tpu_torch.algos.dreamer_loop import load_opt_states
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, refuse_unported
+from sheeprl_tpu_torch.algos.loop_common import TrainResult, decoupled_handled, refuse_unported
 from sheeprl_tpu_torch.algos.sac.agent import action_dim
 from sheeprl_tpu_torch.algos.sac.sac import sac_parts, sample_tanh
 from sheeprl_tpu_torch.algos.sac.utils import AGGREGATOR_KEYS, env_actions, test
@@ -52,6 +52,7 @@ from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer, to_device
 from sheeprl_tpu_torch.data.device_buffer import make_transition_dispatcher
+from sheeprl_tpu_torch.distributed.placement import placement_from_cfg
 from sheeprl_tpu_torch.distributed.publish import adopt, evict_and_put, make_stamp, publish, staleness_steps, take_newest_ready
 from sheeprl_tpu_torch.distributed.transport import maybe_digest
 from sheeprl_tpu_torch.rollout import PipelinedPlayer
@@ -67,7 +68,10 @@ MAX_PENDING = 8  # unfinished publications the player keeps (a backlog on the le
 
 @register_algorithm(name="sac_decoupled", decoupled=True)
 def main(ctx, cfg) -> TrainResult:
-    refuse_unported(cfg)
+    refuse_unported(cfg, handled=decoupled_handled(cfg))
+    spec = placement_from_cfg(cfg)
+    if spec.is_sebulba:  # placed processes (distributed/sebulba.py)
+        return run_placed(ctx, cfg, spec, "sac")
     device = ctx.device
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")

@@ -370,7 +370,7 @@ def make_transition_dispatcher(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tupl
     ``DeviceTransitionRing`` and the dispatcher an ``IndexedBlockDispatcher`` (``[G, B]``
     (env, row) index arrays), else the ring is None and the dispatcher a
     ``BlockDispatcher`` (``[G, B, ...]`` batches on the device)."""
-    from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, IndexedBlockDispatcher
+    from sheeprl_tpu_torch.utils.blocks import IndexedBlockDispatcher
 
     device = ctx.device
     batch_size = cfg.algo.per_rank_batch_size
@@ -384,10 +384,20 @@ def make_transition_dispatcher(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tupl
             f"buffer.store_dtype={cfg.buffer.store_dtype}: the reduced storage dtype is the device ring's "
             "(buffer.device=True); the host buffer stores the rows as they are"
         )
+    return None, make_host_dispatcher(ctx, cfg, specs, make_step, target_update_freq, count_offset)
+
+
+def make_host_dispatcher(ctx, cfg, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1):
+    """``make_transition_dispatcher``'s host-replay dispatcher: a ``BlockDispatcher`` over
+    ``[G, B, ...]`` batches on the device (the Sebulba learner's too: its actors own the
+    replay)."""
+    from sheeprl_tpu_torch.utils.blocks import BlockDispatcher
+
+    device, batch_size = ctx.device, cfg.algo.per_rank_batch_size
     batch = {k: torch.zeros((batch_size, *shape), dtype=_torch_dtype(dtype), device=device) for k, (shape, dtype) in specs.items()}
     table = torch.zeros(1, dtype=torch.int64, device=device)
     step, draw, select = make_step({"table": table, "batch": batch})
-    return None, BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
+    return BlockDispatcher(step, draw, target_update_freq, count_offset=count_offset, select=select)
 
 
 def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Sequence[int], Any]], make_step, target_update_freq: int = 1, count_offset: int = 1, tail: int = 0):

@@ -14,9 +14,8 @@
   one sha256 line per consumed batch block to that file, so two runs can show that
   they trained on the same data.
 
-The Sebulba placed-process mode that the reference builds on this channel is not
-ported: the decoupled entries run their player and learner as two threads of one
-process.
+The Sebulba placed-process mode (``sebulba.py``) runs its learner and actors over this
+channel.
 """
 
 from __future__ import annotations
@@ -27,12 +26,12 @@ import os
 import select
 import socket
 import struct
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 MAGIC = b"SBLB"
 _HEADER_FMT = "!4sI"  # magic, header length
@@ -87,7 +86,7 @@ def encode_tree(tree: Any) -> Tuple[Any, List[np.ndarray]]:
         if isinstance(obj, (list, tuple)):
             return [walk(v) for v in obj]
         # A tensor crosses the wire as the numpy array of its host copy.
-        if isinstance(obj, torch.Tensor):
+        if _is_tensor(obj):
             return walk(obj.detach().cpu().numpy())
         if hasattr(obj, "__array__"):
             return walk(np.asarray(obj))
@@ -317,10 +316,19 @@ BATCH_DIGEST_ENV_VAR = "SHEEPRL_TPU_BATCH_DIGEST"
 _BF16_DTYPE_STR = "<V2"
 
 
+def _is_tensor(obj: Any) -> bool:
+    """Whether ``obj`` is a torch tensor, without importing torch: a process that never
+    imported it (the Sebulba launcher) holds none."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(obj, torch.Tensor)
+
+
 def _host_leaf(obj: Any):
     """``(dtype string, shape, bytes)`` of a leaf as a numpy copy of it would have them;
     a tensor is read from its device."""
-    if isinstance(obj, torch.Tensor):
+    if _is_tensor(obj):
+        import torch
+
         t = obj.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return _BF16_DTYPE_STR, tuple(t.shape), t.view(torch.int16).numpy().tobytes()

@@ -93,7 +93,10 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.data.device_buffer",
     "sheeprl_tpu_torch.data.prefetch",
     "sheeprl_tpu_torch.distributed",
+    "sheeprl_tpu_torch.distributed.launcher",
+    "sheeprl_tpu_torch.distributed.placement",
     "sheeprl_tpu_torch.distributed.publish",
+    "sheeprl_tpu_torch.distributed.sebulba",
     "sheeprl_tpu_torch.distributed.transport",
     "sheeprl_tpu_torch.distributions",
     "sheeprl_tpu_torch.engine",
@@ -111,7 +114,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.envs.vector",
     "sheeprl_tpu_torch.envs.wrappers",
     "sheeprl_tpu_torch.fault",
+    "sheeprl_tpu_torch.fault.chaos",
     "sheeprl_tpu_torch.fault.preemption",
+    "sheeprl_tpu_torch.fault.supervisor",
     "sheeprl_tpu_torch.models.blocks",
     "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.ops.counters",
@@ -125,9 +130,11 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.precision.policy",
     "sheeprl_tpu_torch.precision.quantize",
     "sheeprl_tpu_torch.registration",
+    "sheeprl_tpu_torch.sebulba",
     "sheeprl_tpu_torch.rollout",
     "sheeprl_tpu_torch.rollout.pipeline",
     "sheeprl_tpu_torch.rollout.pool",
+    "sheeprl_tpu_torch.rollout.sharding",
     "sheeprl_tpu_torch.serve",
     "sheeprl_tpu_torch.serve.__main__",
     "sheeprl_tpu_torch.serve.batching",

@@ -280,8 +280,8 @@ def test_config_checks_match_the_reference(overrides, refused):
 @pytest.mark.parametrize(
     "exp,override,pattern",
     [
-        ("sac_decoupled", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the reference's sac_decoupled then runs"),
-        ("ppo_decoupled", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the reference's ppo_decoupled then runs"),
+        ("sac_decoupled", "+distributed.mode=mesh", r"distributed\.mode='mesh': the sac_decoupled loop runs .*thread.*sebulba"),
+        ("ppo_decoupled", "+distributed.mode=mesh", r"distributed\.mode='mesh': the ppo_decoupled loop runs .*thread.*sebulba"),
         ("ppo_dummy", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the ppo loop has no player/learner split"),
         ("sac_decoupled", "+obs.enabled=True", r"obs\.enabled"),
         ("ppo_decoupled", "+obs.health=True", r"obs\.health"),

@@ -5,9 +5,9 @@ the last one, with host replay and with ``buffer.device=True`` (the transition r
 resume rebuilds it from the checkpointed buffer). Episodes end by a time limit, so the
 final-observation correction runs. The same configs go through both packages' config
 checks. A config key that asks for what these loops lack raises, naming the key; so do
-``sac_decoupled`` and ``ppo_decoupled`` for ``distributed.mode=sebulba``, naming the
-mode they run instead, and the Dreamer loops' refusal of ``rollout.pipeline_depth`` says
-what their reference does."""
+``sac_decoupled`` and ``ppo_decoupled`` for a ``distributed.mode`` other than ``thread``
+and ``sebulba``, naming the modes they run, and the Dreamer loops' refusal of
+``rollout.pipeline_depth`` says what their reference does."""
 
 from pathlib import Path
 
@@ -98,7 +98,7 @@ def test_config_checks_match_the_reference(overrides, refused):
         ("sac", "+mesh.data=2", r"mesh\.data"),
         ("sac", "buffer.store_dtype=bf16", r"buffer\.store_dtype"),
         ("sac", "algo.precision=fp16", r"algo\.precision"),
-        ("sac_decoupled", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the reference's sac_decoupled then runs .* placed processes"),
+        ("sac_decoupled", "+distributed.mode=process", r"distributed\.mode='process': the sac_decoupled loop runs .* placed processes"),
         ("droq", "rollout.pipeline_depth=1", r"pipeline_depth=1: the droq loop acts synchronously, as the reference's does"),
         ("droq", "algo.precision=bf16", r"algo\.precision"),
         ("sac_ae", "rollout.pipeline_depth=2", r"pipeline_depth=2: the sac_ae loop acts synchronously"),
@@ -116,8 +116,8 @@ def test_unported_keys_raise_naming_the_key(tmp_path, monkeypatch, exp, override
 @pytest.mark.parametrize(
     "overrides,pattern",
     [
-        # the reference's ppo_decoupled runs two threads by default, as the port's; only sebulba needs processes
-        (["exp=ppo_decoupled", "+distributed.mode=sebulba"], r"placed processes.*the port runs them as two threads of one process"),
+        # the decoupled entries run two threads (the default) or placed processes (sebulba), as the reference's
+        (["exp=ppo_decoupled", "+distributed.mode=process"], r"two threads of one process .*thread.* or as placed processes .*sebulba"),
         # DreamerV3's reference reads the key; DreamerV2's and DreamerV1's do not
         (["exp=dreamer_v3_dummy", "env=discrete_dummy", "rollout.pipeline_depth=1"],
          r"reference's dreamer_v3 loop acts through the pipelined player.*acts synchronously and does not use"),
