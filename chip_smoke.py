@@ -47,7 +47,9 @@ result line:
    (``GRAPH_SPREAD``) and never looser than ``TRAIN_AGREEMENT_TOL``; K1 launches per
    replay by the profiler equal to the eager step's (79/64 discrete, 79/79 continuous);
    the quantile levels on the card make no host sync; then graph against eager in
-   turns: gradient steps/s, device ms per step, busy share, peak memory;
+   turns: gradient steps/s, device ms per step, busy share, peak memory; then the
+   ``Health/*`` of a replay against the eager step's from one state (bit for bit), and
+   the device ms and kernels of the step with and without ``obs.health`` in turns;
 9. train-cli: the training loop through the train entry at size S with the async vector
    env, which replays the captured step: it trains, checkpoints, resumes from a
    checkpoint, and the eval entry evaluates the last checkpoint; once with host replay
@@ -191,7 +193,13 @@ result line:
    SIGKILLed by ``chaos.kill_actor_at_step``: its generation 1 reconnects and finishes,
    the learner's gradient-step trace rises strictly inside the kill window, exit 0; the
    ``[sebulba-counts]`` line: every Sebulba process launches no K1 or K2, and the Sebulba
-   rates beside the thread mode's.
+   rates beside the thread mode's. ``[obs]`` (in the Sebulba phases' worker, which mostly
+   waits): the DreamerV3-S train entry with the observability plane on (``OBS_RUN``, a
+   profiler window over two training updates): ``trace.json``'s spans, the profile's
+   kernels (K1's among them), ``perf_report.json``'s MFU and goodput, the ``Memory/*``
+   gauges against ``torch.cuda.memory_stats``, no capture after warm-up, finite
+   ``Health/*``; the same run with ``obs.enabled=False`` (its policy steps/s beside); a small
+   run whose training raises leaves a blackbox; the ``[obs-counts]`` line.
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
@@ -283,6 +291,12 @@ TRAIN_OVERRIDES = [
     "algo.per_rank_sequence_length=64",
     "algo.horizon=15",
 ]
+# [obs]: the train entry at size S with the observability plane on (2 async envs: the
+# first 64 updates are the prefill's, the next 32 train); the profiler window holds two
+# training updates
+OBS_RUN = [*TRAIN_OVERRIDES, "env.sync_env=False", "algo.learning_starts=128", "algo.total_steps=192", "checkpoint.every=0",
+           "checkpoint.save_last=False", "metric.log_every=32", "algo.run_test=False"]
+OBS_CAPTURE = (66, 67)
 # a small agent for the card-against-CPU training step
 SMALL_TRAIN = [
     "exp=dreamer_v3_dummy",
@@ -301,6 +315,9 @@ SMALL_TRAIN = [
     "algo.horizon=5",
     "mesh.precision=32-true",
 ]
+# [obs]'s crashing run: a small agent whose training raises at its third block
+OBS_CRASH = [*SMALL_TRAIN, "env.sync_env=True", "algo.learning_starts=32", "algo.total_steps=64", "checkpoint.every=0",
+             "checkpoint.save_last=False", "metric.log_every=16", "algo.run_test=False"]
 # The first Adam step moves each parameter by about its lr (1e-4 world model, 8e-5 actor
 # and critic) with the gradient's sign. Held, card against CPU: each module's parameter
 # change (new minus old) to 0.1 of its lr, where at most 0.1 % of the entries (gradients
@@ -1629,7 +1646,8 @@ def k1_per_step(cfg, is_continuous: bool) -> dict:
 
 
 def phase_train_graph(
-    device: torch.device, env: str = "discrete_dummy", timed_steps: int = 8, overrides=TRAIN_OVERRIDES, tag: str = "[train-graph]"
+    device: torch.device, env: str = "discrete_dummy", timed_steps: int = 8, overrides=TRAIN_OVERRIDES, tag: str = "[train-graph]",
+    health_turn: bool = False,
 ) -> dict:
     """The train step of ``overrides`` (DreamerV3-S by default) captured as a CUDA graph
     (``utils/graphs.py``) and replayed through the loop's block (``utils/blocks.py``),
@@ -1639,7 +1657,11 @@ def phase_train_graph(
     (``GRAPH_SPREAD``), and never looser than ``TRAIN_AGREEMENT_TOL``. K1 launches per
     replay by the profiler, equal to the eager step's, to the capture's count and to the
     plan's (``k1_per_step``). Then, discrete actor only, in turns (eager, graph, graph,
-    eager): gradient steps/s, device ms and kernels per step, busy share, peak memory."""
+    eager): gradient steps/s, device ms and kernels per step, busy share, peak memory.
+    ``health_turn``: the step (``obs.health`` on, the default) against the same step
+    built with ``obs.health=False``: a replay's ``Health/*`` against the eager step's
+    from the same state (bit for bit), and the device ms and kernels per step of both,
+    profiled in turns (on, off, on, off)."""
     from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
     from sheeprl_tpu_torch.config.core import compose
     from sheeprl_tpu_torch.utils.blocks import BlockDispatcher, target_flags
@@ -1783,7 +1805,61 @@ def phase_train_graph(
         })
     row["turns"] = timings
     log(label + " turns " + json.dumps(timings))
+    if health_turn:
+        row["health"] = _health_turn(cfg, overrides, env, device, modules, opt, extra, captured, dispatcher, first, count + 1, label)
     return row
+
+
+def _health_turn(cfg, overrides, env: str, device: torch.device, modules, opt, extra, captured, dispatcher, first, count: int, label: str) -> dict:
+    """``phase_train_graph``'s health turn (its docstring). ``captured`` is the step with
+    the diagnostics, last replayed by ``dispatcher`` on its inputs."""
+    from sheeprl_tpu_torch.algos.dreamer_loop import make_captured_step
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.utils.blocks import BlockDispatcher
+    from sheeprl_tpu_torch.utils.graphs import tree_tensors
+
+    # a replay against the eager step from one state, on the inputs the block wrote last
+    state = [p for m in modules.values() for p in m.parameters()] + tree_tensors(opt) + tree_tensors(extra)
+    saved = [t.detach().clone() for t in state]
+    replayed = {k: v.clone() for k, v in captured().items()}
+    with torch.no_grad():
+        torch._foreach_copy_(state, saved)
+    eager = {k: v.detach().clone() for k, v in captured.fn(captured.inputs).items()}
+    with torch.no_grad():
+        torch._foreach_copy_(state, saved)
+    torch.cuda.synchronize()
+    health = sorted(k for k in replayed if k.startswith("Health/"))
+    differ = [k for k in health if not torch.equal(replayed[k], eager[k])]
+    losses_differ = [k for k in replayed if k.startswith("Loss/") and not torch.equal(replayed[k], eager[k])]
+    out = {"health_metrics": len(health), "health_bits_differ": differ, "losses_bits_differ": losses_differ,
+           "max_rel_diff": max((abs(replayed[k] - eager[k]).item() / max(abs(eager[k].item()), 1e-12) for k in health), default=0.0)}
+
+    # the same step without the diagnostics, captured over the same batches
+    cfg_off = compose(overrides=[*overrides, f"env={env}", "mesh.precision=bf16-mixed", "device=cuda", "obs.health=False"])
+    _, modules_off, make_off = _train_parts(cfg_off, device, seed=31)
+    step_off, init_off = make_off(modules_off)
+    opt_off, extra_off = init_off(), step_off.init_extra()
+    T, B = cfg_off.algo.per_rank_sequence_length, cfg_off.algo.per_rank_batch_size
+    make = make_captured_step(step_off, modules_off, opt_off, extra_off, T, B, torch.Generator(device=device).manual_seed(8))
+    example = {"table": torch.zeros(1, dtype=torch.int64, device=device), "batch": {k: torch.zeros_like(v[0]) for k, v in first.items()}}
+    captured_off, draw_off = make(example)
+    off_dispatcher = BlockDispatcher(captured_off, draw_off, target_update_freq=2, count_offset=1)
+    off_dispatcher.dispatch(first, 0)
+    off_dispatcher.drain(None)
+    if any(k.startswith("Health/") for k in captured_off.outputs):
+        raise AssertionError(f"{label}: obs.health=False still returns Health/*")
+    turns = []
+    for mode in ("on", "off", "on", "off"):
+        d = dispatcher if mode == "on" else off_dispatcher
+        prof = profile_calls(lambda: d.dispatch(first, count), 1, f"{label} health {mode}", {"health": mode})  # noqa: B023
+        d.drain(None)
+        count += 1
+        turns.append({"health": mode, "device_ms_per_step": prof.get("device_ms_per_call"), "kernels_per_step": prof.get("kernels_per_call")})
+    out["turns"] = turns
+    log(label + " health " + json.dumps(out))
+    if differ and not losses_differ:
+        raise AssertionError(f"{label}: a replay's Health/* differ from the eager step's where its losses agree bit for bit: {differ}")
+    return out
 
 
 def phase_train_cli(device: torch.device, workdir: Path, device_replay: bool = False) -> dict:
@@ -3729,6 +3805,137 @@ def phase_sebulba_kill(device: torch.device, workdir: Path) -> dict:
     return row
 
 
+class _Recorder:
+    """A logger that keeps what a run logs."""
+
+    def __init__(self):
+        self.logged = []
+
+    def log_metrics(self, metrics, step):
+        self.logged.append((step, dict(metrics)))
+
+    def close(self):
+        pass
+
+
+def phase_obs(device: torch.device, workdir: Path) -> dict:
+    """The observability plane through the train entry at size S (``OBS_RUN``), three
+    runs: ``obs.enabled=True`` with a profiler window over two training updates
+    (``OBS_CAPTURE``), ``obs.enabled=True`` without, ``obs.enabled=False``. Checks: ``trace.json`` holds ``Time/update`` and the ``Time/phase_*``
+    spans; the profile under ``profile/`` holds device kernels, K1's among them;
+    ``perf_report.json``'s ``mfu`` lies in (0, 1] and its goodput fractions sum to 1 within
+    1e-6; the ``Memory/*`` gauges of a poll equal ``torch.cuda.memory_stats`` read beside
+    it; no capture after warm-up (``Compile/recompiles`` 0); every logged ``Health/*``
+    finite; policy steps/s of each run; no clean run leaves a blackbox; a small run whose training raises at its third block of
+    gradient steps leaves ``blackbox/events.jsonl`` and ``meta.json``."""
+    import sheeprl_tpu_torch.algos.dreamer_loop as loop
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.obs.telemetry import DeviceTelemetry
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    set_tf32(True)
+    tag, bad, row = "[obs]", [], {}
+    get_logger = loop.get_logger
+    try:
+        for case in ("window", "enabled", "disabled"):
+            enabled = case != "disabled"
+            log_ = _Recorder()
+            loop.get_logger = lambda cfg, log_dir: log_  # noqa: B023
+            extra = [f"obs.enabled={enabled}"]
+            if case == "window":
+                extra.append(f"obs.capture_steps=[{OBS_CAPTURE[0]},{OBS_CAPTURE[1]}]")
+            zero_launches()
+            result = run([*OBS_RUN, *extra, f"device={device.type}", f"log_root={workdir / f'obs_{case}'}"])
+            fwd, bwd = launches()
+            log_dir = Path(result.log_dir)
+            logged = {}
+            for _, m in log_.logged:
+                logged.update(m)
+            report = json.loads((log_dir / "perf_report.json").read_text())
+            r = {"policy_steps": result.policy_steps, "grad_steps": result.grad_steps, "seconds": result.seconds,
+                 "policy_steps_per_s": result.policy_steps / result.seconds, "k1_fwd": fwd, "k1_bwd": bwd,
+                 "mfu": report["mfu"], "hbm_bw_util": report["hbm_bw_util"], "goodput_fractions": report["goodput_fractions"],
+                 "cost_models": report["cost_models"], "cost_model_seconds": report["cost_model_seconds"],
+                 "health": {k: v for k, v in logged.items() if k.startswith("Health/")}}
+            # the step-time watchdog's auto-capture (the reference's too) may fire where the
+            # prefill's fast updates give way to training's
+            r["auto_captures"] = sorted(p.name for p in (log_dir / "profile").glob("auto_*.json"))
+            r["anomalies"] = report["anomalies"]
+            if bwd != 64 * (result.grad_steps + WARMUP_STEPS) or fwd == 0:
+                bad.append(f"{case}: K1 launches {(fwd, bwd)} for {result.grad_steps} gradient steps")
+            if not r["health"] or not all(math.isfinite(v) for v in r["health"].values()):
+                bad.append(f"{case}: Health/* missing or not finite: {r['health']}")
+            if not 0 < (report["mfu"] or 0) <= 1 or abs(sum(report["goodput_fractions"].values()) - 1) > 1e-6:
+                bad.append(f"{case}: mfu {report['mfu']}, goodput {report['goodput_fractions']}")
+            if (log_dir / "blackbox").exists():
+                bad.append(f"{case}: a clean run left a blackbox")
+            if case == "window":
+                spans = {e["name"] for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"}
+                r["spans"] = sorted(n for n in spans if not n.endswith("_time"))
+                want = {"Time/update", "Time/phase_player", "Time/phase_buffer_add", "Time/phase_dispatch", "Time/phase_env_step",
+                        "Time/phase_drain"}
+                if not want <= spans:
+                    bad.append(f"trace.json lacks {sorted(want - spans)}")
+                window = log_dir / "profile" / f"window_rank0_updates{OBS_CAPTURE[0]}-{OBS_CAPTURE[1]}.json"
+                kernels = [e["name"] for e in json.loads(window.read_text())["traceEvents"] if e.get("cat") == "kernel"] if window.is_file() else []
+                r["profile"] = {"window": window.name, "kernels": len(kernels), "k1": k1_launches(kernels)}
+                if not kernels or not r["profile"]["k1"]["fwd"] or not r["profile"]["k1"]["bwd"]:
+                    bad.append(f"the profile under profile/: {r['profile']}")
+                r["compile"] = {k: v for k, v in logged.items() if k.startswith("Compile/")}
+                if r["compile"].get("Compile/recompiles") != 0.0:
+                    bad.append(f"captures after warm-up: {r['compile']}")
+                r["memory_logged"] = {k: v for k, v in logged.items() if k.startswith("Memory/")}
+                if "Memory/bytes_in_use" not in r["memory_logged"]:
+                    bad.append(f"no device Memory/* gauge logged: {r['memory_logged']}")
+            row[case] = r
+        # a poll against memory_stats read beside it (no allocation between the two)
+        polled = DeviceTelemetry(interval_s=0.0, devices=[device]).poll(force=True)
+        stats = torch.cuda.memory_stats(device)
+        row["memory_poll"] = {"polled": polled, "allocated_current": stats["allocated_bytes.all.current"],
+                              "allocated_peak": stats["allocated_bytes.all.peak"]}
+        if (polled.get("Memory/bytes_in_use/dev0"), polled.get("Memory/peak_bytes_in_use/dev0")) != (
+                float(stats["allocated_bytes.all.current"]), float(stats["allocated_bytes.all.peak"])):
+            bad.append(f"the Memory/* gauges against memory_stats: {row['memory_poll']}")
+
+        # a run whose training raises at its third block of gradient steps leaves a blackbox
+        make_replay = loop.make_device_replay
+
+        def failing_replay(*args, **kwargs):
+            dispatcher, mirror, prefetcher, run_block, rb_add = make_replay(*args, **kwargs)
+            calls = {"n": 0}
+
+            def failing_block(*a, **k):
+                calls["n"] += 1
+                if calls["n"] == 3:
+                    raise FloatingPointError("injected at the third block of gradient steps")
+                return run_block(*a, **k)
+
+            return dispatcher, mirror, prefetcher, failing_block, rb_add
+
+        loop.get_logger = get_logger
+        loop.make_device_replay = failing_replay
+        try:
+            run([*OBS_CRASH, f"device={device.type}", f"log_root={workdir / 'obs_crash'}"])
+            bad.append("the crashing run did not raise")
+        except FloatingPointError as exc:
+            row["crash"] = {"raised": str(exc)}
+        finally:
+            loop.make_device_replay = make_replay
+        boxes = list((workdir / "obs_crash").rglob("blackbox"))
+        if len(boxes) != 1 or not all((boxes[0] / f).is_file() for f in ("events.jsonl", "meta.json")):
+            bad.append(f"the crashing run's blackbox: {boxes}")
+        else:
+            meta = json.loads((boxes[0] / "meta.json").read_text())
+            row.setdefault("crash", {}).update({k: meta.get(k) for k in ("reason", "algo", "staged_state", "device_name", "torch_version")})
+            row["crash"]["events"] = len((boxes[0] / "events.jsonl").read_text().splitlines())
+    finally:
+        loop.get_logger = get_logger
+    log(f"{tag} " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    return row
+
+
 def entry_phases(device: torch.device) -> dict:
     """The phases that drive the train and eval entries (train, resume, eval through the
     CLI), by the names ``[phases]`` reports, each a thunk that runs it in a temporary
@@ -3762,6 +3969,7 @@ def entry_phases(device: torch.device) -> dict:
         algo = "ppo" if "algo.name=ppo" in overrides else overrides[0].split("=")[1]
         phases[f"{case}-cli"] = in_tmp(phase_entry_cli, overrides, f"[{algo.replace('_', '-')}-cli] {case}", first_ckpt, resume_halves=halves)
     phases["anakin-cli"] = in_tmp(phase_anakin_cli)
+    phases["obs"] = in_tmp(phase_obs)
     phases["sebulba-sac-cli"] = in_tmp(phase_sebulba_sac_cli)
     phases["sebulba-ppo-cli"] = in_tmp(phase_sebulba_ppo_cli)
     phases["sebulba-kill"] = in_tmp(phase_sebulba_kill)
@@ -3779,7 +3987,7 @@ ENTRY_GROUPS = (
     ("anakin-cli", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli", "ppo-recurrent-cli-lstm",
      "ppo-recurrent-cli-attention", "dv1-train-cli"),
     # the Sebulba phases spawn processes of their own: their worker mostly waits
-    ("sebulba-sac-cli", "sebulba-kill", "sebulba-ppo-cli"),
+    ("sebulba-sac-cli", "sebulba-kill", "sebulba-ppo-cli", "obs"),
 )
 ENTRY_TIMEOUT_S = 600  # all workers; alone they take ~140 s each
 ENTRY_THREADS = 2  # torch's CPU threads in each worker: the workers share the host's cores
@@ -3894,7 +4102,7 @@ def main() -> int:
         phase_train(device, "bf16-mixed", steps=2), phase_train(device, "32-true", steps=2),
         phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1),
     ])
-    graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4), phase_train_graph(device, env="continuous_dummy")])
+    graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4, health_turn=True), phase_train_graph(device, env="continuous_dummy")])
     timed("dv2-train-agreement", phase_train_agreement, device, SMALL_DV2, "[dv2-train-agreement]")
     dv2_graph = timed("dv2-train-graph", phase_train_graph, device, overrides=DV2_OVERRIDES, tag="[dv2-train-graph]")
     timed("dv1-train-agreement", phase_train_agreement, device, SMALL_DV1, "[dv1-train-agreement]")
@@ -3965,6 +4173,15 @@ def main() -> int:
     dec_cli = {case: entries[f"{case}-cli"] for case in DECOUPLED_CLI}
     ak_cli = entries["anakin-cli"]
     sb_sac, sb_ppo, sb_kill = entries["sebulba-sac-cli"], entries["sebulba-ppo-cli"], entries["sebulba-kill"]
+    obs = entries["obs"]
+    log("[obs-counts] " + json.dumps({
+        "policy_steps_per_s": {k: obs[k]["policy_steps_per_s"] for k in ("window", "enabled", "disabled")},
+        "mfu": {k: obs[k]["mfu"] for k in ("window", "enabled", "disabled")},
+        "cost_model_seconds": {k: obs[k]["cost_model_seconds"] for k in ("window", "enabled", "disabled")},
+        "k1_launches": {k: [obs[k]["k1_fwd"], obs[k]["k1_bwd"]] for k in ("window", "enabled", "disabled")},
+        "auto_captures": {k: obs[k]["auto_captures"] for k in ("window", "enabled", "disabled")},
+        "train_graph_health": graphed[0]["health"],
+    }))
 
     log("[dv2-counts] " + json.dumps({
         "k1_per_replay_capture": dv2_graph["k1_per_replay_capture"], "k1_per_replay_profiler": dv2_graph["k1_per_replay_profiler"],
@@ -4041,6 +4258,7 @@ def main() -> int:
     per_replay = lambda g: {"fwd": g["k1_per_replay_capture"]["layernorm_gru"], "bwd": g["k1_per_replay_capture"]["layernorm_gru_bwd"]}  # noqa: E731
     k1_paths = {
         "dv3_train_cli": cli["train"], "dv2_train_cli_device": dv2_cli["device"]["train"],
+        **{f"dv3_obs_{k}": {"fwd": obs[k]["k1_fwd"], "bwd": obs[k]["k1_bwd"]} for k in ("window", "enabled", "disabled")},
         "p2e_dv2_explore": p2e_cli[2]["explore"], "p2e_dv2_finetune_load": p2e_cli[2]["finetune_load_True"],
         "p2e_dv2_finetune": p2e_cli[2]["finetune_load_False"],
         "dv3_decoupled_s_per_replay": per_replay(dec_graph),
@@ -4112,7 +4330,8 @@ def main() -> int:
         + "; serve requests/s " + ", ".join(f"{n} {t} {r['requests_per_s']:.0f}" for t, rows in serve["tiers"].items() for n, r in rows.items())
         + "; Anakin env steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['env_steps_per_s']:.0f}" for t in g["turns"]) for n, g in (("ppo", ak_ppo), ("sac", ak_sac)))
         + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items())
-        + f"; Sebulba policy steps/s sac {sb_sac['train']['policy_steps_per_s']:.1f}, ppo {sb_ppo['policy_steps_per_s']:.1f}")
+        + f"; Sebulba policy steps/s sac {sb_sac['train']['policy_steps_per_s']:.1f}, ppo {sb_ppo['policy_steps_per_s']:.1f}"
+        + "; obs policy steps/s " + ", ".join(f"{k} {obs[k]['policy_steps_per_s']:.1f}" for k in ("window", "enabled", "disabled")))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads
+from sheeprl_tpu_torch.algos.loop_common import TrainResult
 from sheeprl_tpu_torch.algos.ppo.agent import build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.ppo import (
@@ -23,9 +23,12 @@ from sheeprl_tpu_torch.algos.ppo.ppo import (
     flat_batch,
     make_optimizer,
     refuse_ppo_unported,
+    stack_metrics,
     truncation_bootstrap,
+    update_agent,
 )
 from sheeprl_tpu_torch.algos.ppo.utils import env_actions, log_prob_and_entropy, prepare_obs, sample_actions, test
+from sheeprl_tpu_torch.obs.health import health_enabled, module_slices
 from sheeprl_tpu_torch.utils.graphs import tree_tensors
 from sheeprl_tpu_torch.utils.metric import record_episode_stats
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -49,6 +52,8 @@ class A2CTrainFns:
         self._update = None
         self.gae_fn = CapturedGAE(cfg)
         self._rows = torch.arange(self.batch_n, device=ctx.device)[None]
+        self.health_slices = module_slices(agent, {"actor_heads": "actor_head_{}"}) if health_enabled(cfg) else None
+        self.metric_names = list(self.LOSSES)
 
     @torch.no_grad()
     def act(self, obs: Dict[str, torch.Tensor], generator=None, draws=None):
@@ -60,7 +65,9 @@ class A2CTrainFns:
     def values(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.agent(obs)[1][..., 0]
 
-    def loss(self, data: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    LOSSES = ("Loss/policy_loss", "Loss/value_loss")
+
+    def loss(self, data: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         algo, reduction = self.cfg.algo, self.cfg.algo.loss_reduction
         actor_out, new_values = self.agent({k: data[k] for k in self.obs_keys})
         logprob, entropy = log_prob_and_entropy(actor_out, data["actions"], self.agent.is_continuous)
@@ -69,20 +76,21 @@ class A2CTrainFns:
         pg = -(obj.mean() if reduction == "mean" else obj.sum())
         vf = value_loss(new_values[..., 0], data["values"], data["returns"], 0.0, False, reduction)
         total = pg + algo.vf_coef * vf + algo.ent_coef * entropy_loss(entropy, reduction)
-        return total, torch.stack([pg, vf]).detach()
+        aux = {"policy_entropy": entropy.mean(), "value_mean": new_values.mean()} if self.health_slices is not None else {}
+        return total, torch.stack([pg, vf]).detach(), aux
 
     def step(self, data: Dict[str, torch.Tensor], idx: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
-        total, metrics = self.loss({k: v[idx] for k, v in data.items()})
-        self.opt.update(self.params, grads(total, self.params), self.opt_state)
-        return metrics
+        total, metrics, aux = self.loss({k: v[idx] for k, v in data.items()})
+        health = update_agent(self.opt, self.params, self.opt_state, total, self.health_slices, aux)
+        return stack_metrics(self, self.LOSSES, metrics, health)
 
     def train_fn(self, data: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """One full-batch gradient step over ``data`` (``[N, ...]`` per key)."""
         if self._update is None:
             state = self.params + tree_tensors(self.opt_state)
-            self._update = MinibatchUpdate(self.step, data, (self.batch_n,), state, self.capture)
+            self._update = MinibatchUpdate(self.step, data, (self.batch_n,), state, self.capture, "a2c/train_fn")
         out = self._update(data, self._rows, torch.zeros(2)).cpu()
-        return dict(zip(("Loss/policy_loss", "Loss/value_loss"), out.tolist()))
+        return dict(zip(self.metric_names, out.tolist()))
 
 
 @register_algorithm(name="a2c")
@@ -110,22 +118,27 @@ def main(ctx, cfg) -> TrainResult:
         obs, _ = envs.reset(seed=cfg.seed)
         grad_steps, train_seconds, env_seconds = 0, 0.0, 0.0
         run_start = time.perf_counter()
+        monitor = loop.monitor
         for update in range(loop.start_update, loop.num_updates + 1):
+            monitor.advance()
             env_t0 = time.perf_counter()
             with loop.timer("Time/env_interaction_time"):
                 for t in range(T):
-                    env_act, _, _, value = fns.act(rollout.put_obs(t, obs), player_gen)
-                    act_np = env_act.cpu().numpy()
-                    next_obs, reward, terminated, truncated, info = envs.step(env_actions(act_np, is_continuous, action_dims, act_space))
+                    with monitor.phase("player"):
+                        env_act, _, _, value = fns.act(rollout.put_obs(t, obs), player_gen)
+                        act_np = env_act.cpu().numpy()
+                    with monitor.phase("env_step"):
+                        next_obs, reward, terminated, truncated, info = envs.step(env_actions(act_np, is_continuous, action_dims, act_space))
                     reward = np.asarray(reward, dtype=np.float32).reshape(num_envs)
                     boot = truncation_bootstrap(info, truncated, obs_keys, host_values)
                     if boot is not None:
                         reward[boot[0]] += cfg.algo.gamma * boot[1]
-                    host = rollout.host
-                    host["actions"][t] = act_np.reshape(num_envs, -1)
-                    host["values"][t] = value.float().cpu().numpy()
-                    host["rewards"][t] = reward
-                    host["dones"][t] = np.logical_or(terminated, truncated)
+                    with monitor.phase("buffer_add"):
+                        host = rollout.host
+                        host["actions"][t] = act_np.reshape(num_envs, -1)
+                        host["values"][t] = value.float().cpu().numpy()
+                        host["rewards"][t] = reward
+                        host["dones"][t] = np.logical_or(terminated, truncated)
                     obs = next_obs
                     loop.policy_step += num_envs
                     record_episode_stats(loop.aggregator, info)
@@ -133,7 +146,7 @@ def main(ctx, cfg) -> TrainResult:
             env_seconds += env_time
 
             train_t0 = time.perf_counter()
-            with loop.timer("Time/train_time"):
+            with loop.timer("Time/train_time"), monitor.phase("dispatch"):
                 local = rollout.tensors()
                 next_value = fns.values(prepare_obs(obs, cnn_keys, mlp_keys, device))[:, None]
                 returns, advantages = fns.gae_fn(local["rewards"][..., None], local["values"][..., None], local["dones"][..., None], next_value)
@@ -150,6 +163,6 @@ def main(ctx, cfg) -> TrainResult:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
-        envs.close()
+        loop.close()
     seconds = time.perf_counter() - run_start
     return loop.finish(lambda: test(agent, ctx, cfg, loop.log_dir).reward, grad_steps, seconds, train_seconds, env_seconds)

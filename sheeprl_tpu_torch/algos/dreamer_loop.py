@@ -15,7 +15,8 @@ batches gathered on the device from its replay ring (``buffer.device``,
 and test. An algorithm hands it its modules, optimizer states, captured step, player and
 buffer as a ``LoopParts``; a P2E finetuning run also the exploration run's checkpoint to
 start from and the task player to switch to. It refuses the reference's keys the port
-does not have (``loop_common.refuse_unported``).
+does not have (``loop_common.refuse_unported``). Its ``TrainingMonitor`` (``obs/monitor.py``),
+made before the step is built, times the reference loop's phases and logs each flush.
 """
 
 from __future__ import annotations
@@ -31,13 +32,14 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerState, parse_actions_dim
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, TestResult, prepare_obs, test
-from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint  # noqa: F401  (the Dreamers import them from here)
+from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint, update_module  # noqa: F401  (the Dreamers import them from here)
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import make_device_replay
 from sheeprl_tpu_torch.distributions import Independent, Normal
+from sheeprl_tpu_torch.obs import TrainingMonitor, replay_age_metrics
 from sheeprl_tpu_torch.utils.env import make_env, make_vector_env
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -94,7 +96,7 @@ def load_opt_states(live: Dict[str, Any], saved: Dict[str, Any]) -> None:
             load_opt_states(state, saved[name])
 
 
-def capture_step(run, state: Sequence[torch.Tensor], draw_shapes, sample_draws, T: int, B: int, generator):
+def capture_step(run, state: Sequence[torch.Tensor], draw_shapes, sample_draws, T: int, B: int, generator, cost_name: Optional[str] = None):
     """``make_step(example_inputs) -> (step, draw)`` for ``make_device_replay``: a train
     step over static inputs, captured as a CUDA graph on a card (``utils/graphs.py``).
 
@@ -104,7 +106,8 @@ def capture_step(run, state: Sequence[torch.Tensor], draw_shapes, sample_draws, 
     flag, or ``[1]``: the flag), the batch (host replay) or the ring's ``gather`` (device
     replay, read inside the step), and the draws (zeros of ``draw_shapes(T, B)``), which
     ``draw(draws)`` writes from ``generator`` (``sample_draws(T, B, generator, device,
-    out=draws)``) before each step."""
+    out=draws)``) before each step. ``cost_name``: the name the perf plane counts the
+    step under (``obs/perf.py``)."""
 
     def make_step(example: Dict[str, Any]):
         gather = example.get("gather")
@@ -117,13 +120,13 @@ def capture_step(run, state: Sequence[torch.Tensor], draw_shapes, sample_draws, 
             batch = gather(table[:B], table[B : 2 * B]) if gather is not None else inp["batch"]
             return run(batch, table[-1] != 0, inp["draws"])
 
-        step = StepGraph(fn, inputs, list(state))
+        step = StepGraph(fn, inputs, list(state), cost_name=cost_name)
         return step, lambda out: sample_draws(T, B, generator, device, out=out)
 
     return make_step
 
 
-def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_states, extra, T: int, B: int, generator):
+def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_states, extra, T: int, B: int, generator, cost_name: Optional[str] = None):
     """``capture_step`` for a Dreamer step ``train_step(opt_states, extra, batch,
     update_target, draws=...) -> (new_extra, metrics)``: each step updates the
     parameters, ``opt_states`` and ``extra`` (the further tensors the step carries, such
@@ -136,7 +139,7 @@ def make_captured_step(train_step, modules: Dict[str, torch.nn.Module], opt_stat
         return metrics
 
     state = [p for m in modules.values() for p in m.parameters()] + tree_tensors(opt_states) + tree_tensors(extra)
-    return capture_step(run, state, train_step.draw_shapes, train_step.sample_draws, T, B, generator)
+    return capture_step(run, state, train_step.draw_shapes, train_step.sample_draws, T, B, generator, cost_name)
 
 
 def actor_noise_kind(actor) -> str:
@@ -253,19 +256,29 @@ def sequential_buffer(cfg, num_envs: int, obs_keys: Sequence[str], log_dir: str)
     )
 
 
-def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS, handled: Sequence[str] = ()) -> TrainResult:
+#: the phases of DreamerV3's reference loop (``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``);
+#: its other Dreamer loops time none
+PHASES = ("player", "buffer_add", "dispatch", "env_step", "checkpoint", "drain")
+
+
+def run_loop(
+    ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS, handled: Sequence[str] = (), phases: Sequence[str] = ()
+) -> TrainResult:
     """The Dreamer training loop: act in the vector env, store the rows, run each
     iteration's gradient steps as one block of the captured step, log, checkpoint,
     resume and test. ``setup(obs_space, actions_dim, is_continuous, log_dir, train_gen)``
     builds the algorithm's part (``LoopParts``); ``train_gen`` is the generator of the
     step's draws; ``aggregator_keys`` names the metrics the loop logs; ``handled`` the
-    keys of ``refuse_unported``'s list that the algorithm reads itself."""
+    keys of ``refuse_unported``'s list that the algorithm reads itself; ``phases`` the
+    ``Time/phase_*`` blocks the reference's loop times (DreamerV3's: ``PHASES``)."""
     refuse_unported(cfg, handled)
     device = ctx.device
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")
     logger = get_logger(cfg, log_dir)
     timer = Timer(disabled=bool(cfg.metric.get("disable_timer", False)))
+    # before the step is built: its capture is counted, and its cost model with it
+    monitor = TrainingMonitor(cfg, log_dir, timer, device, phases=phases)
 
     envs = make_vector_env(cfg, cfg.seed, 0, log_dir if cfg.env.capture_video else None)
     obs_space = envs.single_observation_space
@@ -297,6 +310,7 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
             cfg.algo.critic.get("per_rank_target_network_update_freq", 1), parts.count_offset,
         )
     except BaseException:  # a failed capture raises: stop the env workers first
+        monitor.close()
         envs.close()
         raise
     modules, opt_states, player_step = parts.modules, parts.opt_states, parts.player_step
@@ -373,9 +387,10 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
     run_start = time.perf_counter()
     try:
         for iter_num in range(start_iter, num_iters + 1):
+            monitor.advance()
             env_time = 0.0
             env_t0 = time.perf_counter()
-            with timer("Time/env_interaction_time"):
+            with timer("Time/env_interaction_time"), monitor.phase("player"):
                 if iter_num <= learning_starts and random_prefill:
                     sampled = np.stack([act_space.sample() for _ in range(num_envs)])
                     if is_continuous:
@@ -403,7 +418,8 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
                     else:
                         env_actions = np.stack([a.argmax(-1) for a in acts_np], -1)
                 step_data["actions"] = stored_actions.reshape(1, num_envs, -1)
-                rb_add(step_data, validate_args=cfg.buffer.validate_args)
+                with monitor.phase("buffer_add"):
+                    rb_add(step_data, validate_args=cfg.buffer.validate_args)
             env_time += time.perf_counter() - env_t0
 
             if iter_num >= learning_starts:
@@ -412,13 +428,14 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
                 grad_steps = ratio((policy_step + policy_steps_per_iter - prefill_iters * policy_steps_per_iter))
                 if grad_steps > 0:
                     train_t0 = time.perf_counter()
-                    run_block(grad_steps, cumulative_grad_steps, stage_next=iter_num < num_iters)
+                    with monitor.phase("dispatch"):
+                        run_block(grad_steps, cumulative_grad_steps, stage_next=iter_num < num_iters)
                     cumulative_grad_steps += grad_steps
                     run_grad_steps += grad_steps
                     train_seconds += time.perf_counter() - train_t0
 
             env_t0 = time.perf_counter()
-            with timer("Time/env_interaction_time"):
+            with timer("Time/env_interaction_time"), monitor.phase("env_step"):
                 next_obs, reward, terminated, truncated, info = envs.step(env_actions)
                 if cfg.env.clip_rewards:
                     reward = parts.clip_reward(reward)
@@ -472,15 +489,17 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
                 }
                 if parts.task_player is not None:
                     ckpt_state["actor_type"] = actor_type
-                if cfg.buffer.checkpoint:
-                    with rb_lock:
-                        ckpt_state["rb"] = rb.state_dict()
-                last_path = str(ckpt_manager.save(policy_step, ckpt_state))
+                with monitor.phase("checkpoint"):
+                    if cfg.buffer.checkpoint:
+                        with rb_lock:
+                            ckpt_state["rb"] = rb.state_dict()
+                    last_path = str(ckpt_manager.save(policy_step, ckpt_state))
                 last_checkpoint = policy_step
 
             if logger is not None and (policy_step - last_log >= cfg.metric.log_every or iter_num == num_iters or cfg.dry_run):
                 # the window's only blocking copy: every block's last metrics at once
-                dispatcher.drain(aggregator)
+                with monitor.phase("drain"):
+                    dispatcher.drain(aggregator)
                 metrics = aggregator.compute()
                 window_sps = dispatcher.pop_window_sps()
                 if window_sps is not None:
@@ -489,13 +508,14 @@ def run_loop(ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGAT
                 metrics["Params/replay_ratio"] = cumulative_grad_steps / policy_step if policy_step > 0 else 0.0
                 if parts.exploration is not None:
                     metrics["Params/exploration_amount"] = parts.exploration(policy_step)
-                metrics.update({k: v for k, v in timer.to_dict().items()})
-                logger.log_metrics(metrics, policy_step)
+                metrics.update(replay_age_metrics(rb))  # its index sampling notes the ages on either path
+                monitor.log_metrics(logger, metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
+        monitor.close()
         envs.close()
         if prefetcher is not None:
             prefetcher.close()

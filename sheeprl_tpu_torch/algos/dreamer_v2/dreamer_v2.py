@@ -57,12 +57,14 @@ from sheeprl_tpu_torch.algos.dreamer_loop import (
     observation_lp,
     run_loop,
     sequential_buffer,
+    update_module,
     zero_draws,
 )
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent, make_player_step
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
 from sheeprl_tpu_torch.distributions import BernoulliSafeMode, Independent, OneHotCategorical
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -221,6 +223,7 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     actor_noise = actor_noise_kind(actor)
     cnn_keys, mlp_keys = list(cnn_keys), list(mlp_keys)
 
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
     wm_opt = make_optimizer(wm_cfg.optimizer, wm_cfg.clip_gradients)
     actor_opt = make_optimizer(cfg.algo.actor.optimizer, cfg.algo.actor.clip_gradients)
     critic_opt = make_optimizer(cfg.algo.critic.optimizer, cfg.algo.critic.clip_gradients)
@@ -254,7 +257,8 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         # ------------------------------------------------ world model
         unrolled = unroll_v2(world_model, data, (draws.wm_prior, draws.wm_post), cnn_keys, mlp_keys)
         rec_loss, metrics = world_model_loss_v2(world_model, wm_cfg, data, unrolled, cnn_keys, mlp_keys, gamma)
-        metrics["Grads/world_model"] = wm_opt.update(wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
+        probe = StepHealth() if health else None
+        metrics["Grads/world_model"] = update_module(probe, "world_model", wm_opt, wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
         posts, recs = unrolled[:2]
         del rec_loss, unrolled
 
@@ -274,15 +278,17 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         reinforce = logpi * (lambda_values[1:] - target_values[:-2]).detach()
         objective = objective_mix * reinforce + (1 - objective_mix) * dynamics
         policy_loss = -torch.mean(discount[:-2] * (objective + ent_coef * entropy))
-        metrics["Grads/actor"] = actor_opt.update(actor_params, grads(policy_loss, actor_params), opt_states["actor"])
+        metrics["Grads/actor"] = update_module(probe, "actor", actor_opt, actor_params, grads(policy_loss, actor_params), opt_states["actor"])
         metrics["Loss/policy_loss"] = policy_loss.detach()
         traj, lambda_values = traj.detach(), lambda_values.detach()
         del policy_loss, objective, dynamics, target_values, rewards_img
 
         # ------------------------------------------------ critic
         value_loss = critic_loss_v2(critic, traj, lambda_values, discount)
-        metrics["Grads/critic"] = critic_opt.update(critic_params, grads(value_loss, critic_params), opt_states["critic"])
+        metrics["Grads/critic"] = update_module(probe, "critic", critic_opt, critic_params, grads(value_loss, critic_params), opt_states["critic"])
         metrics["Loss/value_loss"] = value_loss.detach()
+        if probe is not None:
+            metrics.update(probe.metrics({"world_model": wm_params, "actor": actor_params, "critic": critic_params, "target_critic": target_params}))
         return extra, metrics
 
     def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
@@ -328,7 +334,8 @@ def main(ctx, cfg) -> TrainResult:
             opt_states=opt_states,
             extra_state={},
             make_step=make_captured_step(
-                train_step, modules, opt_states, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
+                train_step, modules, opt_states, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen,
+                f"{cfg.algo.name}/train_block",
             ),
             player_step=make_player_step(world_model, actor, actions_dim, is_continuous),
             rb=make_buffer(cfg, cfg.env.num_envs, cnn_keys + mlp_keys, log_dir),

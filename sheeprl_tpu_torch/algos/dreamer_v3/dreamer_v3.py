@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_loop import (
+    PHASES,
     REGISTERS,
     LoopParts,
     TrainResult,
@@ -53,6 +54,7 @@ from sheeprl_tpu_torch.algos.dreamer_loop import (
     make_captured_step,
     run_loop,
     sequential_buffer,
+    update_module,
     zero_draws,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, make_player_step
@@ -67,6 +69,7 @@ from sheeprl_tpu_torch.distributions import (
     SymlogDistribution,
     TwoHotEncodingDistribution,
 )
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 
@@ -292,6 +295,7 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
     actor_noise = actor_noise_kind(actor)
     cnn_keys, mlp_keys = list(cnn_keys), list(mlp_keys)
 
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
     wm_opt = make_optimizer(wm_cfg.optimizer, wm_cfg.clip_gradients)
     actor_opt = make_optimizer(cfg.algo.actor.optimizer, cfg.algo.actor.clip_gradients)
     critic_opt = make_optimizer(cfg.algo.critic.optimizer, cfg.algo.critic.clip_gradients)
@@ -324,7 +328,8 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
 
         # ------------------------------------------------ world model
         rec_loss, metrics, posts, recs = world_model_loss(world_model, wm_cfg, data, draws.wm_prior, draws.wm_post, cnn_keys, mlp_keys)
-        metrics["Grads/world_model"] = wm_opt.update(wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
+        probe = StepHealth() if health else None
+        metrics["Grads/world_model"] = update_module(probe, "world_model", wm_opt, wm_params, grads(rec_loss, wm_params), opt_states["world_model"])
         del rec_loss
 
         # ------------------------------------------------ imagination + actor
@@ -352,18 +357,22 @@ def make_train_step(world_model, actor, critic, target_critic, cfg, cnn_keys: Se
         )
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
         loss = policy_loss(actor, traj, imagined_actions, advantage, discount, ent_coef)
-        metrics["Grads/actor"] = actor_opt.update(actor_params, grads(loss, actor_params), opt_states["actor"])
+        metrics["Grads/actor"] = update_module(probe, "actor", actor_opt, actor_params, grads(loss, actor_params), opt_states["actor"])
         metrics["Loss/policy_loss"] = loss.detach()
         traj, lambda_values = traj.detach(), lambda_values.detach()
         del loss, advantage, values, rewards_img
 
         # ------------------------------------------------ critic
         value_loss = critic_loss(critic, target_critic, traj, lambda_values, discount)
-        metrics["Grads/critic"] = critic_opt.update(critic_params, grads(value_loss, critic_params), opt_states["critic"])
+        metrics["Grads/critic"] = update_module(probe, "critic", critic_opt, critic_params, grads(value_loss, critic_params), opt_states["critic"])
         metrics["Loss/value_loss"] = value_loss.detach()
         if not isinstance(update_target, torch.Tensor):
             update_target = torch.full((), bool(update_target), device=device)
         ema_target(target_params, critic_params, tau, update_target)
+        if probe is not None:
+            params = {"world_model": wm_params, "actor": actor_params, "critic": critic_params, "target_critic": target_params}
+            aux = {"critic_value_mean": lambda_values.mean(), "critic_value_std": lambda_values.std(correction=0)}
+            metrics.update(probe.metrics(params, aux))
         return new_moments, metrics
 
     def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
@@ -384,7 +393,8 @@ def main(ctx, cfg) -> TrainResult:
         train_step, init_opt_states = make_train_step(*modules.values(), cfg, cnn_keys, mlp_keys)
         opt_states, moments = init_opt_states(), train_step.init_extra()
         make_step = make_captured_step(
-            train_step, modules, opt_states, moments, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
+            train_step, modules, opt_states, moments, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen,
+            f"{cfg.algo.name}/train_block",
         )
         return LoopParts(
             modules=modules,
@@ -398,4 +408,4 @@ def main(ctx, cfg) -> TrainResult:
             exploration=None,
         )
 
-    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm", REGISTERS))
+    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm", REGISTERS), phases=PHASES)

@@ -38,11 +38,13 @@ from sheeprl_tpu_torch.algos.sac.sac import (
     make_optimizers,
     refuse_precision_override,
     run_sac_loop,
+    sac_params,
     sample_tanh,
     td_target,
     transition_draws,
 )
 from sheeprl_tpu_torch.algos.sac.utils import vector_rows
+from sheeprl_tpu_torch.obs.health import StepHealth, global_norm, health_enabled, module_slices
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -102,6 +104,10 @@ def make_droq_update(agent: SACAgent, cfg, act_dim: int):
     opts = make_optimizers(cfg)
     opt_states = init_opt_states(opts, {"actor": agent.actor.parameters(), "critic": agent.critic.parameters(), "alpha": [agent.log_alpha]})
     gamma, tau, target_entropy = float(cfg.algo.gamma), float(cfg.algo.tau), -float(act_dim)
+    health = health_enabled(cfg)  # read when the steps are built (obs/health.py)
+    # the reference's critic step reports {"critic": grads}: a single-key tree, unwrapped
+    # into the critic's own modules
+    critic_slices = module_slices(agent.critic, {"dense": "Dense_{}", "norms": "LayerNorm_{}"}) if health else None
 
     def critic_update(opt_states, batch, update_target, draws) -> Dict[str, torch.Tensor]:
         alpha = agent.log_alpha.detach().exp()
@@ -109,17 +115,33 @@ def make_droq_update(agent: SACAgent, cfg, act_dim: int):
         c_params = list(agent.critic.parameters())
         qs = agent.critic(batch["obs"], batch["actions"], draws.dropout)
         cl = critic_loss(qs, target)
-        opts["critic"].update(c_params, grads(cl, c_params), opt_states["critic"])
+        g = grads(cl, c_params)
+        if critic_slices is None:
+            opts["critic"].update(c_params, g, opt_states["critic"])
+        else:
+            _, update_norms = opts["critic"].update(c_params, g, opt_states["critic"], update_norms=True)
         if not isinstance(update_target, torch.Tensor):
             update_target = torch.full((), bool(update_target), device=cl.device)
         ema_target(list(agent.critic_target.parameters()), c_params, tau, update_target)
-        return {"Loss/value_loss": cl.detach()}
+        metrics = {"Loss/value_loss": cl.detach()}
+        if critic_slices is not None:
+            # the parameter norms and the finite fraction are the actor step's: in the
+            # reference's block its metrics replace the critic steps' same names
+            for name, sl in critic_slices.items():
+                metrics[f"Health/grad_norm/{name}"] = global_norm(g[sl])
+                metrics[f"Health/update_norm/{name}"] = torch.linalg.vector_norm(update_norms[sl])
+            metrics["Health/target_q_mean"] = target.mean()
+        return metrics
 
     def actor_update(opt_states, obs, draws) -> Dict[str, torch.Tensor]:
         # DroQ trains the actor on the critics' mean, not their minimum
         q_fn = lambda o, a: agent.critic(o, a, draws.dropout).mean(0)  # noqa: E731
-        al, tl = actor_and_alpha_step(agent, opts, opt_states, obs, q_fn, draws.action, target_entropy)
-        return {"Loss/policy_loss": al, "Loss/alpha_loss": tl}
+        probe = StepHealth() if health else None
+        al, tl = actor_and_alpha_step(agent, opts, opt_states, obs, q_fn, draws.action, target_entropy, probe)
+        metrics = {"Loss/policy_loss": al, "Loss/alpha_loss": tl}
+        if probe is not None:
+            metrics.update(probe.metrics(sac_params(agent)))
+        return metrics
 
     return critic_update, actor_update, opts, opt_states
 
@@ -147,7 +169,7 @@ class ActorTail:
             obs = gather(inp["table"][:B], inp["table"][B:])["obs"] if gather is not None else inp["batch"]["obs"]
             return actor_update(opt_states, obs, inp["draws"])
 
-        self.step = StepGraph(fn, inputs, state)
+        self.step = StepGraph(fn, inputs, state, cost_name="droq/train_actor_fn")
 
     def __call__(self, tail) -> Tuple[Sequence[str], torch.Tensor]:
         inputs = self.step.inputs
@@ -176,10 +198,13 @@ def droq_parts(ctx, cfg, obs_space, act_space) -> SACParts:
     state = list(agent.parameters()) + tree_tensors(opt_states)
     gen = ctx.rng()
     draws_fn = transition_draws(lambda T, B_: shapes, DRAW_KINDS)
-    factory = capture_step(lambda batch, flag, draws: critic_update(opt_states, batch, flag, draws), state, *draws_fn, 1, B, gen)
     tail: Dict[str, ActorTail] = {}
 
     def make_step(example):
+        # the perf plane's names: the reference's host-replay functions, or its fused block
+        ring = example.get("gather") is not None
+        critic_name = "droq/fused_block_k1" if ring else "droq/train_critics_fn"
+        factory = capture_step(lambda batch, flag, draws: critic_update(opt_states, batch, flag, draws), state, *draws_fn, 1, B, gen, critic_name)
         # the actor's step reads the same replay as the critics' (the ring or a batch)
         tail["step"] = ActorTail(actor_update, state, opt_states, example.get("gather"), obs_spec, B, shapes, gen, example["table"].device)
         return (*factory(example), None)
@@ -202,4 +227,4 @@ def droq_parts(ctx, cfg, obs_space, act_space) -> SACParts:
 
 @register_algorithm(name="droq")
 def main(ctx, cfg):
-    return run_sac_loop(ctx, cfg, droq_parts)
+    return run_sac_loop(ctx, cfg, droq_parts, phases=("dispatch", "env_step", "buffer_add"))

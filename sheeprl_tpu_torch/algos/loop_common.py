@@ -1,12 +1,14 @@
 """What every train loop of the port shares (the Dreamer loop, ``dreamer_loop.py``, the
 PPO family's, ``ppo/ppo.py``, and the SAC family's, ``sac/sac.py``): ``grads`` (one loss's gradient over a parameter
-list), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
+list), ``update_module`` (one optimizer update, its norms given to the step's health
+probe), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
 names the ones it reads itself: ``REGISTERS`` where its reference registers the run's
 last checkpoint in the model registry), ``register_last_checkpoint`` and
 ``TrainResult`` (what a train entry returns)."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -17,6 +19,18 @@ def grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
     depend on one), leaving every ``.grad`` untouched."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def update_module(probe, name: str, opt, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any]) -> torch.Tensor:
+    """``opt.update(params, grads, state)``, its gradient norm returned. With a health
+    probe (``obs/health.py::StepHealth``, where ``obs.health`` is on) the module's
+    gradients and the optimizer's update norms go to it under ``name``."""
+    if probe is None:
+        return opt.update(params, grads, state)
+    probe.grads(name, grads)
+    norm, update_norms = opt.update(params, grads, state, update_norms=True)
+    probe.updates(name, update_norms)
+    return norm
 
 
 def _pipeline_refusal(cfg: Dict[str, Any], value: Any) -> str:
@@ -100,9 +114,7 @@ _NOT_PORTED = (
     ("chaos.delay_at_step", _set, "the chaos harness's boundary delay (the training guard)"),
     ("chaos.worker_fault_at_step", _set, "the chaos harness's env-pool worker fault"),
     ("algo.anakin", bool, _anakin_refusal),
-    ("obs.enabled", bool, "the training monitor"),
-    ("obs.health", bool, "the health diagnostics"),
-    ("obs.flight_recorder", bool, "the flight recorder"),
+    ("obs.fleet.dir", _set, "the fleet telemetry plane's aggregator (obs/fleet.py)"),
     ("analysis.strict", bool, "strict mode"),
     ("fault.autoresume", bool, "the training guard"),
     (REGISTERS, lambda v: v is not None and not v, _registration_refusal),
@@ -115,11 +127,21 @@ _NOT_PORTED = (
 )
 
 
+#: the fleet aggregator's address, which the reference's launcher sets for its children
+FLEET_ENV_VAR = "SHEEPRL_TPU_FLEET"
+
+
 def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
     """Raise, naming the key, when the config asks for a loop feature of the reference
     that the port does not have: such a key is never silently ignored. ``handled``: keys
     the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's and the
-    SAC family's ``rollout.pipeline_depth``)."""
+    SAC family's ``rollout.pipeline_depth``). A set ``SHEEPRL_TPU_FLEET`` is refused as
+    well: the reference's processes push their metrics to that fleet aggregator."""
+    if os.environ.get(FLEET_ENV_VAR):
+        raise NotImplementedError(
+            f"{FLEET_ENV_VAR}={os.environ[FLEET_ENV_VAR]!r} asks for the fleet telemetry plane's exporter, which the "
+            "PyTorch port does not have yet"
+        )
     for key, asks, what in _NOT_PORTED:
         if key in handled:
             continue

@@ -312,7 +312,8 @@ def finetuning_parts(
         opt_states=opt_states,
         extra_state=extra_state,
         make_step=make_captured_step(
-            train_step, task_modules, task_opt, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
+            train_step, task_modules, task_opt, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen,
+            f"{cfg.algo.name}/train_block",
         ),
         player_step=make_player(world_model, modules[acting_actor(cfg)], actions_dim, is_continuous),
         rb=make_buffer(cfg, cfg.env.num_envs, cnn_keys + mlp_keys, log_dir),

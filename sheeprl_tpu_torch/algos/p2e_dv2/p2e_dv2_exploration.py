@@ -41,6 +41,7 @@ from sheeprl_tpu_torch.algos.dreamer_loop import (
     grads,
     make_captured_step,
     run_loop,
+    update_module,
     zero_draws,
 )
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import (
@@ -57,6 +58,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.p2e import OPTIMIZED, acting_actor, ensemble_loss_normal, intrinsic_reward, make_optimizers
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import build_agent, make_player_step
 from sheeprl_tpu_torch.algos.p2e_dv2.utils import AGGREGATOR_KEYS
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 
@@ -109,11 +111,13 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
     params = {name: list(modules[name].parameters()) for name in OPTIMIZED}
     target_pairs = [(list(targets[k].parameters()), params[f"critic_{k}"]) for k in ("task", "exploration")]
 
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
+
     def init_opt_states() -> Dict[str, Any]:
         return {name: opts[name].init(params[name]) for name in OPTIMIZED}
 
-    def update(name: str, loss: torch.Tensor, opt_states) -> torch.Tensor:
-        return opts[name].update(params[name], grads(loss, params[name]), opt_states[name])
+    def update(name: str, loss: torch.Tensor, opt_states, probe) -> torch.Tensor:
+        return update_module(probe, name, opts[name], params[name], grads(loss, params[name]), opt_states[name])
 
     def draw_shapes(T: int, B: int) -> TrainDraws:
         img_actor = actor_draw_shapes(horizon, T * B, actions_dim, actor_noise)
@@ -131,19 +135,20 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
         T, B = data["rewards"].shape[:2]
         if draws is None:
             draws = draws_of(T, B, generator, data["rewards"].device)
+        probe = StepHealth() if health else None
         for target, source in target_pairs:
             hard_copy(target, source, update_target)
 
         # ------------------------------------------------ 1. world model
         unrolled = unroll_v2(world_model, data, (draws.wm_prior, draws.wm_post), cnn_keys, mlp_keys)
         rec_loss, metrics = world_model_loss_v2(world_model, wm_cfg, data, unrolled, cnn_keys, mlp_keys, gamma, detach_heads=True)
-        update("world_model", rec_loss, opt_states)
+        update("world_model", rec_loss, opt_states, probe)
         posts, recs = (x.detach() for x in unrolled[:2])
         del rec_loss, unrolled
 
         # ------------------------------------------------ 2. ensembles
         ens_loss = ensemble_loss_normal(ensembles, torch.cat([posts, recs, data["actions"]], -1), posts[1:])
-        update("ensembles", ens_loss, opt_states)
+        update("ensembles", ens_loss, opt_states, probe)
         metrics["Loss/ensemble_loss"] = ens_loss.detach()
         del ens_loss
 
@@ -169,12 +174,14 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
                 metrics["Values_exploration/predicted_values"] = target_values.detach().mean()
                 metrics["Values_exploration/lambda_values"] = lambda_values.detach().mean()
             policy_loss = behaviour_loss(actors[kind], traj, imagined_actions, lambda_values, target_values, discount, ent_coef)
-            update(f"actor_{kind}", policy_loss, opt_states)
+            update(f"actor_{kind}", policy_loss, opt_states, probe)
             metrics[f"Loss/policy_loss_{kind}"] = policy_loss.detach()
             del policy_loss, target_values, rewards, continues
             value_loss = critic_loss_v2(critics[kind], traj.detach(), lambda_values.detach(), discount)
-            update(f"critic_{kind}", value_loss, opt_states)
+            update(f"critic_{kind}", value_loss, opt_states, probe)
             metrics[f"Loss/value_loss_{kind}"] = value_loss.detach()
+        if probe is not None:
+            metrics.update(probe.metrics({name: list(m.parameters()) for name, m in modules.items()}))
         return extra, metrics
 
     def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
@@ -200,7 +207,8 @@ def main(ctx, cfg) -> TrainResult:
             opt_states=opt_states,
             extra_state={},
             make_step=make_captured_step(
-                train_step, modules, opt_states, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
+                train_step, modules, opt_states, extra, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen,
+                f"{cfg.algo.name}/train_block",
             ),
             player_step=make_player_step(modules["world_model"], modules[acting_actor(cfg)], actions_dim, is_continuous),
             rb=make_buffer(cfg, cfg.env.num_envs, cnn_keys + mlp_keys, log_dir),

@@ -42,6 +42,7 @@ from sheeprl_tpu_torch.algos.dreamer_loop import (
     make_captured_step,
     run_loop,
     sequential_buffer,
+    update_module,
     zero_draws,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
@@ -60,6 +61,7 @@ from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent, critic_configs, m
 from sheeprl_tpu_torch.algos.p2e_dv3.utils import AGGREGATOR_KEYS
 from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
 from sheeprl_tpu_torch.distributions import TwoHotEncodingDistribution
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 DECOUPLED = "algo.world_model.decoupled_rssm"
@@ -122,6 +124,8 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
     opts = {"world_model": wm_opt, "actor_task": actor_opt, "critic_task": critic_opt, "actor_exploration": actor_opt, "ensembles": ens_opt}
     levels = torch.tensor([moments_cfg.percentile.low, moments_cfg.percentile.high], device=params["world_model"][0].device)
 
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
+
     def init_opt_states() -> Dict[str, Any]:
         states = {name: opts[name].init(params[name]) for name in ("world_model", "actor_task", "critic_task", "actor_exploration")}
         states["critics_exploration"] = {k: critic_opt.init(p) for k, p in critic_params.items()}
@@ -131,8 +135,8 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
     def init_extra() -> Dict[str, Any]:
         return {"task": init_moments(levels.device), "expl": {k: init_moments(levels.device) for k in configs}}
 
-    def update(name: str, loss: torch.Tensor, opt_states) -> torch.Tensor:
-        return opts[name].update(params[name], grads(loss, params[name]), opt_states[name])
+    def update(name: str, loss: torch.Tensor, opt_states, probe) -> torch.Tensor:
+        return update_module(probe, name, opts[name], params[name], grads(loss, params[name]), opt_states[name])
 
     def moments_of(state, lambda_values):
         return update_moments(
@@ -162,18 +166,19 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
         device = data["rewards"].device
         if draws is None:
             draws = draws_of(T, B, generator, device)
+        probe = StepHealth() if health else None
 
         # ------------------------------------------------ 1. world model
         rec_loss, metrics, posts, recs = world_model_loss(
             world_model, wm_cfg, data, draws.wm_prior, draws.wm_post, cnn_keys, mlp_keys, detach_heads=True
         )
-        update("world_model", rec_loss, opt_states)
+        update("world_model", rec_loss, opt_states, probe)
         posts, recs = posts.detach(), recs.detach()
         del rec_loss
 
         # ------------------------------------------------ 2. ensembles
         ens_loss = ensemble_loss(ensembles, torch.cat([posts, recs, data["actions"]], -1), posts[1:])
-        update("ensembles", ens_loss, opt_states)
+        update("ensembles", ens_loss, opt_states, probe)
         metrics["Loss/ensemble_loss"] = ens_loss.detach()
         del ens_loss
 
@@ -204,7 +209,7 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
                 metrics[f"Values_exploration/predicted_values_{k}"] = values.detach().mean()
                 metrics[f"Values_exploration/lambda_values_{k}"] = lambda_values.detach().mean()
         loss = policy_loss(actors["exploration"], traj, imagined_actions, advantage, discount, ent_coef)
-        update("actor_exploration", loss, opt_states)
+        update("actor_exploration", loss, opt_states, probe)
         metrics["Loss/policy_loss_exploration"] = loss.detach()
         traj = traj.detach()
         del loss, advantage, values, reward
@@ -226,18 +231,20 @@ def make_train_step(modules: Dict[str, torch.nn.Module], cfg, cnn_keys: Sequence
         offset, invscale, new_moments["task"] = moments_of(moments["task"], lambda_values)
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
         loss = policy_loss(actors["task"], traj, imagined_actions, advantage, discount, ent_coef)
-        update("actor_task", loss, opt_states)
+        update("actor_task", loss, opt_states, probe)
         metrics["Loss/policy_loss_task"] = loss.detach()
         traj, lambda_values = traj.detach(), lambda_values.detach()
         del loss, advantage, values, rewards
         value_loss = critic_loss(modules["critic_task"], modules["target_critic_task"], traj, lambda_values, discount)
-        update("critic_task", value_loss, opt_states)
+        update("critic_task", value_loss, opt_states, probe)
         metrics["Loss/value_loss_task"] = value_loss.detach()
 
         if not isinstance(update_target, torch.Tensor):
             update_target = torch.full((), bool(update_target), device=device)
         for target, source in target_pairs:
             ema_target(target, source, tau, update_target)
+        if probe is not None:
+            metrics.update(probe.metrics({name: list(m.parameters()) for name, m in modules.items()}))
         return new_moments, metrics
 
     def draws_of(T: int, B: int, generator: Optional[torch.Generator], device: torch.device, out: Optional[TrainDraws] = None):
@@ -264,7 +271,8 @@ def main(ctx, cfg) -> TrainResult:
             opt_states=opt_states,
             extra_state={"moments": moments},
             make_step=make_captured_step(
-                train_step, modules, opt_states, moments, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen
+                train_step, modules, opt_states, moments, cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, train_gen,
+                f"{cfg.algo.name}/train_block",
             ),
             player_step=make_player_step(modules["world_model"], modules[acting_actor(cfg)], actions_dim, cfg.algo.world_model.discrete_size),
             rb=sequential_buffer(cfg, cfg.env.num_envs, cnn_keys + mlp_keys, log_dir),

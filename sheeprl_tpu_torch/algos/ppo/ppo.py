@@ -50,6 +50,8 @@ from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.precision import train_policy
 from sheeprl_tpu_torch.rollout import PipelinedPlayer, rollout_metrics
 from sheeprl_tpu_torch.utils.env import make_vector_env
+from sheeprl_tpu_torch.obs import TrainingMonitor
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled, module_slices
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator, record_episode_stats
@@ -64,7 +66,10 @@ class Optimizer:
     """One optax-style gradient transformation over a fixed list of parameters:
     ``state = opt.init(params)``, then ``opt.update(params, grads, state)`` updates the
     parameters and the state in place and returns the gradients' global norm before
-    clipping."""
+    clipping. With ``update_norms=True`` it returns ``(norm, update_norms)``: the
+    latter the float32 norm of the delta applied to each parameter (``[len(params)]``;
+    the ``Health/update_norm`` diagnostics), computed from the update the optimizer
+    already holds, with no copy of a parameter."""
 
     def __init__(
         self, name: str, lr: float, max_grad_norm: float = 0.0, lr_schedule: Optional[Callable] = None, inject_lr: bool = False, **hp: Any
@@ -96,7 +101,7 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any]) -> torch.Tensor:
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any], update_norms: bool = False):
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         g = [t.clone() for t in grads]
         if self.max_grad_norm > 0:
@@ -109,6 +114,13 @@ class Optimizer:
         state["count"].add_(1)
         count, lr, hp = state["count"], self.lr, self.hp
         float_lr = self.lr_schedule is None and not self.inject_lr
+        applied: List[torch.Tensor] = []  # the norms of the deltas, where asked for
+
+        def delta_norms(direction: List[torch.Tensor], scaled: bool) -> None:
+            # the delta is -lr * direction (scaled) or direction itself
+            if update_norms:
+                n = torch.stack(torch._foreach_norm(direction)).float()
+                applied.append(n * (abs(lr) if float_lr else lr_t.abs()) if scaled else n)
 
         def apply_(updates: List[torch.Tensor]) -> None:  # params += -lr * updates
             if float_lr:
@@ -130,11 +142,13 @@ class Optimizer:
             upd = torch._foreach_div(torch._foreach_div(mu, 1 - torch.pow(b1, count)), denom)
             if self.name == "adamw" and hp["weight_decay"]:
                 torch._foreach_add_(upd, params, alpha=hp["weight_decay"])
+            delta_norms(upd, True)
             apply_(upd)
         elif self.name == "sgd":
             trace = state["trace"]
             torch._foreach_mul_(trace, hp["momentum"])
             torch._foreach_add_(trace, g)
+            delta_norms(trace, True)
             apply_(trace)
         else:  # rmsprop_tf: eps inside the square root, then lr, then the momentum trace
             decay = hp["alpha"]
@@ -154,8 +168,9 @@ class Optimizer:
             trace = state["trace"]
             torch._foreach_mul_(trace, hp["momentum"])
             torch._foreach_add_(trace, upd)
+            delta_norms(trace, False)
             torch._foreach_add_(params, trace)
-        return norm
+        return (norm, applied[0]) if update_norms else norm
 
     @staticmethod
     @torch.no_grad()
@@ -214,15 +229,44 @@ def make_optimizer(opt_cfg: Dict[str, Any], max_grad_norm: float, lr_schedule: O
     return Optimizer(name, lr, max_grad_norm, lr_schedule, inject_lr, **hp)
 
 
+def update_agent(opt: Optimizer, params: List[torch.Tensor], opt_state: Dict[str, Any], total: torch.Tensor, slices: Optional[Dict[str, slice]], aux: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One optimizer step of a one-optimizer agent from ``total``'s gradient. With
+    ``slices`` (the agent's modules, ``obs/health.py::module_slices``; where
+    ``obs.health`` is on) it returns the step's ``Health/*``: per-module norms of the
+    gradients, new parameters and updates, and the means of ``aux``."""
+    g = grads(total, params)
+    if slices is None:
+        opt.update(params, g, opt_state)
+        return {}
+    probe = StepHealth()
+    for name, sl in slices.items():
+        probe.grads(name, g[sl])
+    _, update_norms = opt.update(params, g, opt_state, update_norms=True)
+    for name, sl in slices.items():
+        probe.updates(name, update_norms[sl])
+    return probe.metrics({name: params[sl] for name, sl in slices.items()}, aux)
+
+
+def stack_metrics(fns, losses: Sequence[str], values: torch.Tensor, health: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A step's metrics as one float32 tensor: the losses ``values``, then ``health``'s;
+    their names go to ``fns.metric_names``."""
+    fns.metric_names = [*losses, *health]
+    return torch.cat([values, torch.stack(list(health.values()))]) if health else values
+
+
 class MinibatchUpdate:
     """An update as replays of one gradient step over static inputs: ``data`` (the
     rollout, ``[N, ...]`` per key), ``idx`` (the minibatch's rows) and ``coefs`` (the
     annealed clip and entropy coefficients). ``step(data, idx, coefs)`` updates the
     parameters and optimizer state (``state``) in place and returns its metrics as one
     float32 tensor. With ``capture`` the step is a ``StepGraph`` (a CUDA graph on a
-    card, eager on the CPU); without, it runs eagerly on any device."""
+    card, eager on the CPU); without, it runs eagerly on any device. ``cost_name``: the
+    name the perf plane counts each step under (``obs/perf.py``)."""
 
-    def __init__(self, step: Callable, data: Dict[str, torch.Tensor], index_shape: Sequence[int], state: Sequence[torch.Tensor], capture: bool = True):
+    def __init__(
+        self, step: Callable, data: Dict[str, torch.Tensor], index_shape: Sequence[int], state: Sequence[torch.Tensor], capture: bool = True,
+        cost_name: Optional[str] = None,
+    ):
         device = next(iter(data.values())).device
         self.inputs = {
             "data": {k: torch.zeros_like(v) for k, v in data.items()},
@@ -230,7 +274,7 @@ class MinibatchUpdate:
             "coefs": torch.zeros(2, device=device),
         }
         self.fn = lambda inp: step(inp["data"], inp["idx"], inp["coefs"])
-        self.graph = StepGraph(self.fn, self.inputs, list(state)) if capture else None
+        self.graph = StepGraph(self.fn, self.inputs, list(state), cost_name=cost_name) if capture else None
 
     def __call__(self, data: Dict[str, torch.Tensor], index_rows: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
         """One step per row of ``index_rows``; the mean of their metrics."""
@@ -274,9 +318,16 @@ class PPOTrainFns:
     ``values``, ``gae_fn`` and ``train_fn`` over ``agent``'s parameters and the
     optimizer state ``opt_state``. ``capture=False`` runs the update eagerly on a card
     too (the graph's parity check). ``inject_lr``: the learning rate lives in the
-    optimizer state (a population's sweep)."""
+    optimizer state (a population's sweep). With ``obs.health`` each minibatch step also
+    returns the reference's ``Health/*`` (``metric_names`` names the step's outputs).
+    ``cost_name``: the perf plane's name for the captured step (``<algo>/train_fn``)."""
 
-    def __init__(self, ctx, agent, cfg, obs_keys: Sequence[str], num_updates: int, capture: bool = True, inject_lr: bool = False):
+    LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+
+    def __init__(
+        self, ctx, agent, cfg, obs_keys: Sequence[str], num_updates: int, capture: bool = True, inject_lr: bool = False,
+        cost_name: Optional[str] = None,
+    ):
         if cfg.algo.per_rank_batch_size <= 0:
             raise ValueError("algo.per_rank_batch_size must be positive")
         num_envs, rollout_steps = cfg.env.num_envs, cfg.algo.rollout_steps
@@ -307,6 +358,9 @@ class PPOTrainFns:
         self.compute_dtype = train_policy(cfg, ctx)
         self._update: Optional[MinibatchUpdate] = None
         self.gae_fn = CapturedGAE(cfg)
+        self.health_slices = module_slices(agent, {"actor_heads": "actor_head_{}"}) if health_enabled(cfg) else None
+        self.metric_names = list(self.LOSSES)
+        self.cost_name = cost_name if cost_name is not None else f"{cfg.algo.name}/train_fn"
 
     def cast_obs(self, obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Float observations cast to the compute dtype (``cast_obs``, ``ppo.py:166-173``
@@ -324,9 +378,9 @@ class PPOTrainFns:
     def values(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.agent(self.cast_obs(obs))[1][..., 0]
 
-    def loss(self, mb: Dict[str, torch.Tensor], clip_coef, ent_coef) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The total loss and ``[policy, value, entropy]`` losses (the last negated, as
-        the reference logs it)."""
+    def loss(self, mb: Dict[str, torch.Tensor], clip_coef, ent_coef) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The total loss, ``[policy, value, entropy]`` losses (the last negated, as the
+        reference logs it) and, with health on, the policy entropy and value statistics."""
         algo = self.cfg.algo
         actor_out, new_values = self.agent(self.cast_obs({k: mb[k] for k in self.obs_keys}))
         new_logprob, entropy = log_prob_and_entropy(actor_out, mb["actions"], self.agent.is_continuous)
@@ -336,13 +390,16 @@ class PPOTrainFns:
         pg = policy_loss(new_logprob, mb["logprobs"], adv, clip_coef, algo.loss_reduction)
         vf = value_loss(new_values[..., 0], mb["values"], mb["returns"], clip_coef, algo.clip_vloss, algo.loss_reduction)
         ent = entropy_loss(entropy, algo.loss_reduction)
-        return pg + algo.vf_coef * vf + ent_coef * ent, torch.stack([pg, vf, -ent]).detach()
+        aux = {}
+        if self.health_slices is not None:
+            aux = {"policy_entropy": entropy.mean(), "value_mean": new_values.mean(), "value_std": new_values.std(correction=0)}
+        return pg + algo.vf_coef * vf + ent_coef * ent, torch.stack([pg, vf, -ent]).detach(), aux
 
     def minibatch_step(self, data: Dict[str, torch.Tensor], idx: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
         mb = {k: v[idx] for k, v in data.items()}
-        total, metrics = self.loss(mb, coefs[0], coefs[1])
-        self.opt.update(self.params, grads(total, self.params), self.opt_state)
-        return metrics
+        total, metrics, aux = self.loss(mb, coefs[0], coefs[1])
+        health = update_agent(self.opt, self.params, self.opt_state, total, self.health_slices, aux)
+        return stack_metrics(self, self.LOSSES, metrics, health)
 
     def permutations(self, generator: Optional[torch.Generator]) -> torch.Tensor:
         """``[update_epochs, N]``: one permutation of the rollout's rows per epoch."""
@@ -368,12 +425,12 @@ class PPOTrainFns:
             raise ValueError(f"perms has shape {tuple(perms.shape)}, expected (update_epochs, N) = {(self.cfg.algo.update_epochs, self.batch_n)}")
         if self._update is None:
             state = self.params + tree_tensors(self.opt_state)
-            self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_size,), state, self.capture)
+            self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_size,), state, self.capture, self.cost_name)
         return self._update(data, perms.reshape(-1, self.mb_size), coefs)
 
-    @staticmethod
-    def losses(out: torch.Tensor) -> Dict[str, float]:
-        return dict(zip(("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"), out.cpu().tolist()))
+    def losses(self, out: torch.Tensor) -> Dict[str, float]:
+        """The update's mean metrics by name (its losses, then ``Health/*``)."""
+        return dict(zip(self.metric_names, out.cpu().tolist()))
 
     def lr_at(self, grad_step: int) -> float:
         """The learning rate after ``grad_step`` gradient steps (``Params/lr``)."""
@@ -438,10 +495,12 @@ def truncation_bootstrap(info: Dict[str, Any], truncated: np.ndarray, obs_keys: 
 
 class PPOFamilyLoop:
     """What the PPO family's train loops share around their rollouts: the log dir,
-    logger, vector env, aggregator, checkpoints and resume, and the logging and
-    checkpoint cadences."""
+    logger, training monitor (``obs/monitor.py``; ``close()`` it before the envs),
+    vector env, aggregator, checkpoints and resume, and the logging and checkpoint
+    cadences. ``phases``: the monitor's phases, the reference loop's (None: every one
+    the loop names)."""
 
-    def __init__(self, ctx, cfg, aggregator_keys, agg_lock=None):
+    def __init__(self, ctx, cfg, aggregator_keys, agg_lock=None, phases: Optional[Sequence[str]] = None):
         self.ctx, self.cfg = ctx, cfg
         # held around the aggregator's reads where another thread feeds it (ppo_decoupled)
         self.agg_lock = agg_lock if agg_lock is not None else contextlib.nullcontext()
@@ -449,6 +508,7 @@ class PPOFamilyLoop:
         save_config(cfg, Path(self.log_dir) / "config.yaml")
         self.logger = get_logger(cfg, self.log_dir)
         self.timer = Timer(disabled=bool(cfg.metric.get("disable_timer", False)))
+        self.monitor = TrainingMonitor(cfg, self.log_dir, self.timer, ctx.device, phases=phases)
         self.envs = make_vector_env(cfg, cfg.seed, 0, self.log_dir if cfg.env.capture_video else None)
         self.aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
         self.aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
@@ -480,8 +540,7 @@ class PPOFamilyLoop:
                 self.aggregator.reset()
             out.update(metrics())
             out.update(rollout_metrics(self.envs))
-            out.update(self.timer.to_dict())
-            self.logger.log_metrics(out, self.policy_step)
+            self.monitor.log_metrics(self.logger, out, self.policy_step)
             self.last_log = self.policy_step
         if (cfg.checkpoint.every > 0 and self.policy_step - self.last_checkpoint >= cfg.checkpoint.every) or (
             update == self.num_updates and cfg.checkpoint.save_last
@@ -494,8 +553,14 @@ class PPOFamilyLoop:
                 "last_log": self.last_log,
                 "last_checkpoint": self.policy_step,
             }
-            self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
+            with self.monitor.phase("checkpoint"):
+                self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
             self.last_checkpoint = self.policy_step
+
+    def close(self) -> None:
+        """The monitor, then the vector env (a loop's teardown)."""
+        self.monitor.close()
+        self.envs.close()
 
     def finish(self, test_fn: Callable[[], float], grad_steps: int, seconds: float, train_seconds: float, env_seconds: float) -> TrainResult:
         test_reward = None
@@ -528,8 +593,9 @@ class PPOActing:
     with ``generator``'s draws, the truncation bootstrap folded into the rewards, then
     the update's batch with GAE on the device."""
 
-    def __init__(self, cfg, fns: PPOTrainFns, envs, generator: Optional[torch.Generator], depth: int = 0):
+    def __init__(self, cfg, fns: PPOTrainFns, envs, generator: Optional[torch.Generator], depth: int = 0, phase: Optional[Callable] = None):
         self.cfg, self.fns, self.envs = cfg, fns, envs
+        self.phase = phase if phase is not None else (lambda name: contextlib.nullcontext())
         obs_space, act_space = envs.single_observation_space, envs.single_action_space
         self.cnn_keys, self.mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
         self.obs_keys = self.cnn_keys + self.mlp_keys
@@ -556,20 +622,23 @@ class PPOActing:
         cfg, rollout, num_envs = self.cfg, self.rollout, self.cfg.env.num_envs
         host_values = lambda o: self.fns.values(self.prepare(o)).float().cpu().numpy()  # noqa: E731
         for t in range(rollout.T):
-            obs_t = rollout.put_obs(t, obs)
-            actions, (act_np, logprob_np, value_np) = self.player.act(obs_t)
-            next_obs, reward, terminated, truncated, info = self.player.env_step(actions)
+            with self.phase("player"):
+                obs_t = rollout.put_obs(t, obs)
+                actions, (act_np, logprob_np, value_np) = self.player.act(obs_t)
+            with self.phase("env_step"):
+                next_obs, reward, terminated, truncated, info = self.player.env_step(actions)
             if cfg.env.clip_rewards:
                 reward = np.clip(reward, -1, 1)
             reward = np.asarray(reward, dtype=np.float32).reshape(num_envs)
             boot = truncation_bootstrap(info, truncated, self.obs_keys, host_values)
             if boot is not None:
                 reward[boot[0]] += cfg.algo.gamma * boot[1]
-            host = rollout.host
-            host["actions"][t] = act_np.reshape(num_envs, -1)
-            host["logprobs"][t], host["values"][t] = logprob_np, value_np
-            host["rewards"][t] = reward
-            host["dones"][t] = np.logical_or(terminated, truncated)
+            with self.phase("buffer_add"):
+                host = rollout.host
+                host["actions"][t] = act_np.reshape(num_envs, -1)
+                host["logprobs"][t], host["values"][t] = logprob_np, value_np
+                host["rewards"][t] = reward
+                host["dones"][t] = np.logical_or(terminated, truncated)
             obs = next_obs
             on_step(info)
         return obs
@@ -602,7 +671,8 @@ def main(ctx, cfg) -> TrainResult:
         fns = PPOTrainFns(ctx, agent, cfg, obs_keys, loop.num_updates)
         loop.resume(agent, fns.opt_state)
         player_gen, train_gen = ctx.rng(), ctx.rng()
-        acting = PPOActing(cfg, fns, envs, player_gen, depth=int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0))
+        depth = int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0)
+        acting = PPOActing(cfg, fns, envs, player_gen, depth=depth, phase=loop.monitor.phase)
 
         def on_step(info):
             loop.policy_step += cfg.env.num_envs
@@ -612,6 +682,7 @@ def main(ctx, cfg) -> TrainResult:
         grad_steps, train_seconds, env_seconds = 0, 0.0, 0.0
         run_start = time.perf_counter()
         for update in range(loop.start_update, loop.num_updates + 1):
+            loop.monitor.advance()
             env_t0 = time.perf_counter()
             with loop.timer("Time/env_interaction_time"):
                 obs = acting.collect(obs, on_step)
@@ -619,7 +690,7 @@ def main(ctx, cfg) -> TrainResult:
             env_seconds += env_time
 
             train_t0 = time.perf_counter()
-            with loop.timer("Time/train_time"):
+            with loop.timer("Time/train_time"), loop.monitor.phase("dispatch"):
                 data = acting.batch(obs)
                 train_metrics = fns.train_fn(data, fns.permutations(train_gen), *annealed_coefs(cfg, update, loop.num_updates))
             train_time = time.perf_counter() - train_t0
@@ -635,6 +706,6 @@ def main(ctx, cfg) -> TrainResult:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
-        envs.close()
+        loop.close()
     seconds = time.perf_counter() - run_start
     return loop.finish(lambda: test(agent, ctx, cfg, loop.log_dir).reward, grad_steps, seconds, train_seconds, env_seconds)

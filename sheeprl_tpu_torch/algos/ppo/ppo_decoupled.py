@@ -60,7 +60,7 @@ def main(ctx, cfg) -> TrainResult:
         return run_placed(ctx, cfg, spec, "ppo")
     device = ctx.device
     agg_lock = threading.Lock()  # the player records episode stats, the learner reads and resets
-    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS, agg_lock)
+    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS, agg_lock, phases=("dispatch",))
     envs = loop.envs
     player = None
     try:
@@ -113,6 +113,7 @@ def main(ctx, cfg) -> TrainResult:
         player.start()
         with on_stream(learner_stream):
             for update in range(loop.start_update, loop.num_updates + 1):
+                loop.monitor.advance()
                 item = player.take()
                 receive(item["ready"], device)
                 data = item["data"]
@@ -123,7 +124,7 @@ def main(ctx, cfg) -> TrainResult:
                     with agg_lock:
                         loop.aggregator.update("Sebulba/param_staleness_steps", float(item["staleness"]))
                 train_t0 = time.perf_counter()
-                with loop.timer("Time/train_time"):
+                with loop.timer("Time/train_time"), loop.monitor.phase("dispatch"):
                     losses = fns.launch_update(data, fns.permutations(train_gen), *annealed_coefs(cfg, update, loop.num_updates))
                     stamp = make_stamp(update, update * fns.grad_steps_per_update, loop.policy_step)
                     evict_and_put(param_q, handoff([], device, stamp))
@@ -145,6 +146,7 @@ def main(ctx, cfg) -> TrainResult:
     finally:
         if player is not None:
             player.close()
+        loop.monitor.close()
         if player is None or not player.alive:  # a player stuck in envs.step keeps them
             envs.close()
     player.check_closed()

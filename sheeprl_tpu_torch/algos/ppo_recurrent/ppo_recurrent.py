@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, grads
+from sheeprl_tpu_torch.algos.loop_common import TrainResult
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.ppo import (
     CapturedGAE,
@@ -31,9 +31,12 @@ from sheeprl_tpu_torch.algos.ppo.ppo import (
     annealed_coefs,
     make_optimizer,
     refuse_ppo_unported,
+    stack_metrics,
+    update_agent,
 )
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, TestResult, env_actions, log_prob_and_entropy, prepare_obs, sample_actions
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent, make_zero_state
+from sheeprl_tpu_torch.obs.health import health_enabled, module_slices
 from sheeprl_tpu_torch.utils.graphs import tree_tensors
 from sheeprl_tpu_torch.utils.metric import record_episode_stats
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -70,6 +73,8 @@ class RecurrentPPOTrainFns:
         self.opt_state = self.opt.init(self.params)
         self.gae_fn = CapturedGAE(cfg)
         self._update: Optional[MinibatchUpdate] = None
+        self.health_slices = module_slices(agent, {"actor_heads": "actor_heads_{}"}) if health_enabled(cfg) else None
+        self.metric_names = list(self.LOSSES)
 
     @torch.no_grad()
     def act(self, obs, prev_actions, is_first, state, generator=None, draws=None):
@@ -78,7 +83,9 @@ class RecurrentPPOTrainFns:
         env_act, _, logprob = sample_actions(actor_out, self.agent.is_continuous, generator=generator, draws=draws)
         return env_act, logprob, value[..., 0], new_state
 
-    def loss(self, batch: Dict[str, torch.Tensor], initial_state, clip_coef) -> Tuple[torch.Tensor, torch.Tensor]:
+    LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+
+    def loss(self, batch: Dict[str, torch.Tensor], initial_state, clip_coef) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         algo = self.cfg.algo
         actor_out, values = self.agent({k: batch[k] for k in self.obs_keys}, batch["prev_actions"], batch["is_first"], initial_state)
         logprob, entropy = log_prob_and_entropy(actor_out, batch["actions"], self.agent.is_continuous)
@@ -86,13 +93,14 @@ class RecurrentPPOTrainFns:
         pg = policy_loss(logprob, batch["logprobs"], adv, clip_coef, "mean")
         vf = value_loss(values[..., 0], batch["values"], batch["returns"], clip_coef, algo.clip_vloss, "mean")
         ent = entropy_loss(entropy, algo.loss_reduction)
-        return pg + algo.vf_coef * vf + algo.ent_coef * ent, torch.stack([pg, vf, -ent]).detach()
+        aux = {"policy_entropy": entropy.mean(), "value_mean": values.mean()} if self.health_slices is not None else {}
+        return pg + algo.vf_coef * vf + algo.ent_coef * ent, torch.stack([pg, vf, -ent]).detach(), aux
 
     def minibatch_step(self, data: Dict[str, torch.Tensor], idx: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
         batch = {k: v[:, idx] for k, v in data.items() if k not in ("c0", "h0")}
-        total, metrics = self.loss(batch, (data["c0"][idx], data["h0"][idx]), coefs[0])
-        self.opt.update(self.params, grads(total, self.params), self.opt_state)
-        return metrics
+        total, metrics, aux = self.loss(batch, (data["c0"][idx], data["h0"][idx]), coefs[0])
+        health = update_agent(self.opt, self.params, self.opt_state, total, self.health_slices, aux)
+        return stack_metrics(self, self.LOSSES, metrics, health)
 
     def permutations(self, generator: Optional[torch.Generator]) -> torch.Tensor:
         """``[update_epochs, num_envs]``: one permutation of the envs per epoch."""
@@ -107,10 +115,10 @@ class RecurrentPPOTrainFns:
         data = {**seq_data, "c0": c0, "h0": h0}
         if self._update is None:
             state = self.params + tree_tensors(self.opt_state)
-            self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_envs,), state, self.capture)
+            self._update = MinibatchUpdate(self.minibatch_step, data, (self.mb_envs,), state, self.capture, "ppo_recurrent/train_fn")
         coefs = torch.tensor([clip_coef, ent_coef], dtype=torch.float32)
         out = self._update(data, perms.reshape(-1, self.mb_envs), coefs).cpu()
-        return dict(zip(("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"), out.tolist()))
+        return dict(zip(self.metric_names, out.tolist()))
 
 
 def test(agent, ctx, cfg, log_dir: str, greedy: bool = True) -> TestResult:
@@ -158,7 +166,7 @@ def main(ctx, cfg) -> TrainResult:
             f"algo.precision={precision}: recurrent PPO computes in mesh.precision's dtype, as the reference's does"
         )
     device = ctx.device
-    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS)
+    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS, phases=("dispatch",))
     envs = loop.envs
     try:
         obs_space, act_space = envs.single_observation_space, envs.single_action_space
@@ -186,6 +194,7 @@ def main(ctx, cfg) -> TrainResult:
         grad_steps, train_seconds, env_seconds = 0, 0.0, 0.0
         run_start = time.perf_counter()
         for update in range(loop.start_update, loop.num_updates + 1):
+            loop.monitor.advance()
             if is_attention:  # the attention context never crosses a rollout's start
                 state = zero_state(num_envs)
             c0, h0 = state
@@ -221,7 +230,7 @@ def main(ctx, cfg) -> TrainResult:
             env_seconds += env_time
 
             train_t0 = time.perf_counter()
-            with loop.timer("Time/train_time"):
+            with loop.timer("Time/train_time"), loop.monitor.phase("dispatch"):
                 local = rollout.tensors()
                 obs_t = prepare_obs(obs, cnn_keys, mlp_keys, device)
                 next_value = fns.act(obs_t, dev(prev_stored), dev(is_first_np), state, player_gen)[2]
@@ -241,6 +250,6 @@ def main(ctx, cfg) -> TrainResult:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
-        envs.close()
+        loop.close()
     seconds = time.perf_counter() - run_start
     return loop.finish(lambda: test(agent, ctx, cfg, loop.log_dir).reward, grad_steps, seconds, train_seconds, env_seconds)

@@ -35,7 +35,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_loop import capture_step, fill_draws, load_opt_states
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import ema_target
-from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint
+from sheeprl_tpu_torch.algos.loop_common import REGISTERS, TrainResult, grads, refuse_unported, register_last_checkpoint, update_module
 from sheeprl_tpu_torch.algos.ppo.ppo import Optimizer, make_optimizer
 from sheeprl_tpu_torch.algos.sac.agent import action_dim, build_agent, vector_dim
 from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
@@ -44,6 +44,8 @@ from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import make_transition_replay
+from sheeprl_tpu_torch.obs import TrainingMonitor, replay_age_metrics
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.rollout import PipelinedPlayer, rollout_metrics
 from sheeprl_tpu_torch.utils.env import make_vector_env
 from sheeprl_tpu_torch.utils.graphs import tree_tensors
@@ -90,18 +92,33 @@ def td_target(actor, target_critic, batch: Dict[str, torch.Tensor], next_obs, al
         return batch["rewards"] + (1.0 - batch["dones"]) * gamma * (q_next - alpha * next_logp)
 
 
-def actor_and_alpha_step(agent, opts, opt_states, actor_in: torch.Tensor, q_fn: Callable, noise, target_entropy: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def actor_and_alpha_step(
+    agent, opts, opt_states, actor_in: torch.Tensor, q_fn: Callable, noise, target_entropy: float, probe: Optional[StepHealth] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """The actor's step on ``alpha * log pi - q_fn(actor_in, a)`` (the temperature as it
     stands), then the temperature's step on the actor's log-probs; both in place.
-    Returns the two losses."""
+    Returns the two losses. A health probe gets the ``actor`` and ``alpha`` norms and the
+    policy entropy."""
     alpha = agent.log_alpha.detach().exp()
     new_act, logp = tanh_sample(agent.actor, actor_in, noise)
     al = actor_loss(alpha, logp, q_fn(actor_in, new_act))
     a_params = list(agent.actor.parameters())
-    opts["actor"].update(a_params, grads(al, a_params), opt_states["actor"])
+    update_module(probe, "actor", opts["actor"], a_params, grads(al, a_params), opt_states["actor"])
     tl = alpha_loss(agent.log_alpha, logp, target_entropy)
-    opts["alpha"].update([agent.log_alpha], grads(tl, [agent.log_alpha]), opt_states["alpha"])
+    update_module(probe, "alpha", opts["alpha"], [agent.log_alpha], grads(tl, [agent.log_alpha]), opt_states["alpha"])
+    if probe is not None:
+        probe.aux["policy_entropy"] = -logp.detach().mean()
     return al.detach(), tl.detach()
+
+
+def sac_params(agent) -> Dict[str, Any]:
+    """The agent's parameters under the reference's top-level names."""
+    return {
+        "actor": list(agent.actor.parameters()),
+        "critic": list(agent.critic.parameters()),
+        "critic_target": list(agent.critic_target.parameters()),
+        "log_alpha": [agent.log_alpha],
+    }
 
 
 def make_sac_update(agent, cfg, act_dim: int, inject: Sequence[str] = ()):
@@ -113,20 +130,29 @@ def make_sac_update(agent, cfg, act_dim: int, inject: Sequence[str] = ()):
     opts = make_optimizers(cfg, cfg.algo.get("max_grad_norm", 0.0) or 0.0, inject=inject)
     opt_states = init_opt_states(opts, {"actor": agent.actor.parameters(), "critic": agent.critic.parameters(), "alpha": [agent.log_alpha]})
     gamma, tau, target_entropy = float(cfg.algo.gamma), float(cfg.algo.tau), -float(act_dim)
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
 
     def update(opt_states, batch, update_target, draws) -> Dict[str, torch.Tensor]:
         alpha = agent.log_alpha.detach().exp()
         obs, next_obs = batch["obs"], batch["next_obs"]
         target = td_target(agent.actor, agent.critic_target, batch, next_obs, alpha, gamma, draws.next)
         c_params = list(agent.critic.parameters())
-        cl = critic_loss(agent.critic(obs, batch["actions"]), target)
-        opts["critic"].update(c_params, grads(cl, c_params), opt_states["critic"])
+        qs = agent.critic(obs, batch["actions"])
+        cl = critic_loss(qs, target)
+        probe = StepHealth() if health else None
+        update_module(probe, "critic", opts["critic"], c_params, grads(cl, c_params), opt_states["critic"])
         # the actor against the critic just updated, as the reference
-        al, tl = actor_and_alpha_step(agent, opts, opt_states, obs, lambda o, a: torch.amin(agent.critic(o, a), 0), draws.new, target_entropy)
+        al, tl = actor_and_alpha_step(
+            agent, opts, opt_states, obs, lambda o, a: torch.amin(agent.critic(o, a), 0), draws.new, target_entropy, probe
+        )
         if not isinstance(update_target, torch.Tensor):
             update_target = torch.full((), bool(update_target), device=cl.device)
         ema_target(list(agent.critic_target.parameters()), c_params, tau, update_target)
-        return dict(zip(METRICS, (cl.detach(), al, tl)))
+        metrics = dict(zip(METRICS, (cl.detach(), al, tl)))
+        if probe is not None:
+            qs = qs.detach()
+            metrics.update(probe.metrics(sac_params(agent), {"q_mean": qs.mean(), "q_std": qs.std(correction=0), "target_q_mean": target.mean()}))
+        return metrics
 
     return update, opts, opt_states
 
@@ -141,18 +167,37 @@ def transition_draws(draw_shapes: Callable, kinds: Sequence[str]):
     return draw_shapes, sample_draws
 
 
-def make_sac_step_factory(agent, update, opt_states, batch_size: int, act_dim: int, generator):
+def perf_prefix(cfg) -> str:
+    """The reference's name prefix for a SAC-family loop's hot paths (``obs/perf.py``):
+    the algorithm's, or ``sac_sebulba`` for a Sebulba learner."""
+    if cfg.algo.name == "sac_decoupled" and (cfg.get("distributed") or {}).get("mode") == "sebulba":
+        return "sac_sebulba"
+    return str(cfg.algo.name)
+
+
+def step_cost_name(prefix: str, example: Dict[str, Any]) -> str:
+    """The perf plane's name for a SAC-family step: ``<prefix>/fused_block_k1`` over the
+    device ring (one replay is a block of one step), ``<prefix>/train_fn`` over host
+    batches."""
+    return f"{prefix}/fused_block_k1" if example.get("gather") is not None else f"{prefix}/train_fn"
+
+
+def make_sac_step_factory(agent, update, opt_states, batch_size: int, act_dim: int, generator, prefix: str = "sac"):
     """``make_step`` for ``make_transition_replay``: SAC's update captured over static
     inputs (``dreamer_loop.capture_step``), its two normal draws written from
-    ``generator`` before each replay."""
+    ``generator`` before each replay; counted by the perf plane under ``prefix``'s
+    names (``step_cost_name``)."""
     shapes, sample = transition_draws(lambda T, B: SACDraws((B, act_dim), (B, act_dim)), ("normal", "normal"))
     state = list(agent.parameters()) + tree_tensors(opt_states)
 
     def run(batch, update_target, draws):
         return update(opt_states, batch, update_target, draws)
 
-    factory = capture_step(run, state, shapes, sample, 1, batch_size, generator)
-    return lambda example: (*factory(example), None)
+    def make_step(example):
+        factory = capture_step(run, state, shapes, sample, 1, batch_size, generator, step_cost_name(prefix, example))
+        return (*factory(example), None)
+
+    return make_step
 
 
 # --------------------------------------------------------------------------- the loop
@@ -186,13 +231,14 @@ def refuse_precision_override(cfg) -> None:
 
 def run_sac_loop(
     ctx, cfg, setup: Callable[..., SACParts], aggregator_keys=AGGREGATOR_KEYS, pipelined: bool = False, prefill_on_resume: bool = False,
-    registers: bool = False,
+    registers: bool = False, phases: Sequence[str] = (),
 ) -> TrainResult:
     """The SAC family's train loop. ``setup(ctx, cfg, obs_space, act_space)`` returns the
     algorithm's ``SACParts``. ``prefill_on_resume``: a resumed run acts randomly again
     while ``learning_starts`` lasts (SAC-AE's reference does; SAC's and DroQ's keep the
     policy). ``registers``: the run's last checkpoint is registered at its end with
-    ``model_manager.disabled=False`` (SAC's reference does; DroQ's and SAC-AE's do not)."""
+    ``model_manager.disabled=False`` (SAC's reference does; DroQ's and SAC-AE's do not).
+    ``phases``: the ``Time/phase_*`` blocks the algorithm's reference loop times."""
     # only SAC's loop reads rollout.pipeline_depth; DroQ's and SAC-AE's act synchronously, as their references do
     refuse_unported(cfg, handled=(("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ()))
     device = ctx.device
@@ -200,6 +246,7 @@ def run_sac_loop(
     save_config(cfg, Path(log_dir) / "config.yaml")
     logger = get_logger(cfg, log_dir)
     timer = Timer(disabled=bool(cfg.metric.get("disable_timer", False)))
+    monitor = TrainingMonitor(cfg, log_dir, timer, device, phases=phases)
     envs = make_vector_env(cfg, cfg.seed, 0, log_dir if cfg.env.capture_video else None)
     prefetcher = None
     try:
@@ -248,6 +295,7 @@ def run_sac_loop(
                 rb.load_state_dict(state["rb"])
                 if ring is not None and len(rb) > 0:
                     ring.load_from_dense({k: rb._buf[k] for k in specs})
+                    ring.load_stamps(rb)
         start_grad_count, last_path = grad_count, None
 
         player_gen = ctx.rng()
@@ -276,14 +324,16 @@ def run_sac_loop(
             train_seconds += time.perf_counter() - t0
 
         for iter_num in range(start_iter, num_iters + 1):
+            monitor.advance()
             env_t0 = time.perf_counter()
             with timer("Time/env_interaction_time"):
                 if iter_num <= learning_starts and (prefill_on_resume or not resumed):
                     actions = np.stack([act_space.sample() for _ in range(num_envs)])
                     tanh_actions = 2 * (actions - low) / (high - low) - 1 if rescale else actions
                 else:
-                    rows = torch.from_numpy(parts.to_rows(obs)).to(device)
-                    actions, tanh_actions = player.act(rows)
+                    with monitor.phase("player"):
+                        rows = torch.from_numpy(parts.to_rows(obs)).to(device)
+                        actions, tanh_actions = player.act(rows)
             env_time = time.perf_counter() - env_t0
 
             grad_steps, deferred = 0, False
@@ -295,11 +345,13 @@ def run_sac_loop(
                     if rb.empty:
                         deferred = True  # rows carry next_obs: the first lands after the env step
                     else:
-                        dispatch(grad_steps, iter_num < num_iters)
+                        with monitor.phase("dispatch"):
+                            dispatch(grad_steps, iter_num < num_iters)
 
             env_t0 = time.perf_counter()
             with timer("Time/env_interaction_time"):
-                next_obs, reward, terminated, truncated, info = player.env_step(actions)
+                with monitor.phase("env_step"):
+                    next_obs, reward, terminated, truncated, info = player.env_step(actions)
                 done = np.logical_or(terminated, truncated)
                 real_next = {k: np.asarray(v).copy() for k, v in next_obs.items()}
                 if done.any() and "final_obs" in info:
@@ -307,17 +359,18 @@ def run_sac_loop(
                         if info["final_obs"][i] is not None:
                             for k in real_next:
                                 real_next[k][i] = np.asarray(info["final_obs"][i][k])
-                rb_add(
-                    {
-                        "obs": parts.to_rows(obs)[None],
-                        "next_obs": parts.to_rows(real_next)[None],
-                        "actions": np.asarray(tanh_actions, np.float32).reshape(1, num_envs, -1),
-                        "rewards": np.asarray(reward, np.float32).reshape(1, num_envs, 1),
-                        # a truncated episode still bootstraps: dones is the termination
-                        "dones": np.asarray(terminated, np.float32).reshape(1, num_envs, 1),
-                    },
-                    validate_args=cfg.buffer.validate_args,
-                )
+                with monitor.phase("buffer_add"):
+                    rb_add(
+                        {
+                            "obs": parts.to_rows(obs)[None],
+                            "next_obs": parts.to_rows(real_next)[None],
+                            "actions": np.asarray(tanh_actions, np.float32).reshape(1, num_envs, -1),
+                            "rewards": np.asarray(reward, np.float32).reshape(1, num_envs, 1),
+                            # a truncated episode still bootstraps: dones is the termination
+                            "dones": np.asarray(terminated, np.float32).reshape(1, num_envs, 1),
+                        },
+                        validate_args=cfg.buffer.validate_args,
+                    )
                 obs = next_obs
                 policy_step += policy_steps_per_iter
                 record_episode_stats(aggregator, info)
@@ -325,7 +378,8 @@ def run_sac_loop(
             env_seconds += env_time
 
             if deferred:
-                dispatch(grad_steps, iter_num < num_iters)
+                with monitor.phase("dispatch"):
+                    dispatch(grad_steps, iter_num < num_iters)
 
             if logger is not None and (policy_step - last_log >= cfg.metric.log_every or iter_num == num_iters or cfg.dry_run):
                 dispatcher.drain(aggregator)
@@ -335,9 +389,9 @@ def run_sac_loop(
                     metrics["Time/sps_train"] = window_sps
                 metrics["Time/sps_env_interaction"] = policy_steps_per_iter / env_time if env_time > 0 else 0.0
                 metrics["Params/replay_ratio"] = grad_count / policy_step if policy_step > 0 else 0.0
+                metrics.update(replay_age_metrics(ring if ring is not None else rb))
                 metrics.update(rollout_metrics(envs))
-                metrics.update(timer.to_dict())
-                logger.log_metrics(metrics, policy_step)
+                monitor.log_metrics(logger, metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step
 
@@ -354,13 +408,15 @@ def run_sac_loop(
                     "last_checkpoint": policy_step,
                     "cumulative_grad_steps": grad_count,
                 }
-                if cfg.buffer.checkpoint:
-                    state["rb"] = rb.state_dict()
-                last_path = str(ckpt_manager.save(policy_step, state))
+                with monitor.phase("checkpoint"):
+                    if cfg.buffer.checkpoint:
+                        state["rb"] = rb.state_dict()
+                    last_path = str(ckpt_manager.save(policy_step, state))
                 last_checkpoint = policy_step
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
+        monitor.close()
         if prefetcher is not None:
             prefetcher.close()
         envs.close()
@@ -394,7 +450,7 @@ def sac_parts(ctx, cfg, obs_space, act_space) -> SACParts:
         to_rows=lambda o: vector_rows(o, mlp_keys),
         policy=lambda rows, gen: sample_tanh(agent.actor, rows, gen),
         greedy=lambda rows: torch.tanh(agent.actor(rows)[0]),
-        make_step=make_sac_step_factory(agent, update, opt_states, cfg.algo.per_rank_batch_size, act_dim, ctx.rng()),
+        make_step=make_sac_step_factory(agent, update, opt_states, cfg.algo.per_rank_batch_size, act_dim, ctx.rng(), perf_prefix(cfg)),
         target_update_freq=max(int(cfg.algo.critic.get("target_network_frequency", 1)), 1),
     )
 
@@ -411,4 +467,4 @@ def main(ctx, cfg) -> TrainResult:
 
     if anakin_enabled(cfg):  # the Anakin engine
         return sac_anakin(ctx, cfg)
-    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True)
+    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True, phases=("player", "dispatch", "env_step", "buffer_add", "checkpoint"))

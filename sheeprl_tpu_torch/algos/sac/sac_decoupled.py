@@ -57,6 +57,7 @@ from sheeprl_tpu_torch.distributed.publish import adopt, evict_and_put, make_sta
 from sheeprl_tpu_torch.distributed.transport import maybe_digest
 from sheeprl_tpu_torch.rollout import PipelinedPlayer
 from sheeprl_tpu_torch.utils.env import make_vector_env
+from sheeprl_tpu_torch.obs import TrainingMonitor
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator, record_episode_stats
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -77,6 +78,7 @@ def main(ctx, cfg) -> TrainResult:
     save_config(cfg, Path(log_dir) / "config.yaml")
     logger = get_logger(cfg, log_dir)
     timer = Timer(disabled=bool(cfg.metric.get("disable_timer", False)))
+    monitor = TrainingMonitor(cfg, log_dir, timer, device, phases=("dispatch",))
     envs = make_vector_env(cfg, cfg.seed, 0, log_dir if cfg.env.capture_video else None)
     player = None
     try:
@@ -123,6 +125,7 @@ def main(ctx, cfg) -> TrainResult:
                 rb.load_state_dict(state["rb"])
                 if ring is not None and len(rb) > 0:
                     ring.load_from_dense({k: rb._buf[k] for k in specs})
+                    ring.load_stamps(rb)
         start_grad_count, last_path = grad_count, None
 
         # the player's own actor: the learner's captured step updates agent.actor in place
@@ -217,6 +220,7 @@ def main(ctx, cfg) -> TrainResult:
         player.start()
         with on_stream(learner_stream):
             for iter_num in range(start_iter, num_iters + 1):
+                monitor.advance()
                 item = player.take()
                 policy_step, env_time, grad_steps = item["policy_step"], item["env_time"], item["grad_steps"]
                 env_seconds += env_time
@@ -225,7 +229,7 @@ def main(ctx, cfg) -> TrainResult:
                         aggregator.update("Sebulba/param_staleness_steps", float(item["staleness"]))
                 if grad_steps > 0:
                     t0 = time.perf_counter()
-                    with timer("Time/train_time"):
+                    with timer("Time/train_time"), monitor.phase("dispatch"):
                         if ring is not None:
                             with fence.hold(learner_stream):
                                 dispatcher.dispatch(*item["block"], grad_count)
@@ -247,8 +251,7 @@ def main(ctx, cfg) -> TrainResult:
                         metrics["Time/sps_train"] = window_sps
                     metrics["Time/sps_env_interaction"] = num_envs / env_time if env_time > 0 else 0.0
                     metrics["Params/replay_ratio"] = grad_count / policy_step if policy_step > 0 else 0.0
-                    metrics.update(timer.to_dict())
-                    logger.log_metrics(metrics, policy_step)
+                    monitor.log_metrics(logger, metrics, policy_step)
                     last_log = policy_step
 
                 if item["ckpt"] is not None:
@@ -272,6 +275,7 @@ def main(ctx, cfg) -> TrainResult:
     finally:
         if player is not None:
             player.close()
+        monitor.close()
         if player is None or not player.alive:  # a player stuck in envs.step keeps them
             envs.close()
     player.check_closed()

@@ -55,6 +55,7 @@ from sheeprl_tpu_torch.algos.sac.sac import (
 from sheeprl_tpu_torch.algos.sac.utils import AGGREGATOR_KEYS as SAC_KEYS
 from sheeprl_tpu_torch.algos.sac.utils import pixel_rows
 from sheeprl_tpu_torch.algos.sac_ae.agent import SACAEAgent, build_agent, frame_channels, preprocess_obs
+from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -103,6 +104,7 @@ def make_sac_ae_update(agent: SACAEAgent, cfg, act_dim: int):
     })
     gamma, target_entropy = float(algo.gamma), -float(act_dim)
     critic_tau, encoder_tau, l2_lambda = float(algo.critic.tau), float(algo.encoder.tau), float(algo.decoder.l2_lambda)
+    health = health_enabled(cfg)  # read when the step is built (obs/health.py)
 
     def update(opt_states, batch, cadence: Cadence, draws) -> Dict[str, torch.Tensor]:
         alpha = agent.log_alpha.detach().exp()
@@ -112,7 +114,18 @@ def make_sac_ae_update(agent: SACAEAgent, cfg, act_dim: int):
         target = td_target(agent.actor, agent.target_critic, batch, z_next, alpha, gamma, draws.next)
         enc_crit = enc + crit
         cl = critic_loss(agent.critic(agent.encoder(obs), batch["actions"]), target)
-        opts["critic"].update(enc_crit, grads(cl, enc_crit), opt_states["critic"])
+        g = grads(cl, enc_crit)
+        probe = StepHealth() if health else None
+        if probe is None:
+            opts["critic"].update(enc_crit, g, opt_states["critic"])
+        else:
+            # the reference's {"critic": {"encoder", "critic"}} tree, unwrapped: the
+            # critic's optimizer covers both modules
+            probe.grads("encoder", g[: len(enc)])
+            probe.grads("critic", g[len(enc):])
+            _, update_norms = opts["critic"].update(enc_crit, g, opt_states["critic"], update_norms=True)
+            probe.updates("encoder", update_norms[: len(enc)])
+            probe.updates("critic", update_norms[len(enc):])
         zero = torch.zeros((), device=cl.device)
         al = tl = rl = zero
         if cadence.target:
@@ -134,7 +147,11 @@ def make_sac_ae_update(agent: SACAEAgent, cfg, act_dim: int):
             opts["encoder"].update(enc, g[: len(enc)], opt_states["encoder"])
             opts["decoder"].update(dec, g[len(enc):], opt_states["decoder"])
             rl = rl.detach()
-        return dict(zip(AE_METRICS, (cl.detach(), al, tl, rl)))
+        metrics = dict(zip(AE_METRICS, (cl.detach(), al, tl, rl)))
+        if probe is not None:
+            params = {name: list(getattr(agent, name).parameters()) for name in ("actor", "critic", "decoder", "encoder", "target_critic", "target_encoder")}
+            metrics.update(probe.metrics({**params, "log_alpha": [agent.log_alpha]}, {"target_q_mean": target.mean()}))
+        return metrics
 
     return update, opts, opt_states
 
@@ -161,10 +178,12 @@ def make_cadence_steps(update, state, opt_states, cfg, batch_size: int, act_dim:
             return fn
 
         graphs: Dict[Cadence, StepGraph] = {}
+        # one cost model for the name, counted over the first pattern's step (every branch on)
+        name = "sac_ae/fused_block_k1" if gather is not None else "sac_ae/train_fn"
         for phase in range(period):
             pattern = cadence(phase)
             if pattern not in graphs:
-                graphs[pattern] = StepGraph(fn_for(pattern), inputs, state)
+                graphs[pattern] = StepGraph(fn_for(pattern), inputs, state, cost_name=name)
         select = lambda count: graphs[cadence(count % period)]  # noqa: E731
         return select(0), lambda out: fill_draws(out, ("normal", "normal"), generator), select
 

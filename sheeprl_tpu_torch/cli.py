@@ -11,8 +11,10 @@ the registered evaluation entry; the checkpoint may also be a registry spec
 ``name[:version|stage|latest]`` (``serve/router.py``). ``python -m
 sheeprl_tpu_torch.registration checkpoint_path=<ckpt>`` registers a checkpoint in the
 model registry. The train and eval entries run on ``device`` (``cuda`` unless
-``device=cpu`` is given). Not ported: autoresume under the fault policy, the compile cache, the race
-detector and the flight recorder.
+``device=cpu`` is given). An exception that escapes a train entry dumps the run's flight
+recorder (``<log_dir>/blackbox/``, ``obs/flight_recorder.py``) before it propagates; a
+graceful preemption does not. Not ported: autoresume under the fault policy, the compile
+cache and the race detector.
 """
 
 from __future__ import annotations
@@ -107,7 +109,23 @@ def run_algorithm(cfg: DotDict) -> Any:
 
         load_exploration_config(cfg)
     ctx = make_run_context(cfg)
-    return entry["entrypoint"](ctx, cfg)
+    from sheeprl_tpu_torch.fault.preemption import Preempted
+    from sheeprl_tpu_torch.obs import flight_recorder
+    from sheeprl_tpu_torch.obs import perf as obs_perf
+
+    try:
+        return entry["entrypoint"](ctx, cfg)
+    except Preempted:
+        raise  # not a crash: the final checkpoint is on disk
+    except Exception as exc:
+        dump = flight_recorder.dump_active("crash", exc)
+        if dump:
+            print(f"flight recorder: black box dumped to {dump}", file=sys.stderr)
+        raise
+    finally:
+        # the recorder and the cost models are process-global: no run sees another's
+        flight_recorder.install(None)
+        obs_perf.reset()
 
 
 def expand_multirun(overrides: List[str]) -> List[List[str]]:

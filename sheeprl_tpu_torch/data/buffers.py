@@ -73,6 +73,10 @@ class ReplayBuffer:
         self._pos = 0
         self._full = False
         self._rng = np.random.default_rng()
+        # staleness: each row's write stamp in rows added so far (Health/replay_age_*)
+        self._stamps = np.zeros(buffer_size, np.int64)
+        self._rows_added = 0
+        self._last_sample_ages: Optional[Tuple[float, float]] = None
 
     @property
     def buffer_size(self) -> int:
@@ -132,13 +136,37 @@ class ReplayBuffer:
                 continue
             buf[(self._pos + np.arange(steps)) % self._buffer_size] = v
         if steps >= self._buffer_size:
+            self._stamps[:] = self._rows_added + steps - self._buffer_size + np.arange(self._buffer_size)
+            self._rows_added += steps
             self._pos = 0
             self._full = True
         else:
+            self._stamps[(self._pos + np.arange(steps)) % self._buffer_size] = self._rows_added + np.arange(steps)
+            self._rows_added += steps
             new_pos = self._pos + steps
             if new_pos >= self._buffer_size:
                 self._full = True
             self._pos = new_pos % self._buffer_size
+
+    @property
+    def rows_added(self) -> int:
+        """The rows added so far (the staleness clock)."""
+        return int(self._rows_added)
+
+    def _note_sample_ages(self, rows: np.ndarray) -> None:
+        """The ages of the rows just sampled: rows added since each was written."""
+        if self._rows_added == 0:
+            return
+        ages = (self._rows_added - 1) - self._stamps[np.asarray(rows).reshape(-1)]
+        self._last_sample_ages = (float(ages.mean()), float(ages.max()))
+
+    def sample_age_metrics(self) -> Dict[str, float]:
+        """``Health/replay_age_*`` of the latest sample, in rows added (``{}`` before the
+        first sample)."""
+        if self._last_sample_ages is None:
+            return {}
+        mean, mx = self._last_sample_ages
+        return {"Health/replay_age_mean": mean, "Health/replay_age_max": mx}
 
     def sample(
         self, batch_size: int, sample_next_obs: bool = False, clone: bool = False, n_samples: int = 1, **kwargs: Any
@@ -161,6 +189,7 @@ class ReplayBuffer:
                 raise ValueError("Not enough data to sample next observations")
             idxes = self._rng.integers(0, upper, size=batch_dim)
         env_idxes = self._rng.integers(0, self._n_envs, size=batch_dim)
+        self._note_sample_ages(idxes)
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
             arr = _np(v)
@@ -180,6 +209,7 @@ class ReplayBuffer:
         batch_dim = batch_size * n_samples
         rows = self._rng.integers(0, self._buffer_size if self._full else self._pos, size=batch_dim)
         envs = self._rng.integers(0, self._n_envs, size=batch_dim)
+        self._note_sample_ages(rows)
         return envs.reshape(n_samples, batch_size), rows.reshape(n_samples, batch_size)
 
     def state_dict(self) -> Dict[str, Any]:
@@ -218,6 +248,13 @@ class ReplayBuffer:
             self._buf[k][:] = src
         self._pos = state["pos"]
         self._full = state["full"]
+        # the stamps are not checkpointed: rebuild them as if the held rows were added in
+        # order, the newest last (as the reference does)
+        n = len(self)
+        self._stamps[:] = 0
+        if n:
+            self._stamps[(self._pos - 1 - np.arange(n)) % self._buffer_size] = n - 1 - np.arange(n)
+        self._rows_added = n
         return self
 
 
@@ -269,8 +306,11 @@ class SequentialReplayBuffer(ReplayBuffer):
             first_range_end = self._pos - sequence_length + 1
             second_range_end = self._buffer_size if first_range_end >= 0 else self._buffer_size + first_range_end
             valid = np.concatenate([np.arange(0, max(first_range_end, 0)), np.arange(self._pos, second_range_end)]).astype(np.intp)
-            return valid[self._rng.integers(0, len(valid), size=batch_dim)]
-        return self._rng.integers(0, self._pos - sequence_length + 1, size=batch_dim)
+            starts = valid[self._rng.integers(0, len(valid), size=batch_dim)]
+        else:
+            starts = self._rng.integers(0, self._pos - sequence_length + 1, size=batch_dim)
+        self._note_sample_ages(starts)
+        return starts
 
 
 class EnvIndependentReplayBuffer:
@@ -383,6 +423,17 @@ class EnvIndependentReplayBuffer:
             sel = env_ids == i
             starts[sel] = self._buf[i].sample_start_idxes(int(sel.sum()), sequence_length)
         return env_ids, starts
+
+    def sample_age_metrics(self) -> Dict[str, float]:
+        """Staleness over the per-env sub-buffers (each in its own rows added): the mean
+        of their means, the max of their maxes."""
+        stats = [s for s in (b.sample_age_metrics() for b in self._buf) if s]
+        if not stats:
+            return {}
+        return {
+            "Health/replay_age_mean": float(np.mean([s["Health/replay_age_mean"] for s in stats])),
+            "Health/replay_age_max": float(max(s["Health/replay_age_max"] for s in stats)),
+        }
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffers": [b.state_dict() for b in self._buf]}

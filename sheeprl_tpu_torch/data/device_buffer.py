@@ -284,7 +284,12 @@ class DeviceTransitionRing(DeviceReplayMirror):
 
     ``specs``: ``{key: (row shape, numpy dtype)}``. With ``store_dtype`` (bfloat16) the
     float ``obs``/``next_obs`` planes are stored in it and gathered back in their spec's
-    dtype. ``gather(envs, rows)`` returns ``{key: [B, *row shape]}``."""
+    dtype. ``gather(envs, rows)`` returns ``{key: [B, *row shape]}``.
+
+    Staleness: ``stamps`` (``[n_envs, capacity]`` int64 on the device) holds each row's
+    write stamp in rows added (the host buffer's clock), and ``sample_age_metrics()``
+    reads the ages of the latest sampled rows on the device: ``Health/replay_age_*`` as
+    0-d tensors."""
 
     def __init__(self, capacity: int, n_envs: int, specs: Dict[str, Tuple[Sequence[int], Any]], device: torch.device, store_dtype: Optional[torch.dtype] = None):
         super().__init__(capacity, n_envs, specs, device)
@@ -295,11 +300,35 @@ class DeviceTransitionRing(DeviceReplayMirror):
                 if k in self.arrays and self.arrays[k].is_floating_point():
                     self._cast[k] = self.arrays[k].dtype
                     self.arrays[k] = torch.zeros(self.arrays[k].shape, dtype=store_dtype, device=self.device)
+        self.stamps = torch.zeros((self.n_envs, self.capacity), dtype=torch.int64, device=self.device)
+        self.rows_added = 0
+        self._last_sample: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     def add_step(self, data: Dict[str, np.ndarray], position: int) -> None:
         """Write one row for every env at slot ``position`` (the host buffer's cursor
         before its add); ``data[k]`` is ``[1, n_envs, ...]``."""
         self.add(data, range(self.n_envs), [position] * self.n_envs)
+        self.stamps[:, position % self.capacity] = self.rows_added
+        self.rows_added += 1
+
+    def load_stamps(self, host_rb) -> None:
+        """The write stamps of a host ``ReplayBuffer`` the ring was rebuilt from."""
+        stamps = torch.as_tensor(np.asarray(host_rb._stamps[: self.capacity]), dtype=torch.int64)
+        self.stamps[:, : stamps.shape[0]] = stamps.to(self.device)
+        self.rows_added = host_rb.rows_added
+
+    def note_sample(self, envs: np.ndarray, rows: np.ndarray) -> None:
+        """The (env, row) pairs of the latest step sampled (their ages are read at the
+        log cadence)."""
+        self._last_sample = (np.asarray(envs, np.int64), np.asarray(rows, np.int64))
+
+    def sample_age_metrics(self) -> Dict[str, torch.Tensor]:
+        """``Health/replay_age_*`` of the latest sampled rows, computed on the device."""
+        if self._last_sample is None or self.rows_added == 0:
+            return {}
+        envs, rows = (torch.from_numpy(a).to(self.device) for a in self._last_sample)
+        ages = (self.rows_added - 1) - self.stamps[envs, rows]
+        return {"Health/replay_age_mean": ages.float().mean(), "Health/replay_age_max": ages.max().float()}
 
     def gather(self, envs: torch.Tensor, rows: torch.Tensor, arrays: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         out = {}
@@ -419,6 +448,7 @@ def make_transition_replay(ctx, cfg, rb: ReplayBuffer, specs: Dict[str, Tuple[Se
 
         def run_block(n: int, start_count: int, stage_next: bool = True):
             envs_idx, rows_idx = rb.sample_idx(batch_size, n + tail)
+            ring.note_sample(envs_idx[n - 1], rows_idx[n - 1])
             dispatcher.dispatch(envs_idx[:n], rows_idx[:n], start_count)
             return np.concatenate([envs_idx[n:], rows_idx[n:]], 1) if tail else None
 

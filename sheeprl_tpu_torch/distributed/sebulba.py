@@ -362,6 +362,7 @@ def _run_sac_actor(ctx, cfg, spec: PlacementSpec) -> None:
     actor_id = spec.actor_id
     log_dir = get_log_dir(cfg)
     shard_pool_cfg(cfg, spec.num_actors, actor_id)
+    tracer = _actor_observability(cfg, spec, log_dir, "sac")
     envs = make_vector_env(cfg, cfg.seed, actor_id, log_dir if cfg.env.capture_video else None)
     ch = None
     try:
@@ -447,6 +448,7 @@ def _run_sac_actor(ctx, cfg, spec: PlacementSpec) -> None:
         ch.send(DONE_KIND, None, env_steps=num_iters * num_envs, **_process_stats(device))
         inbox.wait_closed(spec.connect_timeout_s)
     finally:
+        _actor_obs_teardown(tracer, log_dir)
         if ch is not None:
             ch.close()
         envs.close()
@@ -462,6 +464,7 @@ def _run_sac_learner(ctx, cfg, spec: PlacementSpec):
     from sheeprl_tpu_torch.data.buffers import to_device
     from sheeprl_tpu_torch.data.device_buffer import make_host_dispatcher
 
+    monitor = _learner_monitor(ctx, cfg)  # before the step is built: its capture and cost model count
     obs_space, act_space = _probe_spaces(cfg)
     parts = sac_parts(ctx, cfg, obs_space, act_space)
     agent, opt_states = parts.agent, parts.opt_states
@@ -498,7 +501,7 @@ def _run_sac_learner(ctx, cfg, spec: PlacementSpec):
         sps = dispatcher.pop_window_sps()
         return {} if sps is None else {"Time/sps_train": sps}
 
-    return _learner_loop(ctx, cfg, spec, aggregator, train_block=train_block, publish=publish, save_state=save_state,
+    return _learner_loop(ctx, cfg, spec, aggregator, monitor, train_block=train_block, publish=publish, save_state=save_state,
                          log_metrics=log_metrics, sps_env_steps=int(cfg.env.num_envs))
 
 
@@ -520,6 +523,7 @@ def _run_ppo_actor(ctx, cfg, spec: PlacementSpec) -> None:
     actor_id = spec.actor_id
     log_dir = get_log_dir(cfg)
     shard_pool_cfg(cfg, spec.num_actors, actor_id)
+    tracer = _actor_observability(cfg, spec, log_dir, "ppo")
     envs = make_vector_env(cfg, cfg.seed, actor_id, log_dir if cfg.env.capture_video else None)
     ch = None
     try:
@@ -561,6 +565,7 @@ def _run_ppo_actor(ctx, cfg, spec: PlacementSpec) -> None:
         ch.send(DONE_KIND, None, env_steps=num_updates * rollout_steps * num_envs, **_process_stats(device))
         inbox.wait_closed(spec.connect_timeout_s)
     finally:
+        _actor_obs_teardown(tracer, log_dir)
         if ch is not None:
             ch.close()
         envs.close()
@@ -574,11 +579,12 @@ def _run_ppo_learner(ctx, cfg, spec: PlacementSpec):
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.data.buffers import to_device
 
+    monitor = _learner_monitor(ctx, cfg)
     obs_space, act_space = _probe_spaces(cfg)
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
     agent = build_agent(ctx, act_space, obs_space, cfg)
     num_updates = _ppo_num_updates(cfg, spec)
-    fns = PPOTrainFns(ctx, agent, cfg, obs_keys, num_updates)
+    fns = PPOTrainFns(ctx, agent, cfg, obs_keys, num_updates, cost_name="ppo_sebulba/train_fn")
     if cfg.checkpoint.get("resume_from"):  # parameters and optimizer state, as the reference's learner
         state = CheckpointManager.load(cfg.checkpoint.resume_from)
         agent.load_state_dict(state["params"])
@@ -602,11 +608,57 @@ def _run_ppo_learner(ctx, cfg, spec: PlacementSpec):
     def save_state(policy_step, cumulative_grad_steps, blocks):
         return {"params": agent.state_dict(), "opt_state": fns.opt_state, "update": blocks, "policy_step": policy_step}
 
-    return _learner_loop(ctx, cfg, spec, aggregator, train_block=train_block, publish=publish, save_state=save_state,
+    return _learner_loop(ctx, cfg, spec, aggregator, monitor, train_block=train_block, publish=publish, save_state=save_state,
                          sps_env_steps=int(cfg.env.num_envs * cfg.algo.rollout_steps), publish_empty_blocks=True)
 
 
 # -------------------------------------------------------------- learner kernel
+def _learner_monitor(ctx, cfg):
+    """The learner's training monitor (``obs/monitor.py``): its log dir is the run's."""
+    from sheeprl_tpu_torch.obs import TrainingMonitor
+    from sheeprl_tpu_torch.utils.logger import get_log_dir
+
+    return TrainingMonitor(cfg, get_log_dir(cfg), device=ctx.device, phases=())  # the reference's learner times no phase
+
+
+def _actor_observability(cfg, spec: PlacementSpec, log_dir: str, algo: str):
+    """An actor's share of the observability plane: a flight recorder (its dump goes to
+    the actor's log dir when it crashes) and, with ``obs.enabled``, a span tracer whose
+    Chrome trace the actor writes as ``trace_rank<actor_id + 1>.json`` when it ends.
+    Returns the tracer or None."""
+    from sheeprl_tpu_torch.obs import flight_recorder, tracer as obs_tracer
+
+    obs_cfg = dict(cfg.get("obs") or {})
+    if bool(obs_cfg.get("flight_recorder", True)) and flight_recorder.get_active() is None:
+        flight_recorder.install(flight_recorder.FlightRecorder(
+            log_dir=log_dir,
+            capacity=int(obs_cfg.get("flight_recorder_capacity", 4096)),
+            keep_events=int(obs_cfg.get("flight_recorder_keep_events", 512)),
+            algo=f"{algo}_sebulba_actor",
+            cfg=cfg,
+        ))
+    if not (bool(obs_cfg.get("enabled", False)) and bool(obs_cfg.get("trace", True))):
+        return None
+    tracer = obs_tracer.SpanTracer(rank=spec.actor_id + 1, max_events=int(obs_cfg.get("max_events", 100_000)))
+    obs_tracer.set_active(tracer)
+    return tracer
+
+
+def _actor_obs_teardown(tracer, log_dir: str) -> None:
+    """Write the actor's trace and deactivate its tracer; never raises."""
+    from sheeprl_tpu_torch.obs import tracer as obs_tracer
+
+    if tracer is None:
+        return
+    try:
+        os.makedirs(log_dir, exist_ok=True)
+        tracer.export_chrome_trace(os.path.join(log_dir, f"trace_rank{tracer.rank}.json"))
+    except OSError:
+        pass
+    if obs_tracer.get_active() is tracer:
+        obs_tracer.set_active(None)
+
+
 def _learner_aggregator(cfg, aggregator_keys):
     from sheeprl_tpu_torch.utils.metric import make_aggregator
 
@@ -620,6 +672,7 @@ def _learner_loop(
     cfg,
     spec: PlacementSpec,
     aggregator,
+    monitor,
     *,
     train_block: Callable[[Dict[str, Any], Any, int], Tuple[int, float]],
     publish: Callable[[ChannelWeightPublisher, int, int], None],
@@ -713,10 +766,12 @@ def _learner_loop(
             if kind != BLOCK_KIND:
                 continue
 
+            monitor.advance()
             blocks += 1
             policy_step = max(policy_step, int(meta.get("policy_step", 0)))
             slots.report(actor_id, int(meta.get("env_steps", 0)))
-            grad_steps, train_time = train_block(meta, payload, cumulative_grad_steps)
+            with monitor.phase("dispatch"):
+                grad_steps, train_time = train_block(meta, payload, cumulative_grad_steps)
             cumulative_grad_steps += grad_steps
             train_seconds += train_time
             env_time = float(meta.get("env_time", 0) or 0)
@@ -743,7 +798,7 @@ def _learner_loop(
                 if env_time > 0:
                     metrics["Time/sps_env_interaction"] = sps_env_steps / env_time
                 metrics.update(extra)
-                logger.log_metrics(metrics, policy_step)
+                monitor.log_metrics(logger, metrics, policy_step)
                 last_log = policy_step
 
             if cfg.checkpoint.every > 0 and (policy_step - last_checkpoint) >= cfg.checkpoint.every:
@@ -759,6 +814,7 @@ def _learner_loop(
         error = _exc_summary(exc)
         raise
     finally:
+        monitor.close()
         bytes_received = inbox.bytes_received()
         inbox.close()
         n_pub = max(publisher.seq, 1)

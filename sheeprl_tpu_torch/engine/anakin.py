@@ -63,6 +63,8 @@ from sheeprl_tpu_torch.engine.population import (
 )
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.batched import make_batched_env
+from sheeprl_tpu_torch.obs import TrainingMonitor
+from sheeprl_tpu_torch.obs.health import health_enabled
 from sheeprl_tpu_torch.utils.graphs import StepGraph
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import make_aggregator
@@ -231,7 +233,10 @@ def reset_envs(env, env_params, num_envs: int, generator: Optional[torch.Generat
     return type(state)(*(s.clone() for s in state)), obs.clone()
 
 
-def program(fn: Callable[[Any], Any], inputs: Any, state: Sequence[torch.Tensor], generators: Sequence[torch.Generator], capture: bool) -> Callable[[], Any]:
+def program(
+    fn: Callable[[Any], Any], inputs: Any, state: Sequence[torch.Tensor], generators: Sequence[torch.Generator], capture: bool,
+    cost_name: Optional[str] = None,
+) -> Callable[[], Any]:
     """``fn(inputs)`` as a callable: a ``StepGraph`` (a CUDA graph on a card, eager on the
     CPU) or, with ``capture=False``, the eager function (the card's parity check).
     Building it draws nothing: the capture's warm-up steps advance the generators, whose
@@ -241,7 +246,7 @@ def program(fn: Callable[[Any], Any], inputs: Any, state: Sequence[torch.Tensor]
     if not capture:
         return lambda: fn(inputs)
     saved = [g.get_state() for g in generators]
-    graph = StepGraph(fn, inputs, list(state), generators=list(generators))
+    graph = StepGraph(fn, inputs, list(state), generators=list(generators), cost_name=cost_name)
     for g, s in zip(generators, saved):
         g.set_state(s)
     return graph
@@ -315,7 +320,9 @@ class PPOAnakin(_Member):
         self.cfg, self.obs_key, self.capture, self.injected = cfg, obs_key, capture, injected
         obs_space = spaces.Dict({obs_key: env.observation_space(env_params)})
         self.agent = build_agent(ctx, env.action_space(env_params), obs_space, cfg)
-        self.fns = PPOTrainFns(ctx, self.agent, cfg, [obs_key], num_updates, capture=capture, inject_lr=inject_lr)
+        # the perf plane counts the update's replays under the reference's dispatch name
+        dispatch_name = "anakin/ppo_pop_dispatch" if population_spec(cfg, "ppo").enabled else "anakin/ppo_dispatch"
+        self.fns = PPOTrainFns(ctx, self.agent, cfg, [obs_key], num_updates, capture=capture, inject_lr=inject_lr, cost_name=dispatch_name)
         self._init_env(ctx, cfg, env, env_params, generators if generators is not None else [ctx.rng(), ctx.rng()], reset_draws)
         T, N = int(cfg.algo.rollout_steps), self.num_envs
         self.T = T
@@ -403,13 +410,9 @@ class PPOAnakin(_Member):
         self.last_batch = data
         if perms is None:
             perms = self.fns.permutations(self.generators[1])
-        losses = self.fns.launch_update_coefs(data, perms, coefs)
-        return {
-            "Loss/policy_loss": losses[0],
-            "Loss/value_loss": losses[1],
-            "Loss/entropy_loss": losses[2],
-            **episode_metrics(self.stats),
-        }
+        out = self.fns.launch_update_coefs(data, perms, coefs)
+        # the losses, then Health/* where obs.health is on
+        return {**{name: out[i] for i, name in enumerate(self.fns.metric_names)}, **episode_metrics(self.stats)}
 
     def carry(self) -> Dict[str, Any]:
         """The member's state, as the checkpoint's ``carry`` holds it (references)."""
@@ -445,6 +448,7 @@ class _Run:
         save_config(cfg, Path(self.log_dir) / "config.yaml")
         self.logger = get_logger(cfg, self.log_dir)
         self.timer = Timer(disabled=bool(cfg.metric.get("disable_timer", False)))
+        self.monitor = TrainingMonitor(cfg, self.log_dir, self.timer, ctx.device)
         self.aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
         self.aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
         self.ckpt_manager = CheckpointManager(Path(self.log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
@@ -469,9 +473,7 @@ class _Run:
         for name, values in self.pop.sweep.items():  # the sweep table is static: log it with every flush
             for m, v in enumerate(values):
                 out[f"Population/Params/{name}/member_{m}"] = float(v)
-        out.update(self.timer.to_dict())
-        if self.logger is not None:
-            self.logger.log_metrics(out, self.policy_step)
+        self.monitor.log_metrics(self.logger, out, self.policy_step)
         self.aggregator.reset()
         self.last_log = self.policy_step
 
@@ -479,7 +481,8 @@ class _Run:
         carries = [carry_of(m) for m in members]
         carry = stack_members(carries) if self.pop.enabled else carries[0]
         state = {"carry": carry, **counters, "policy_step": self.policy_step, "last_log": self.last_log, "last_checkpoint": self.policy_step}
-        self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
+        with self.monitor.phase("checkpoint"):
+            self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
         self.last_checkpoint = self.policy_step
 
     def load(self) -> Optional[Dict[str, Any]]:
@@ -545,32 +548,36 @@ def ppo_anakin(ctx, cfg) -> TrainResult:
     policy_steps_per_iter = num_envs * rollout_steps
     num_updates = max(int(cfg.algo.total_steps) // policy_steps_per_iter, 1) if not cfg.dry_run else 1
     sweeps_lr = pop.enabled and pop.sweeps_lr("optimizer.lr")
-    members, tables = build_ppo_members(ctx, cfg, env, env_params, obs_key, num_updates, pop)
+    try:
+        members, tables = build_ppo_members(ctx, cfg, env, env_params, obs_key, num_updates, pop)
 
-    start_update = 1
-    state = run.load()
-    if state is not None:
-        for m, member in enumerate(members):
-            member.load_carry(run.member_carry(state, m))
-        start_update = state["update"] + 1
-    fns = members[0].fns
-    grad_steps = 0
-    run_start = time.perf_counter()
-    for update in range(start_update, num_updates + 1):
-        t0 = time.perf_counter()
-        with run.timer("Time/train_time"):
-            metrics = [member.iterate(tables[m][update - 1]) for m, member in enumerate(members)]
-        run.dispatch_seconds += time.perf_counter() - t0
-        run.track(metrics, policy_steps_per_iter, fns.grad_steps_per_update)
-        run.policy_step += policy_steps_per_iter
-        grad_steps += fns.grad_steps_per_update
-        if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or update == num_updates or cfg.dry_run):
-            run.log({} if sweeps_lr else {"Params/lr": fns.lr_at(update * fns.grad_steps_per_update)})
-        if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (
-            update == num_updates and cfg.checkpoint.save_last
-        ):
-            run.save(members, {"update": update}, PPOAnakin.carry)
-    _sync(ctx.device)
+        start_update = 1
+        state = run.load()
+        if state is not None:
+            for m, member in enumerate(members):
+                member.load_carry(run.member_carry(state, m))
+            start_update = state["update"] + 1
+        fns = members[0].fns
+        grad_steps = 0
+        run_start = time.perf_counter()
+        for update in range(start_update, num_updates + 1):
+            run.monitor.advance()
+            t0 = time.perf_counter()
+            with run.timer("Time/train_time"), run.monitor.phase("dispatch"):
+                metrics = [member.iterate(tables[m][update - 1]) for m, member in enumerate(members)]
+            run.dispatch_seconds += time.perf_counter() - t0
+            run.track(metrics, policy_steps_per_iter, fns.grad_steps_per_update)
+            run.policy_step += policy_steps_per_iter
+            grad_steps += fns.grad_steps_per_update
+            if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or update == num_updates or cfg.dry_run):
+                run.log({} if sweeps_lr else {"Params/lr": fns.lr_at(update * fns.grad_steps_per_update)})
+            if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (
+                update == num_updates and cfg.checkpoint.save_last
+            ):
+                run.save(members, {"update": update}, PPOAnakin.carry)
+        _sync(ctx.device)
+    finally:
+        run.monitor.close()
     seconds = time.perf_counter() - run_start
     # a population's greedy test episode runs member 0's policy (the run's own generators)
     return run.finish(lambda: test(members[0].agent, ctx, cfg, run.log_dir).reward, grad_steps, seconds)
@@ -614,6 +621,9 @@ class SACAnakin(_Member):
         self.gstep = torch.zeros((), dtype=torch.int64, device=dev)
         self.it = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.loss_sum = torch.zeros((3,), device=dev)
+        # Health/* sums (obs.health), made at a program's first, eager, call
+        self.health = health_enabled(cfg)
+        self.health_sum: Dict[str, torch.Tensor] = {}
         self.inputs: Dict[str, Any] = {"it": self.it}
         if injected:
             S, N, B, A = injected_steps, self.num_envs, self.batch_size, self.act_dim
@@ -661,8 +671,11 @@ class SACAnakin(_Member):
         if train and grad_per_step > 0:
             filled = torch.clamp(self.rows_added, max=self.ring.capacity)
             total = None
+            health_total: Dict[str, torch.Tensor] = {}
             for g in range(grad_per_step):
                 idx = (pick("envs")[g], pick("rows")[g]) if self.injected else None
+                if self.health and idx is None:
+                    idx = self.ring.sample_indices(filled, gen, self.batch_size)  # the draws sample_gather makes
                 batch = self.sample_gather(self.arrays, filled, gen, idx)
                 flag = torch.remainder(self.gstep + 1, self.target_freq) == 0
                 if self.injected:
@@ -675,8 +688,20 @@ class SACAnakin(_Member):
                     self.gstep.add_(1)
                     losses = torch.stack([m["Loss/value_loss"], m["Loss/policy_loss"], m["Loss/alpha_loss"]])
                     total = losses if total is None else total + losses
+                    if self.health:
+                        # the sampled rows' ages: the ring writes every env's row at slot
+                        # rows_added % capacity, so a row's age is its distance behind
+                        ages = torch.remainder(self.rows_added - 1 - idx[1], self.ring.capacity)
+                        m = {**m, "Health/replay_age_mean": ages.float().mean(), "Health/replay_age_max": ages.max().float()}
+                        for k, v in m.items():
+                            if k.startswith("Health/"):
+                                health_total[k] = v if k not in health_total else health_total[k] + v
             with torch.no_grad():
                 self.loss_sum.add_(total / grad_per_step)
+                for k, v in health_total.items():
+                    if k not in self.health_sum:
+                        self.health_sum[k] = torch.zeros((), device=self.device)
+                    self.health_sum[k].add_(v / grad_per_step)
         with torch.no_grad():
             it.add_(1)
         return {}
@@ -689,7 +714,8 @@ class SACAnakin(_Member):
             state = [*self.agent.parameters(), *tree_tensors(self.opt_states), *self._env_state(), *self.arrays.values(),
                      self.rows_added, self.gstep, self.it, self.loss_sum]
             fn = lambda inp: self._iteration(inp, grad_per_step, train)  # noqa: E731
-            self._programs[sig] = program(fn, self.inputs, state, self.generators, self.capture)
+            name = f"anakin/{'sac_pop' if population_spec(self.cfg, 'sac').enabled else 'sac'}_dispatch_{1}x{grad_per_step}{'t' if train else 'p'}"
+            self._programs[sig] = program(fn, self.inputs, state, self.generators, self.capture, name)
         return self._programs[sig]
 
     def dispatch(self, steps: int, grad_per_step: int, train: bool) -> Dict[str, torch.Tensor]:
@@ -701,12 +727,16 @@ class SACAnakin(_Member):
             self.it.zero_()
             self.loss_sum.zero_()
         prog = self._program(grad_per_step, train)  # captured from the zeroed counters
+        with torch.no_grad():
+            for t in self.health_sum.values():  # after a first program's warm-up calls
+                t.zero_()
         for _ in range(steps):
             prog()
         out = episode_metrics(self.stats)
         if train and grad_per_step > 0:
             mean = self.loss_sum / steps
             out.update({"Loss/value_loss": mean[0], "Loss/policy_loss": mean[1], "Loss/alpha_loss": mean[2]})
+            out.update({k: v / steps for k, v in self.health_sum.items()})
         return out
 
     def carry(self, with_ring: bool = True) -> Dict[str, Any]:
@@ -803,50 +833,54 @@ def sac_anakin(ctx, cfg) -> TrainResult:
     if not isinstance(env.action_space(env_params), spaces.Box):
         raise ValueError("SAC anakin needs a continuous (Box) jax env, e.g. env=jax_pendulum")
     run = _Run(ctx, cfg, AGGREGATOR_KEYS, pop)
-    members = build_sac_members(ctx, cfg, env, env_params, obs_key, pop)
+    try:
+        members = build_sac_members(ctx, cfg, env, env_params, obs_key, pop)
 
-    num_envs = int(cfg.env.num_envs)
-    num_iters = max(int(cfg.algo.total_steps) // max(num_envs, 1), 1) if not cfg.dry_run else 1
-    prefill_steps = int(cfg.algo.learning_starts) // max(num_envs, 1) if not cfg.dry_run else 0
-    prefill_steps = min(prefill_steps, num_iters - 1) if num_iters > 1 else 0
-    steps_per_dispatch = max(int(cfg.algo.anakin_steps_per_dispatch), 1) if not cfg.dry_run else 1
-    with_ring = bool(cfg.buffer.checkpoint)
+        num_envs = int(cfg.env.num_envs)
+        num_iters = max(int(cfg.algo.total_steps) // max(num_envs, 1), 1) if not cfg.dry_run else 1
+        prefill_steps = int(cfg.algo.learning_starts) // max(num_envs, 1) if not cfg.dry_run else 0
+        prefill_steps = min(prefill_steps, num_iters - 1) if num_iters > 1 else 0
+        steps_per_dispatch = max(int(cfg.algo.anakin_steps_per_dispatch), 1) if not cfg.dry_run else 1
+        with_ring = bool(cfg.buffer.checkpoint)
 
-    iter_num, resumed = 0, False
-    state = run.load()
-    if state is not None:
-        for m, member in enumerate(members):
-            member.load_carry(run.member_carry(state, m))
-        iter_num, resumed = state["iter_num"], True
+        iter_num, resumed = 0, False
+        state = run.load()
+        if state is not None:
+            for m, member in enumerate(members):
+                member.load_carry(run.member_carry(state, m))
+            iter_num, resumed = state["iter_num"], True
 
-    grad_steps = 0
-    run_start = time.perf_counter()
+        grad_steps = 0
+        run_start = time.perf_counter()
 
-    def dispatch(steps: int, train: bool) -> None:
-        nonlocal iter_num, grad_steps
-        gps = grad_per_step if train else 0
-        t0 = time.perf_counter()
-        with run.timer("Time/train_time" if train else "Time/env_interaction_time"):
-            metrics = [member.dispatch(steps, gps, train) for member in members]
-        run.dispatch_seconds += time.perf_counter() - t0
-        run.track(metrics, steps * num_envs, steps * gps)
-        run.policy_step += steps * num_envs
-        iter_num += steps
-        grad_steps += steps * gps
+        def dispatch(steps: int, train: bool) -> None:
+            nonlocal iter_num, grad_steps
+            gps = grad_per_step if train else 0
+            run.monitor.advance()
+            t0 = time.perf_counter()
+            with run.timer("Time/train_time" if train else "Time/env_interaction_time"), run.monitor.phase("dispatch"):
+                metrics = [member.dispatch(steps, gps, train) for member in members]
+            run.dispatch_seconds += time.perf_counter() - t0
+            run.track(metrics, steps * num_envs, steps * gps)
+            run.policy_step += steps * num_envs
+            iter_num += steps
+            grad_steps += steps * gps
 
-    def boundary(final: bool) -> None:
-        if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or final or cfg.dry_run):
-            run.log({"Params/replay_ratio": grad_per_step} if run.policy_step > 0 else {})
-        if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (final and cfg.checkpoint.save_last):
-            run.save(members, {"iter_num": iter_num}, lambda mb: mb.carry(with_ring))
+        def boundary(final: bool) -> None:
+            if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or final or cfg.dry_run):
+                run.log({"Params/replay_ratio": grad_per_step} if run.policy_step > 0 else {})
+            if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (final and cfg.checkpoint.save_last):
+                run.save(members, {"iter_num": iter_num}, lambda mb: mb.carry(with_ring))
 
-    # the prefill: one dispatch of uniform random actions (a resumed run keeps its policy and skips it)
-    if prefill_steps > 0 and iter_num < prefill_steps and not resumed:
-        dispatch(prefill_steps - iter_num, False)
-    while iter_num < num_iters:
-        dispatch(min(steps_per_dispatch, num_iters - iter_num), True)
-        boundary(iter_num >= num_iters)
-    _sync(ctx.device)
+        # the prefill: one dispatch of uniform random actions (a resumed run keeps its policy and skips it)
+        if prefill_steps > 0 and iter_num < prefill_steps and not resumed:
+            dispatch(prefill_steps - iter_num, False)
+        while iter_num < num_iters:
+            dispatch(min(steps_per_dispatch, num_iters - iter_num), True)
+            boundary(iter_num >= num_iters)
+        _sync(ctx.device)
+    finally:
+        run.monitor.close()
     seconds = time.perf_counter() - run_start
     actor = members[0].agent.actor
     greedy = lambda rows: torch.tanh(actor(rows)[0])  # noqa: E731

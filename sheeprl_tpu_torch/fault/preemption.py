@@ -30,6 +30,18 @@ _signal_name: Optional[str] = None
 _grace_seconds: float = 0.0
 
 
+class Preempted(Exception):
+    """A graceful preemption at a training-loop boundary, raised after the final
+    checkpoint: the CLI's crash boundary lets it pass without a blackbox dump. Carries the
+    policy step the final checkpoint covers, its path and the run's log dir."""
+
+    def __init__(self, step: int, log_dir: Optional[str] = None, ckpt_path: Optional[str] = None):
+        self.step = int(step)
+        self.log_dir = log_dir
+        self.ckpt_path = ckpt_path
+        super().__init__(f"preempted ({_signal_name or 'requested'}) at policy step {step}; final checkpoint: {ckpt_path or 'none'}")
+
+
 def preemption_requested() -> bool:
     """True once a shutdown signal arrived (or :func:`request_preemption` ran)."""
     return _flag.is_set()

@@ -21,31 +21,45 @@ Launch counts: the kernels' wrappers count the launches they record while the gr
 captured. A capture launches nothing, so those counts are taken back and become
 ``launches_per_replay``, which every replay adds to the counters (``ops/counters.py``).
 
-``capture_count()`` is the number of graphs this process has captured: the policy
-server's watchdog (``serve/watchdog.py``) holds it still after startup. A step that
+``capture_count()`` is the number of graphs this process has captured and
+``capture_seconds()`` the wall time their warm-ups and captures took: the policy
+server's watchdog (``serve/watchdog.py``) holds the count still after startup, and the
+training monitor's (``obs/watchdog.py``) counts a capture after warm-up as a recompile. A step that
 draws from generators of its own names them (``generators=``): their states are
 registered with the graph, so each replay advances their Philox offsets.
+
+Cost models: a step built with ``cost_name`` counts its FLOPs and bytes once per name and
+process while the perf plane is on (``obs/perf.py``): over its first warm-up call on a
+card, over its first call on the CPU. Each call then counts as one call of that name.
 """
 
 from __future__ import annotations
 
 import gc
 import threading
-from typing import Any, Callable, Dict, List, Sequence
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from sheeprl_tpu_torch.obs import perf
 from sheeprl_tpu_torch.ops import counters
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
 
 _capture_lock = threading.Lock()
 _captured = 0
+_capture_seconds = 0.0
 
 
 def capture_count() -> int:
     """How many graphs this process has captured so far."""
     return _captured
+
+
+def capture_seconds() -> float:
+    """The seconds this process has spent warming up and capturing graphs."""
+    return _capture_seconds
 
 
 def tree_tensors(tree: Any) -> List[torch.Tensor]:
@@ -69,8 +83,10 @@ class StepGraph:
         state: Sequence[torch.Tensor] = (),
         warmup: int = WARMUP_STEPS,
         generators: Sequence[torch.Generator] = (),
+        cost_name: Optional[str] = None,
     ):
         self.fn = fn
+        self.cost_name = cost_name
         self.inputs = inputs
         self.device = tree_tensors(inputs)[0].device
         self.graph = None
@@ -85,7 +101,8 @@ class StepGraph:
             torch._foreach_copy_(state, saved)
 
     def _capture(self, state: List[torch.Tensor], warmup: int, generators: List[torch.Generator]) -> None:
-        global _captured
+        global _captured, _capture_seconds
+        t0 = time.perf_counter()
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         current = torch.cuda.current_stream(self.device)
@@ -93,7 +110,7 @@ class StepGraph:
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(warmup):
-                self.fn(self.inputs)
+                self._call_eager()
         current.wait_stream(side)
         before = counters.launch_counts()
         graph = torch.cuda.CUDAGraph()
@@ -119,11 +136,21 @@ class StepGraph:
         self.launches_per_replay = {k: recorded[k] - before[k] for k in recorded}
         self._restore(state, saved)
         self.graph = graph
+        with _capture_lock:
+            _capture_seconds += time.perf_counter() - t0
+
+    def _call_eager(self) -> Dict[str, torch.Tensor]:
+        if perf.should_count(self.cost_name):
+            with perf.count_cost(self.cost_name):
+                return self.fn(self.inputs)
+        return self.fn(self.inputs)
 
     def __call__(self) -> Dict[str, torch.Tensor]:
         """One step on the current ``inputs``; its outputs (static tensors on a card)."""
+        if self.cost_name is not None and perf.counting():
+            perf.record_call(self.cost_name)
         if self.graph is None:
-            return self.fn(self.inputs)
+            return self._call_eager()
         self.graph.replay()
         counters.add_launches(self.launches_per_replay)
         return self.outputs

@@ -6,6 +6,10 @@ process, or a test after a run, read each other's times. Here each run makes its
 under that name and ``to_dict()`` reads (and by default clears) them. A lock keeps
 the sums whole where two threads time into one ``Timer`` (the decoupled entries' player
 and learner).
+
+Every timed block is also a span: with a tracer active (``obs/tracer.py``, on with
+``obs.enabled``), each ``with timer(...)`` block of the loops begins and ends a span of
+its name; with none, the hook is one global load.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import contextlib
 import threading
 import time
 from typing import Dict, Iterator
+
+from sheeprl_tpu_torch.obs import tracer as _tracer
 
 
 class Timer:
@@ -27,6 +33,7 @@ class Timer:
         if self.disabled:
             yield
             return
+        _tracer.maybe_begin(name)
         start = time.perf_counter()
         try:
             yield
@@ -34,6 +41,7 @@ class Timer:
             elapsed = time.perf_counter() - start
             with self._lock:
                 self._registry[name] = self._registry.get(name, 0.0) + elapsed
+            _tracer.maybe_end(name)
 
     def to_dict(self, reset: bool = True) -> Dict[str, float]:
         with self._lock:

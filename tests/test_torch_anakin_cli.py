@@ -102,7 +102,7 @@ def test_composed_anakin_keys_equal_the_reference(exp):
         (["exp=sac_anakin", *CUTS["sac_anakin"], "algo.population.size=2", "algo.population.vectorize=True"], "algo.population.vectorize"),
         (["exp=ppo_anakin", *CUTS["ppo_anakin"], "env.jax.env_id=gymnax:CartPole-v1"], "env.jax.env_id"),
         (["exp=ppo", "env=discrete_dummy", "algo.mlp_keys.encoder=[state]", "algo.anakin=True"], "algo.anakin"),
-        (["exp=ppo_anakin", *CUTS["ppo_anakin"], "+obs.enabled=True"], "obs.enabled"),
+        (["exp=ppo_anakin", *CUTS["ppo_anakin"], "obs.fleet.dir=fleet"], "obs.fleet.dir"),
         (["exp=sac_anakin", *CUTS["sac_anakin"], "+fault.autoresume=True"], "fault.autoresume"),
     ],
 )
@@ -111,6 +111,23 @@ def test_refusals_name_their_key(tmp_path, overrides, key):
 
     with pytest.raises((NotImplementedError, ValueError), match=key.replace(".", r"\.")):
         run([*overrides, "device=cpu", "dry_run=True", "algo.run_test=False", f"log_root={tmp_path}"])
+
+
+@pytest.mark.parametrize("exp", ["ppo_anakin", "sac_anakin"])
+def test_the_engine_runs_with_the_training_monitor(tmp_path, exp):
+    """``obs.enabled=True`` (refused before the monitor was ported): the run writes its
+    span trace and its cost models under the reference's dispatch names, and logs the
+    step's ``Health/*``."""
+    import json
+
+    from sheeprl_tpu_torch.cli import run
+
+    result = run([f"exp={exp}", *CUTS[exp], *COMMON, "obs.enabled=True", "algo.run_test=False", f"log_root={tmp_path}"])
+    log_dir = Path(result.log_dir)
+    spans = {e["name"] for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"}
+    assert {"Time/update", "Time/phase_dispatch", "Time/train_time"} <= spans
+    models = json.loads((log_dir / "perf_report.json").read_text())["cost_models"]
+    assert any(name.startswith(f"anakin/{exp[:3]}_dispatch") and m["flops"] > 0 for name, m in models.items()), models
 
 
 def test_host_loop_runs_the_batched_env_through_the_adapter(tmp_path):

@@ -76,7 +76,7 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch, caplog, buffer)
     [
         ("+fault.autoresume=True", "fault.autoresume"),
         ("+rollout.pipeline_depth=2", "rollout.pipeline_depth"),
-        ("+obs.enabled=True", "obs.enabled"),
+        ("obs.fleet.dir=fleet", "obs.fleet.dir"),
         ("+mesh.data=2", "mesh.data"),
         ("mesh.precision=fp16", "fp16"),
     ],

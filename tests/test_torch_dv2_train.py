@@ -232,6 +232,16 @@ def test_train_step_f32_losses_and_gradient_norms_match_jax(f32_run):
 # ---------------------------------------------------------------------------------------
 
 
+def test_train_step_f32_health_matches_jax(f32_run):
+    """The step's ``Health/*`` diagnostics (on by default in both packages): the same
+    names, the values at the metrics' tolerance."""
+    _, (jout, (_, metrics)) = f32_run
+    health = sorted(k for k in jout[2] if k.startswith("Health/"))
+    assert health and health == sorted(k for k in metrics if k.startswith("Health/"))
+    for name in health:
+        np.testing.assert_allclose(metrics[name].item(), float(jout[2][name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)
+
+
 def test_categorical_kl_and_reconstruction_loss_match_jax():
     import jax.numpy as jnp
 

@@ -115,9 +115,18 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.envs.wrappers",
     "sheeprl_tpu_torch.fault",
     "sheeprl_tpu_torch.fault.chaos",
+    "sheeprl_tpu_torch.fault.counters",
     "sheeprl_tpu_torch.fault.preemption",
     "sheeprl_tpu_torch.fault.supervisor",
     "sheeprl_tpu_torch.models.blocks",
+    "sheeprl_tpu_torch.obs",
+    "sheeprl_tpu_torch.obs.flight_recorder",
+    "sheeprl_tpu_torch.obs.health",
+    "sheeprl_tpu_torch.obs.monitor",
+    "sheeprl_tpu_torch.obs.perf",
+    "sheeprl_tpu_torch.obs.telemetry",
+    "sheeprl_tpu_torch.obs.tracer",
+    "sheeprl_tpu_torch.obs.watchdog",
     "sheeprl_tpu_torch.ops._build",
     "sheeprl_tpu_torch.ops.counters",
     "sheeprl_tpu_torch.ops.gru",

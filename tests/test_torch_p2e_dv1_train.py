@@ -125,7 +125,7 @@ def check_p2e_step(pair, run, metrics_names):
     jout, (opt, metrics) = run
     assert_params_match(pair["modules"], jout[0], F32["params"])
     assert_moments_match(opt, jout[1], pair["modules"], {n: n for n in OPTIMIZED})
-    assert set(metrics) == {k for k in jout[2] if not k.startswith("Health/")}  # the port has no health diagnostics yet
+    assert set(metrics) == set(jout[2])
     for name in metrics_names:
         np.testing.assert_allclose(metrics[name].item(), float(jout[2][name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)
     old = params_from_jax(pair["params"], pair["modules"])

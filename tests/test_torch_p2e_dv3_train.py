@@ -232,7 +232,7 @@ def test_exploration_step_f32_return_moments_and_metrics_match_jax(f32_run):
     for path, got, want in [("task", moments["task"], jout[2]["task"])] + [(k, moments["expl"][k], jout[2]["expl"][k]) for k in CRITICS]:
         for k in ("low", "high"):
             np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5, atol=1e-7, err_msg=f"{path}.{k}")
-    assert set(metrics) == {k for k in jout[3] if not k.startswith("Health/")}
+    assert set(metrics) == set(jout[3])
     assert {"Rewards/intrinsic_intrinsic", "Loss/value_loss_exploration_intrinsic", "Loss/value_loss_exploration_extrinsic"} <= set(metrics)
     for name in metrics:
         np.testing.assert_allclose(metrics[name].item(), float(jout[3][name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)

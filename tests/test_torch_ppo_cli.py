@@ -59,7 +59,7 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch, name):
     [
         ("ppo_dummy", "algo.anakin=True", "algo.anakin"),
         ("ppo_dummy", "+env.pool.enabled=True", "env.pool.enabled"),
-        ("ppo_dummy", "+obs.enabled=True", "obs.enabled"),
+        ("ppo_dummy", "obs.fleet.dir=fleet", "obs.fleet.dir"),
         ("ppo_dummy", "+analysis.strict=True", "analysis.strict"),
         ("ppo_dummy", "+fault.autoresume=True", "fault.autoresume"),
         ("ppo_dummy", "+mesh.sequence=2", "mesh.sequence"),

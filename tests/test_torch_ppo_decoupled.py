@@ -277,14 +277,42 @@ def test_config_checks_match_the_reference(overrides, refused):
         assert str(port_exc) == str(jax_exc)
 
 
+@pytest.mark.parametrize("exp,override", [("sac_decoupled", "obs.enabled=True"), ("ppo_decoupled", "obs.health=False")])
+def test_decoupled_entries_run_with_the_observability_keys(tmp_path, monkeypatch, exp, override):
+    """Keys refused before the plane was ported: the thread-decoupled entries run with
+    them, the monitor on the learner's thread (its trace holds the dispatch phase), and
+    with ``obs.health=False`` no ``Health/*`` is logged."""
+    import json
+
+    import sheeprl_tpu_torch.algos.ppo.ppo as ppo_loop
+    import sheeprl_tpu_torch.algos.sac.sac_decoupled as sac_entry
+    from sheeprl_tpu_torch.cli import run
+    from tests.test_torch_sac_decoupled import PORT as SAC_PORT
+
+    log = Recorder()
+    monkeypatch.setattr(sac_entry if exp == "sac_decoupled" else ppo_loop, "get_logger", lambda cfg, log_dir: log)
+    base = SAC_PORT if exp == "sac_decoupled" else PORT
+    result = bounded(run, [*base, override, "algo.run_test=False", f"log_root={tmp_path}"])
+    log_dir = Path(result.log_dir)
+    names = {k for _, m in log.logged for k in m}
+    if override == "obs.enabled=True":
+        spans = {e["name"] for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"}
+        assert {"Time/update", "Time/phase_dispatch"} <= spans
+        assert {"Health/grad_norm/actor", "Compile/recompiles", "Time/update/p50"} <= names
+    else:
+        assert not (log_dir / "trace.json").exists()
+        assert "Loss/policy_loss" in names and not any(k.startswith("Health/") for k in names)
+    assert not player_threads()
+
+
 @pytest.mark.parametrize(
     "exp,override,pattern",
     [
         ("sac_decoupled", "+distributed.mode=mesh", r"distributed\.mode='mesh': the sac_decoupled loop runs .*thread.*sebulba"),
         ("ppo_decoupled", "+distributed.mode=mesh", r"distributed\.mode='mesh': the ppo_decoupled loop runs .*thread.*sebulba"),
         ("ppo_dummy", "+distributed.mode=sebulba", r"distributed\.mode='sebulba': the ppo loop has no player/learner split"),
-        ("sac_decoupled", "+obs.enabled=True", r"obs\.enabled"),
-        ("ppo_decoupled", "+obs.health=True", r"obs\.health"),
+        ("sac_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
+        ("ppo_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("sac_decoupled", "+analysis.strict=True", r"analysis\.strict"),
         ("ppo_decoupled", "+fault.autoresume=True", r"fault\.autoresume"),
         ("ppo_decoupled", "buffer.memmap=True", r"buffer\.memmap"),

@@ -146,6 +146,7 @@ def test_ppo_update_f32_matches_jax(action):
     assert int(fns.opt_state["count"]) == 8 == int(np.asarray(adam(o_state).count))
     assert_moments(fns.opt_state, o_state, agent)
     for jm, m in zip(jmet, met):
+        assert set(m) == {k for k in jm} and any(k.startswith("Health/") for k in m)  # Health/* included
         for k, v in m.items():
             np.testing.assert_allclose(v, float(jm[k]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=k)
     # the annealed lr after 8 of the 12 scheduled steps, as optax's schedule gives it
@@ -181,6 +182,7 @@ def test_a2c_steps_match_jax():
         data.pop("logprobs")
         p, o_state, m = train_fn(p, o_state, data)
         got = fns.train_fn({k: t(v) for k, v in data.items()})
+        assert set(got) == set(m) and any(k.startswith("Health/") for k in got)  # Health/* included
         for k, v in got.items():
             np.testing.assert_allclose(v, float(m[k]), rtol=F32["metric_rtol"], err_msg=k)
     want = port_tree(p, agent)

@@ -95,6 +95,12 @@ def test_sac_ae_update_losses_match_jax(sac_ae_run):
         np.testing.assert_allclose(got, float(sac_ae_run["jmet"][name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)
 
 
+def test_sac_ae_update_health_matches_jax(sac_ae_run):
+    from tests.test_torch_sac_train import assert_health_matches
+
+    assert_health_matches(sac_ae_run["met"], sac_ae_run["jmet"])
+
+
 def test_captured_sac_ae_cadence_steps_equal_eager_steps():
     from sheeprl_tpu_torch.algos.dreamer_loop import fill_draws, zero_draws
     from sheeprl_tpu_torch.algos.sac.sac import SACDraws

@@ -92,7 +92,7 @@ def test_config_checks_match_the_reference(overrides, refused):
     "exp,override,pattern",
     [
         ("sac", "algo.anakin=True", r"algo\.anakin"),
-        ("sac", "+obs.enabled=True", r"obs\.enabled"),
+        ("sac", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("sac", "+analysis.strict=True", r"analysis\.strict"),
         ("sac", "+fault.autoresume=True", r"fault\.autoresume"),
         ("sac", "+mesh.data=2", r"mesh\.data"),

@@ -4,9 +4,8 @@ learner as two threads.
 * Against the JAX package's ``sac_decoupled`` on the same tiny config (one reference
   run): the same iterations, gradient steps, policy steps, checkpoint names and keys
   (``rb`` included with ``buffer.checkpoint=True``) and the same logged metric names,
-  ``Sebulba/param_staleness_steps`` among them. The reference also logs the families
-  of its observability plane (``Health/*``, ``Perf/*``, ``Time/phase_*``), which the
-  port does not have yet; they are left out of the comparison.
+  ``Sebulba/param_staleness_steps`` and the observability plane's families
+  (``Health/*``, ``Perf/*``, ``Time/phase_*``) among them.
 * Train, resume from a middle checkpoint and evaluate through ``sheeprl_tpu_torch.eval``,
   with host replay and with ``buffer.device=True`` (the device ring, its writes and
   blocks ordered by the ``StreamFence``, a lock on the CPU).
@@ -32,8 +31,6 @@ TINY = ["algo.hidden_size=8", "algo.per_rank_batch_size=4", "algo.learning_start
         "env.max_episode_steps=5", "buffer.checkpoint=True"]
 PORT = ["exp=sac_decoupled", "device=cpu", "env.wrapper.vector_shape=[5]", "env.wrapper.action_dim=2", *TINY]
 REFERENCE = ["exp=sac_decoupled", "env=continuous_dummy", "algo.mlp_keys.encoder=[state]", "buffer.memmap=False", *TINY]
-# the reference's observability plane, not ported yet
-NOT_PORTED_FAMILIES = ("Health/", "Perf/", "Time/phase_")
 BOUND_SECONDS = 120.0
 
 
@@ -93,8 +90,8 @@ class Recorder:
         pass
 
     def names(self):
-        """The logged names by step, the reference's observability families left out."""
-        return [(step, sorted(k for k in m if not k.startswith(NOT_PORTED_FAMILIES))) for step, m in self.logged]
+        """The logged names by step."""
+        return [(step, sorted(m)) for step, m in self.logged]
 
 
 def ckpt_summary(run_dir, manager=CheckpointManager):

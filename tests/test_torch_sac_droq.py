@@ -89,6 +89,20 @@ def test_droq_update_losses_match_jax(droq_run):
         np.testing.assert_allclose(droq_run["ameta"][name].item(), float(droq_run["amet"][name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)
 
 
+def test_droq_update_health_matches_jax(droq_run):
+    """The critic steps report their critic's per-layer norms and the target's mean; the
+    actor step the rest, which in the reference's block replaces the critic steps' same
+    names: together, the reference's names."""
+    from tests.test_torch_sac_train import assert_health_matches
+
+    cmet, amet = droq_run["cmet"], droq_run["amet"]
+    critic_names = [k for k in droq_run["met"][0] if k.startswith("Health/")]
+    assert_health_matches(droq_run["met"], cmet, critic_names)
+    assert_health_matches([droq_run["ameta"]], amet)
+    assert {k for k in cmet if k.startswith("Health/")} | set(amet) >= set(critic_names) | set(droq_run["ameta"])
+    assert {k for k in cmet if k.startswith("Health/")} - set(amet) == set(critic_names)
+
+
 def test_captured_droq_block_and_actor_tail_equal_eager_steps():
     from sheeprl_tpu_torch.algos.dreamer_loop import fill_draws, zero_draws
     from sheeprl_tpu_torch.algos.droq.droq import DRAW_KINDS, droq_parts, draw_shapes, make_droq_update

@@ -133,6 +133,21 @@ def test_sac_update_optimizer_states_match_jax(sac_run):
     assert_opt_states_match(sac_run["opt_states"], sac_run["new_opt"], modules, {"actor": G, "critic": G, "alpha": G})
 
 
+def assert_health_matches(port_steps, ref, names=None):
+    """The ``Health/*`` means over the port's steps against the reference's (its scanned
+    update's means): the same names (or ``names``), at the metrics' tolerance."""
+    got = sorted(k for k in port_steps[0] if k.startswith("Health/"))
+    want = sorted(k for k in ref if k.startswith("Health/")) if names is None else sorted(names)
+    assert got and got == want
+    for name in got:
+        value = float(np.mean([m[name].item() for m in port_steps]))
+        np.testing.assert_allclose(value, float(ref[name]), rtol=F32["metric_rtol"], atol=1e-7, err_msg=name)
+
+
+def test_sac_update_health_matches_jax(sac_run):
+    assert_health_matches(sac_run["met"], sac_run["jmet"])
+
+
 def test_sac_update_losses_match_jax(sac_run):
     for name in ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss"):
         got = float(np.mean([m[name].item() for m in sac_run["met"]]))

@@ -50,6 +50,18 @@ def test_summary_counts_equal_the_jax_packages(runs):
     assert port["error"] is None and port["policy_step"] == ref["policy_step"]
 
 
+def test_param_staleness_as_the_jax_packages(runs):
+    """The actors' lead over the learner, the port's against the reference's on the same
+    placement: at these shapes each actor ships its 8 blocks before it adopts any
+    publication in both packages (the learner starts its first update after the actors
+    are done), so neither measures a staleness: the port's summary counts none, and the
+    reference's fleet timeline holds no ``Sebulba/param_staleness_steps`` gauge."""
+    timelines = list((runs["tmp"] / "jax").rglob("fleet/timeline.jsonl"))
+    assert timelines
+    ref_gauges = sum(line.count("Sebulba/param_staleness_steps") for t in timelines for line in t.read_text().splitlines())
+    assert runs["port"]["staleness_steps"]["n"] == ref_gauges == 0
+
+
 def test_summary_accounts_for_the_channel_and_the_processes(runs):
     port = runs["port"]
     assert port["bytes_received"] > 0 and port["bytes_published"] > 0

@@ -72,7 +72,7 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch):
         ("+fault.autoresume=True", "fault.autoresume"),
         ("+rollout.pipeline_depth=2", "rollout.pipeline_depth"),
         ("+env.pool.enabled=True", "env.pool.enabled"),
-        ("+obs.enabled=True", "obs.enabled"),
+        ("obs.fleet.dir=fleet", "obs.fleet.dir"),
         ("mesh.precision=fp16", "fp16"),
     ],
 )
