@@ -176,7 +176,7 @@ result line:
    (train-cli, dv2-train-cli, dv1-train-cli, p2e-dv1/2/3-cli, ppo-cli, a2c-cli,
    ppo-recurrent-cli, the SAC family's and the decoupled entries' cli phases,
    anakin-cli, and the Sebulba phases below; ``entry_phases``) run last, in four worker
-   processes side by side (``ENTRY_GROUPS``, the Sebulba phases in a worker of their own; ``run_entry_workers``: ``chip_smoke.py
+   processes side by side (``ENTRY_GROUPS``, the Sebulba kill, ``[obs]`` and the supervisor's drill in one; ``run_entry_workers``: ``chip_smoke.py
    --entries NAME,... --out PATH``), each group's phases in order; their lines print when
    all have ended, then the ``[dv2-counts]``, ``[p2e-counts]``, ``[ppo-counts]``,
    ``[sac-counts]``, ``[decoupled-counts]``, ``[anakin-counts]`` and ``[sebulba-counts]``
@@ -199,7 +199,18 @@ result line:
    kernels (K1's among them), ``perf_report.json``'s MFU and goodput, the ``Memory/*``
    gauges against ``torch.cuda.memory_stats``, no capture after warm-up, finite
    ``Health/*``; the same run with ``obs.enabled=False`` (its policy steps/s beside); a small
-   run whose training raises leaves a blackbox; the ``[obs-counts]`` line.
+   run whose training raises leaves a blackbox; the ``[obs-counts]`` line. The fault
+   drills (``FAULT_*``): ``[fault-dv3]`` (in the p2e-dv2 worker) SIGTERMs the DreamerV3-S
+   train entry at a boundary through the chaos schedule and resumes it in process
+   (``fault.autoresume``): each attempt's K1 launches, the final counters, checkpoints and
+   marker against ``fault_schedule``, ``Fault/*`` in the logged metrics, the seconds from
+   the kill to the resumed attempt's first gradient step; ``[fault-anakin]`` (in the Anakin
+   worker): ``exp=ppo_anakin`` killed and resumed against the same run uninterrupted, the
+   final checkpoints bit for bit; ``[fault-supervise]`` (in the Sebulba worker):
+   ``python -m sheeprl_tpu_torch.supervise`` on a DreamerV3-S run whose newest checkpoint
+   is corrupted and whose child is SIGKILLed: rc -9 then 0, the relaunch from the
+   checkpoint before the corrupted one, each child's K1 launches (``LAUNCH_HOOK``); the
+   ``[fault-counts]`` line.
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
@@ -3620,9 +3631,10 @@ def phase_anakin_cli(device: torch.device, workdir: Path) -> dict:
 # exp=sac_decoupled's widths, two actors of 4 sync envs, [sac-decoupled-cli]'s steps;
 # [sebulba-ppo-cli] at [ppo-decoupled-cli]'s run with one actor; [sebulba-kill] at small
 # widths, learning from the first iteration (every block takes a gradient step) and a
-# long run, so that actor 1 still acts while actor 0's respawn starts
+# run long enough that actor 1 still acts while actor 0's respawn starts (2,500 iterations
+# an actor; the kill window read 14-16 s on an NVIDIA H100 80GB HBM3 host at 700 W)
 SEBULBA_SAC = ["exp=sac_decoupled", "env.sync_env=True", *SAC_CLI_STEPS["sac"], "distributed.num_actors=2", "algo.run_test=False"]
-SEBULBA_KILL = ["exp=sac_decoupled", "algo.hidden_size=64", "algo.per_rank_batch_size=64", "env.sync_env=True", "algo.total_steps=32000",
+SEBULBA_KILL = ["exp=sac_decoupled", "algo.hidden_size=64", "algo.per_rank_batch_size=64", "env.sync_env=True", "algo.total_steps=20000",
                 "algo.learning_starts=0", "algo.replay_ratio=0.25", "buffer.size=65536", "checkpoint.every=0", "metric.log_level=0",
                 "algo.run_test=False", "distributed.num_actors=2", "distributed.respawn_backoff_s=0.2", "chaos.kill_actor_at_step=100",
                 "chaos.kill_actor_index=0"]
@@ -3936,6 +3948,336 @@ def phase_obs(device: torch.device, workdir: Path) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------- fault tolerance
+# [fault-dv3]: the DreamerV3-S train entry at [train-cli]'s widths (bf16-mixed) with two
+# sync envs (the prefill a sequence of 64 rows an env), SIGTERMed by the chaos schedule at
+# policy step 192 and resumed in process (fault.autoresume): 33 gradient steps before the
+# kill, 31 after (a resumed run trains again after another learning_starts), a graph
+# captured in each attempt. [fault-supervise]: the same widths under python -m
+# sheeprl_tpu_torch.supervise, its newest checkpoint (ckpt_128) corrupted at 128 and the
+# child SIGKILLed at 136: the relaunch resumes from ckpt_64 (5 gradient steps, then 8).
+# [fault-anakin]: exp=ppo_anakin at its published widths cut to two updates, killed at the
+# first and resumed in process, beside the same run uninterrupted.
+FAULT_DV3 = [*TRAIN_OVERRIDES, "env.sync_env=True", "algo.learning_starts=128", "algo.total_steps=384", "checkpoint.every=128",
+             "metric.log_every=64", "algo.run_test=False"]
+FAULT_DV3_KILL = 192
+FAULT_SUPERVISE = [*TRAIN_OVERRIDES, "env.sync_env=True", "algo.learning_starts=128", "algo.total_steps=208", "checkpoint.every=64",
+                   "metric.log_level=0", "algo.run_test=False"]
+FAULT_SUPERVISE_AT = (128, 136)  # the corruption's step, the SIGKILL's
+FAULT_ANAKIN = ["exp=ppo_anakin", "algo.total_steps=65536", "checkpoint.every=32768", "metric.log_level=0", "algo.run_test=False"]
+FAULT_ANAKIN_KILL = 32768
+# [fault-supervise]'s children report their K1 launches at each boundary of the training
+# guard, the SIGKILLed one up to its last: this ``sitecustomize.py``, on their path, wraps
+# ``TrainingGuard.boundary`` once the port imports it, writing ``<pid>.json`` in
+# $CHIP_SMOKE_LAUNCH_DIR before each boundary (it imports nothing but the standard library
+# at start-up, so the supervisor itself stays free of torch)
+LAUNCH_HOOK = '''import importlib.abc, importlib.machinery, json, os, sys
+
+class _GuardHook(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name != "sheeprl_tpu_torch.fault.guard":
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            boundary = module.TrainingGuard.boundary
+
+            def counted(self, step, save_ckpt=None):
+                from sheeprl_tpu_torch.ops.counters import launch_counts
+                out = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"], f"{os.getpid()}.json")
+                with open(out + ".tmp", "w") as f:
+                    json.dump({"step": int(step), **launch_counts()}, f)
+                os.replace(out + ".tmp", out)
+                return boundary(self, step, save_ckpt)
+
+            module.TrainingGuard.boundary = counted
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+if os.environ.get("CHIP_SMOKE_LAUNCH_DIR"):
+    sys.meta_path.insert(0, _GuardHook())
+'''
+
+
+def fault_schedule(cfg, kill_at: int, resume_at=None) -> dict:
+    """The Dreamer loop's counters and checkpoint names for a run of ``cfg`` killed at the
+    first boundary at or past ``kill_at`` and resumed from its checkpoint at
+    ``resume_at`` (None: the preemption's checkpoint at the kill; else a SIGKILL, which
+    writes none), replayed from the loop's schedule: ``Ratio`` per iteration from
+    ``learning_starts``, offset by the prefill; a resumed run's ``learning_starts`` moves
+    on by its first iteration; a checkpoint every ``checkpoint.every`` policy steps and one
+    at the end. Returns the final ``iter_num``, ``policy_step`` and
+    ``cumulative_grad_steps``, each attempt's checkpoint steps and gradient steps."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    num_envs, every = int(cfg.env.num_envs) * int(cfg.env.action_repeat), int(cfg.checkpoint.every)
+    num_iters = max(int(cfg.algo.total_steps) // num_envs, 1)
+    state = {"ratio": Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps), "iter": 0, "policy_step": 0,
+             "grad": 0, "last_ckpt": 0}
+    saved, attempts, grads, killed_at = {}, [], [], None
+    for attempt in range(2):
+        if attempt:
+            state = copy.deepcopy(saved[killed_at if resume_at is None else resume_at])
+        starts = int(cfg.algo.learning_starts) // num_envs + (state["iter"] + 1 if attempt else 0)
+        prefill, ckpts, grad0 = max(starts - 1, 0), [], state["grad"]
+        for it in range(state["iter"] + 1, num_iters + 1):
+            if it >= starts:
+                state["grad"] += max(state["ratio"](state["policy_step"] + num_envs - prefill * num_envs), 0)
+            state["policy_step"] += num_envs
+            state["iter"] = it
+            killed = attempt == 0 and state["policy_step"] >= kill_at
+            if (every > 0 and state["policy_step"] - state["last_ckpt"] >= every) or it == num_iters or (killed and resume_at is None):
+                state["last_ckpt"] = state["policy_step"]
+                ckpts.append(state["policy_step"])
+                saved[state["policy_step"]] = copy.deepcopy(state)
+            if killed:
+                killed_at = state["policy_step"]
+                break
+        attempts.append(ckpts)
+        grads.append(state["grad"] - grad0)
+    return {"iter_num": state["iter"], "policy_step": state["policy_step"], "cumulative_grad_steps": state["grad"], "ckpts": attempts,
+            "grad_steps": grads, "killed_at": killed_at}
+
+
+def _ckpt_names(root: Path) -> list:
+    """The checkpoint names under a run tree, ``version_N/ckpt_S``, in order."""
+    return sorted((f"{p.parent.parent.name}/{p.name}" for p in root.rglob("checkpoints/ckpt_*")),
+                  key=lambda s: (int(s.split("/")[0][8:]), int(s.split("_")[-1])))
+
+
+def _final_counters(path) -> dict:
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+
+    state = CheckpointManager.load(path)
+    out = {k: int(state[k]) for k in ("iter_num", "policy_step", "cumulative_grad_steps")}
+    out["world_model_count"] = int(state["opt_states"]["world_model"]["count"])
+    return out
+
+
+@contextlib.contextmanager
+def _attempt_outcomes():
+    """How each in-process attempt of the train entry ends (``cli.run_algorithm``'s
+    exception type, or ``finished``), appended to the yielded list."""
+    from sheeprl_tpu_torch import cli
+
+    outcomes, run_algorithm = [], cli.run_algorithm
+
+    def recorded(cfg):
+        try:
+            out = run_algorithm(cfg)
+        except BaseException as exc:
+            outcomes.append(type(exc).__name__)
+            raise
+        outcomes.append("finished")
+        return out
+
+    cli.run_algorithm = recorded
+    try:
+        yield outcomes
+    finally:
+        cli.run_algorithm = run_algorithm
+
+
+def _reset_fault_state() -> None:
+    from sheeprl_tpu_torch.fault import counters, preemption
+
+    counters.reset()
+    preemption.clear_preemption()
+
+
+def phase_fault_dv3(device: torch.device, workdir: Path) -> dict:
+    """``[fault-dv3]`` (``FAULT_DV3``): the kill at ``FAULT_DV3_KILL`` ends attempt 1 at the
+    training guard's boundary with a checkpoint and ``PREEMPTED``; attempt 2 resumes from it
+    in process and finishes. Checks: each attempt's K1 backward launches equal 64 x (its
+    gradient steps + the capture's warm-up steps), its forward launches above 0; the final
+    checkpoint's counters, the world model's optimizer count and the checkpoint names of
+    each ``version_*`` equal ``fault_schedule``'s; the marker's step, signal and
+    ``resume_from``; ``Fault/*`` in attempt 2's logged metrics. Reports the seconds from the
+    kill to the resumed attempt's first gradient step finished on the card (the setup, the
+    checkpoint's load and the graph's capture among them)."""
+    import sheeprl_tpu_torch.algos.dreamer_loop as loop
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.fault import chaos
+    from sheeprl_tpu_torch.fault.preemption import read_marker
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    set_tf32(True)
+    tag = "[fault-dv3]"
+    overrides = [*FAULT_DV3, f"device={device.type}", f"log_root={workdir}", f"chaos.kill_at_step={FAULT_DV3_KILL}", "fault.autoresume=True"]
+    want = fault_schedule(compose(overrides=overrides), FAULT_DV3_KILL)
+    attempts, stamps, logs = [], {}, []
+    kill, make_replay, get_logger = chaos.ChaosMonkey._kill, loop.make_device_replay, loop.get_logger
+
+    def counted_kill(self):
+        attempts.append(launches())
+        zero_launches()
+        stamps["kill"] = time.monotonic()
+        kill(self)
+
+    def timed_replay(*args, **kwargs):
+        dispatcher, mirror, prefetcher, run_block, rb_add = make_replay(*args, **kwargs)
+
+        def first_after_kill(*a, **k):
+            out = run_block(*a, **k)
+            if "kill" in stamps and "first_grad" not in stamps:
+                torch.cuda.synchronize(device)
+                stamps["first_grad"] = time.monotonic()
+            return out
+
+        return dispatcher, mirror, prefetcher, first_after_kill, rb_add
+
+    _reset_fault_state()
+    chaos.ChaosMonkey._kill, loop.make_device_replay = counted_kill, timed_replay
+    loop.get_logger = lambda cfg, log_dir: logs.append(_Recorder()) or logs[-1]
+    try:
+        with _attempt_outcomes() as outcomes:
+            zero_launches()
+            start = time.perf_counter()
+            result = cli.run(overrides)
+            seconds = time.perf_counter() - start
+            attempts.append(launches())
+    finally:
+        chaos.ChaosMonkey._kill, loop.make_device_replay, loop.get_logger = kill, make_replay, get_logger
+    (run_dir,) = {p.parent for p in workdir.rglob("version_*")}
+    marker = read_marker(run_dir / "version_0") or {}
+    fault = [{k: v for k, v in m.items() if k.startswith("Fault/")} for _, m in logs[-1].logged] if len(logs) == 2 else []
+    row = {"outcomes": outcomes, "seconds": seconds, "kill_to_first_grad_s": stamps.get("first_grad", math.nan) - stamps["kill"],
+           "k1": [{"fwd": f, "bwd": b} for f, b in attempts], "grad_steps": want["grad_steps"],
+           "final": _final_counters(result.checkpoint), "expected": {k: want[k] for k in ("iter_num", "policy_step", "cumulative_grad_steps")},
+           "ckpts": _ckpt_names(workdir), "marker": {k: marker.get(k) for k in ("step", "signal", "resume_from")},
+           "fault_logged": fault[-1] if fault else None}
+    log(f"{tag} " + json.dumps(row))
+    bad = [] if outcomes == ["Preempted", "finished"] else [f"attempts ended {outcomes}"]
+    if len(attempts) != 2 or any(f <= 0 or b != 64 * (g + WARMUP_STEPS) for (f, b), g in zip(attempts, want["grad_steps"])):
+        bad.append(f"K1 launches per attempt {attempts}, gradient steps {want['grad_steps']}")
+    if row["final"] != {**row["expected"], "world_model_count": want["cumulative_grad_steps"]}:
+        bad.append(f"final counters {row['final']} against {row['expected']}")
+    if row["ckpts"] != [f"version_{v}/ckpt_{s}" for v, steps in enumerate(want["ckpts"]) for s in steps]:
+        bad.append(f"checkpoints {row['ckpts']} against {want['ckpts']}")
+    if row["marker"] != {"step": want["killed_at"], "signal": "SIGTERM", "resume_from": str(run_dir / "version_0" / "checkpoints" / f"ckpt_{want['killed_at']}")}:
+        bad.append(f"marker {row['marker']}")
+    faults = {"Fault/chaos_injected": 1, "Fault/preemption_signals": 1, "Fault/preemptions": 1, "Fault/restarts": 1}
+    if row["fault_logged"] != faults or any(k.startswith("Fault/") for _, m in logs[0].logged for k in m):
+        bad.append(f"logged Fault/* {row['fault_logged']}")
+    if not 0 < row["kill_to_first_grad_s"] < seconds:
+        bad.append(f"kill to the first gradient step {row['kill_to_first_grad_s']} s")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    return row
+
+
+def phase_fault_supervise(device: torch.device, workdir: Path) -> dict:
+    """``[fault-supervise]`` (``FAULT_SUPERVISE``): ``python -m sheeprl_tpu_torch.supervise``
+    with ``chaos.corrupt_ckpt_at_step`` and a SIGKILL ``chaos.kill_at_step`` after it
+    (``FAULT_SUPERVISE_AT``): the child dies with -9, the supervisor classifies RETRY, skips
+    the corrupted newest checkpoint, resumes from the one before it and exits 0. Checks the
+    supervisor's summary, the corrupted checkpoint failing verification, the final
+    counters and each version's checkpoints against ``fault_schedule``, and each child's K1
+    launches (read by ``LAUNCH_HOOK``): backward 64 x (its gradient steps + the capture's
+    warm-up steps), forward above 0."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    tag = "[fault-supervise]"
+    corrupt_at, kill_at = FAULT_SUPERVISE_AT
+    site, counts = workdir / "site", workdir / "launches"
+    site.mkdir()
+    counts.mkdir()
+    (site / "sitecustomize.py").write_text(LAUNCH_HOOK)
+    summary_path = workdir / "supervise.json"
+    overrides = [*FAULT_SUPERVISE, f"device={device.type}", f"log_root={workdir / 'logs'}", "run_name=fault_supervise",
+                 f"chaos.corrupt_ckpt_at_step={corrupt_at}", f"chaos.kill_at_step={kill_at}", "chaos.kill_signal=SIGKILL",
+                 "fault.backoff_s=0", f"fault.summary_path={summary_path}"]
+    cfg = compose(overrides=overrides)
+    resume_at = max(s for s in range(int(cfg.checkpoint.every), corrupt_at, int(cfg.checkpoint.every)))
+    want = fault_schedule(cfg, kill_at, resume_at=resume_at)
+    start = time.perf_counter()
+    _, output = _sebulba("sheeprl_tpu_torch.supervise", overrides, workdir, "fault-supervise", CHIP_SMOKE_LAUNCH_DIR=counts,
+                         PYTHONPATH=os.pathsep.join(p for p in (str(site), os.environ.get("PYTHONPATH")) if p))
+    seconds = time.perf_counter() - start
+    summary = json.loads(summary_path.read_text())
+    run_dir = workdir / "logs" / "runs" / "dreamer_v3" / "discrete_dummy" / "fault_supervise"
+    children = sorted((json.loads(p.read_text()) for p in counts.glob("*.json")), key=lambda c: c["step"])
+    final = max(run_dir.glob("version_*/checkpoints/ckpt_*"), key=lambda p: int(p.name[5:]))
+    row = {"rc": 0, "seconds": seconds, "summary": summary, "k1": [{"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"], "step": c["step"]}
+                                                                      for c in children],
+           "k2": [{"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for c in children], "grad_steps": want["grad_steps"], "final": _final_counters(final),
+           "expected": {k: want[k] for k in ("iter_num", "policy_step", "cumulative_grad_steps")}, "ckpts": _ckpt_names(run_dir),
+           "supervisor_lines": [ln for ln in output.splitlines() if ln.startswith("[supervise]")]}
+    log(f"{tag} " + json.dumps(row))
+    bad = []
+    if summary["outcome"] != "done" or [(a["rc"], a["verdict"]) for a in summary["attempts"]] != [(-9, "retry"), (0, "done")]:
+        bad.append(f"attempts {summary['attempts']}, outcome {summary['outcome']}")
+    elif summary["attempts"][1]["resume_from"] != str(run_dir / "version_0" / "checkpoints" / f"ckpt_{resume_at}"):
+        bad.append(f"resumed from {summary['attempts'][1]['resume_from']}, not ckpt_{resume_at}")
+    if CheckpointManager.verify(run_dir / "version_0" / "checkpoints" / f"ckpt_{corrupt_at}"):
+        bad.append(f"ckpt_{corrupt_at} verifies: the chaos schedule corrupted nothing")
+    if [c["step"] for c in children] != [want["killed_at"], want["policy_step"]] or any(any(k.values()) for k in row["k2"]) or any(
+            k["fwd"] <= 0 or k["bwd"] != 64 * (g + WARMUP_STEPS) for k, g in zip(row["k1"], want["grad_steps"])):
+        bad.append(f"children's K1 launches {row['k1']}, gradient steps {want['grad_steps']}, K2 {row['k2']}")
+    if row["final"] != {**row["expected"], "world_model_count": want["cumulative_grad_steps"]}:
+        bad.append(f"final counters {row['final']} against {row['expected']}")
+    if row["ckpts"] != [f"version_{v}/ckpt_{s}" for v, steps in enumerate(want["ckpts"]) for s in steps]:
+        bad.append(f"checkpoints {row['ckpts']} against {want['ckpts']}")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    return row
+
+
+def phase_fault_anakin(device: torch.device, workdir: Path) -> dict:
+    """``[fault-anakin]`` (``FAULT_ANAKIN``): killed at ``FAULT_ANAKIN_KILL`` with
+    ``fault.autoresume=True``, then the same run uninterrupted: the final checkpoints equal
+    bit for bit (``torch.equal`` on every tensor, equality on every other value); no K1 or
+    K2 launch."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.fault.counters import fault_metrics
+    from sheeprl_tpu_torch.ops.counters import launch_counts
+
+    set_tf32(True)
+    tag = "[fault-anakin]"
+    overrides = [*FAULT_ANAKIN, f"device={device.type}"]
+    _reset_fault_state()
+    row, results = {}, {}
+    for case, extra in (("killed", [f"chaos.kill_at_step={FAULT_ANAKIN_KILL}", "fault.autoresume=True"]), ("clean", [])):
+        with _attempt_outcomes() as outcomes:
+            zero_launches()
+            start = time.perf_counter()
+            results[case] = cli.run([*overrides, *extra, f"log_root={workdir / case}"])
+        row[case] = {"seconds": time.perf_counter() - start, "grad_steps": results[case].grad_steps, "k1_k2_launches": launch_counts(),
+                     "checkpoint": Path(results[case].checkpoint).name, "version": Path(results[case].log_dir).name, "outcomes": outcomes}
+    row["fault"] = fault_metrics()
+    a, b = (CheckpointManager.load(results[c].checkpoint) for c in ("killed", "clean"))
+    la, lb = dict(_leaf_items(a)), dict(_leaf_items(b))
+    row["leaves"] = len(la)
+    row["unequal"] = ["<keys>"] if sorted(la) != sorted(lb) else [
+        k for k in la if not (torch.equal(la[k], lb[k]) if isinstance(la[k], torch.Tensor) else la[k] == lb[k])]
+    log(f"{tag} " + json.dumps(row))
+    if (row["unequal"] or row["killed"]["version"] != "version_1" or row["killed"]["checkpoint"] != row["clean"]["checkpoint"]
+            or row["killed"]["outcomes"] != ["Preempted", "finished"] or row["clean"]["outcomes"] != ["finished"]
+            or row["fault"] != {"Fault/chaos_injected": 1, "Fault/preemption_signals": 1, "Fault/preemptions": 1, "Fault/restarts": 1}
+            or any(any(r["k1_k2_launches"].values()) for r in (row["killed"], row["clean"]))):
+        raise AssertionError(f"{tag}: {row}")
+    return row
+
+
+def _leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_items(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def entry_phases(device: torch.device) -> dict:
     """The phases that drive the train and eval entries (train, resume, eval through the
     CLI), by the names ``[phases]`` reports, each a thunk that runs it in a temporary
@@ -3973,6 +4315,9 @@ def entry_phases(device: torch.device) -> dict:
     phases["sebulba-sac-cli"] = in_tmp(phase_sebulba_sac_cli)
     phases["sebulba-ppo-cli"] = in_tmp(phase_sebulba_ppo_cli)
     phases["sebulba-kill"] = in_tmp(phase_sebulba_kill)
+    phases["fault-dv3"] = in_tmp(phase_fault_dv3)
+    phases["fault-supervise"] = in_tmp(phase_fault_supervise)
+    phases["fault-anakin"] = in_tmp(phase_fault_anakin)
     return phases
 
 
@@ -3982,12 +4327,14 @@ def entry_phases(device: torch.device) -> dict:
 # ~135 s each). Their rates are read under that sharing; each run's launch counts are its
 # own (every process has its own counters, zeroed around each run).
 ENTRY_GROUPS = (
-    ("p2e-dv2-cli", "p2e-dv3-cli", "sac_decoupled_host-cli", "sac_decoupled_device-cli", "ppo_decoupled-cli", "ppo_coupled-cli"),
-    ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "dv2-train-cli-episode"),
-    ("anakin-cli", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli", "ppo-recurrent-cli-lstm",
-     "ppo-recurrent-cli-attention", "dv1-train-cli"),
-    # the Sebulba phases spawn processes of their own: their worker mostly waits
-    ("sebulba-sac-cli", "sebulba-kill", "sebulba-ppo-cli", "obs"),
+    ("p2e-dv2-cli", "p2e-dv3-cli", "sac_decoupled_host-cli", "sac_decoupled_device-cli", "ppo_decoupled-cli", "ppo_coupled-cli",
+     "fault-dv3", "dv2-train-cli-episode"),
+    ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "sebulba-sac-cli"),
+    ("anakin-cli", "fault-anakin", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli",
+     "ppo-recurrent-cli-lstm", "ppo-recurrent-cli-attention", "dv1-train-cli"),
+    # the Sebulba phases and the supervisor's drill spawn processes of their own: this worker
+    # mostly waits (sebulba-sac-cli runs in another, to keep the workers even)
+    ("sebulba-kill", "sebulba-ppo-cli", "obs", "fault-supervise"),
 )
 ENTRY_TIMEOUT_S = 600  # all workers; alone they take ~140 s each
 ENTRY_THREADS = 2  # torch's CPU threads in each worker: the workers share the host's cores
@@ -4102,7 +4449,8 @@ def main() -> int:
         phase_train(device, "bf16-mixed", steps=2), phase_train(device, "32-true", steps=2),
         phase_train(device, "bf16-mixed", env="continuous_dummy", steps=2, warmup=1),
     ])
-    graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=4, health_turn=True), phase_train_graph(device, env="continuous_dummy")])
+    # 2 timed steps a turn: the fault drills' entry phases need room in the time limit
+    graphed = timed("train-graph", lambda: [phase_train_graph(device, timed_steps=2, health_turn=True), phase_train_graph(device, env="continuous_dummy")])
     timed("dv2-train-agreement", phase_train_agreement, device, SMALL_DV2, "[dv2-train-agreement]")
     dv2_graph = timed("dv2-train-graph", phase_train_graph, device, overrides=DV2_OVERRIDES, tag="[dv2-train-graph]")
     timed("dv1-train-agreement", phase_train_agreement, device, SMALL_DV1, "[dv1-train-agreement]")
@@ -4252,6 +4600,25 @@ def main() -> int:
         "kill_window": {k: sb_kill[k] for k in ("kill_window_s", "trace_points_in_window", "grad_steps_in_window")},
     }))
     _no_kernels(sebulba_paths, "sebulba-counts")
+    f_dv3, f_sup, f_ak = entries["fault-dv3"], entries["fault-supervise"], entries["fault-anakin"]
+    ak_k = {f"fault_anakin_{c}": f_ak[c]["k1_k2_launches"] for c in ("killed", "clean")}
+    fault_k1 = {**{f"fault_dv3_attempt{i + 1}": {"fwd": k["fwd"], "bwd": k["bwd"]} for i, k in enumerate(f_dv3["k1"])},
+                **{f"fault_supervise_child{i + 1}": {"fwd": k["fwd"], "bwd": k["bwd"]} for i, k in enumerate(f_sup["k1"])},
+                **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in ak_k.items()}}
+    # the DreamerV3 attempts launch no K2 (``launches`` raises where one does)
+    fault_k2 = {**{f"fault_dv3_attempt{i + 1}": {"fwd": 0, "bwd": 0} for i in range(len(f_dv3["k1"]))},
+                **{f"fault_supervise_child{i + 1}": k for i, k in enumerate(f_sup["k2"])},
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in ak_k.items()}}
+    log("[fault-counts] " + json.dumps({
+        # in process, an attempt ends with Preempted (exit 75 without fault.autoresume) or finishes
+        "attempts": {"fault_dv3": f_dv3["outcomes"], "fault_anakin_killed": f_ak["killed"]["outcomes"],
+                     "fault_supervise_children_rc": [a["rc"] for a in f_sup["summary"]["attempts"]]},
+        "rc": {"fault_supervise": f_sup["rc"]},
+        "k1_launches": fault_k1, "k2_launches": fault_k2, "kill_to_first_grad_s": f_dv3["kill_to_first_grad_s"],
+        "fault_anakin_leaves_equal": f_ak["leaves"],
+        "seconds": {"fault_dv3": f_dv3["seconds"], "fault_supervise": f_sup["seconds"],
+                    "fault_anakin": {c: f_ak[c]["seconds"] for c in ("killed", "clean")}},
+    }))
     log("[phases] seconds " + json.dumps(seconds))
     line = {"kernels": []}
     # K1's launches on every path that runs it, each counted from zero around its run
@@ -4280,12 +4647,14 @@ def main() -> int:
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in anakin_paths.items()},
         # every Sebulba process, which runs no K1 either (checked zero in [sebulba-counts])
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in sebulba_paths.items()},
+        # the fault drills: each DreamerV3-S attempt and supervised child, and the Anakin runs (none)
+        **fault_k1,
     }
     # K2's: its one path, the scan bench, and the serving paths (none)
     k2_paths = {"rssm_scan": {"fwd": scan["launches"]["rssm_step"], "bwd": scan["launches"]["rssm_step_bwd"]},
                 **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()},
                 **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in anakin_paths.items()},
-                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in sebulba_paths.items()}}
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in sebulba_paths.items()}, **fault_k2}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -4331,7 +4700,8 @@ def main() -> int:
         + "; Anakin env steps/s " + ", ".join(f"{n} " + "/".join(f"{t['mode']} {t['env_steps_per_s']:.0f}" for t in g["turns"]) for n, g in (("ppo", ak_ppo), ("sac", ak_sac)))
         + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items())
         + f"; Sebulba policy steps/s sac {sb_sac['train']['policy_steps_per_s']:.1f}, ppo {sb_ppo['policy_steps_per_s']:.1f}"
-        + "; obs policy steps/s " + ", ".join(f"{k} {obs[k]['policy_steps_per_s']:.1f}" for k in ("window", "enabled", "disabled")))
+        + "; obs policy steps/s " + ", ".join(f"{k} {obs[k]['policy_steps_per_s']:.1f}" for k in ("window", "enabled", "disabled"))
+        + f"; fault-dv3 kill to the resumed attempt's first gradient step {f_dv3['kill_to_first_grad_s']:.2f} s")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

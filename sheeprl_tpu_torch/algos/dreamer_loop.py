@@ -12,8 +12,10 @@ The loop, ``run_loop(ctx, cfg, setup)``: act in the vector env, store the rows, 
 iteration's gradient steps as one block of the captured step (``utils/blocks.py``) over
 batches gathered on the device from its replay ring (``buffer.device``,
 ``data/device_buffer.py``) or prefetched from the host buffer, log, checkpoint, resume
-and test. An algorithm hands it its modules, optimizer states, captured step, player and
-buffer as a ``LoopParts``; a P2E finetuning run also the exploration run's checkpoint to
+and test, and end each iteration at the training guard's boundary (``fault/guard.py``:
+chaos faults, and on a preemption the final checkpoint and ``Preempted``). An algorithm
+hands it its modules, optimizer states, captured step, player and buffer as a
+``LoopParts``; a P2E finetuning run also the exploration run's checkpoint to
 start from and the task player to switch to. It refuses the reference's keys the port
 does not have (``loop_common.refuse_unported``). Its ``TrainingMonitor`` (``obs/monitor.py``),
 made before the step is built, times the reference loop's phases and logs each flush.
@@ -39,6 +41,7 @@ from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import make_device_replay
 from sheeprl_tpu_torch.distributions import Independent, Normal
+from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.obs import TrainingMonitor, replay_age_metrics
 from sheeprl_tpu_torch.utils.env import make_env, make_vector_env
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
@@ -322,6 +325,7 @@ def run_loop(
     aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
     aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
     ckpt_manager = CheckpointManager(Path(log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+    guard = TrainingGuard(cfg, log_dir)
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
 
     policy_steps_per_iter = num_envs * cfg.env.action_repeat
@@ -473,9 +477,8 @@ def run_loop(
             env_time += time.perf_counter() - env_t0
             env_seconds_total += env_time
 
-            if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
-                iter_num == num_iters and cfg.checkpoint.save_last
-            ):
+            def save_ckpt() -> str:
+                nonlocal last_path, last_checkpoint
                 ckpt_state = {
                     "params": {name: m.state_dict() for name, m in modules.items()},
                     "opt_states": opt_states,
@@ -495,6 +498,12 @@ def run_loop(
                             ckpt_state["rb"] = rb.state_dict()
                     last_path = str(ckpt_manager.save(policy_step, ckpt_state))
                 last_checkpoint = policy_step
+                return last_path
+
+            if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
+                iter_num == num_iters and cfg.checkpoint.save_last
+            ):
+                save_ckpt()
 
             if logger is not None and (policy_step - last_log >= cfg.metric.log_every or iter_num == num_iters or cfg.dry_run):
                 # the window's only blocking copy: every block's last metrics at once
@@ -512,6 +521,7 @@ def run_loop(
                 monitor.log_metrics(logger, metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step
+            guard.boundary(policy_step, save_ckpt)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:

@@ -109,14 +109,10 @@ _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
     ("distributed.mode", lambda v: v not in (None, "thread"), _sebulba_refusal),
     ("env.pool.enabled", bool, "the shared-memory env pool"),
-    ("chaos.kill_at_step", _set, "the chaos harness's process kill at a loop boundary (the training guard)"),
-    ("chaos.corrupt_ckpt_at_step", _set, "the chaos harness's checkpoint corruption (the training guard)"),
-    ("chaos.delay_at_step", _set, "the chaos harness's boundary delay (the training guard)"),
     ("chaos.worker_fault_at_step", _set, "the chaos harness's env-pool worker fault"),
     ("algo.anakin", bool, _anakin_refusal),
     ("obs.fleet.dir", _set, "the fleet telemetry plane's aggregator (obs/fleet.py)"),
     ("analysis.strict", bool, "strict mode"),
-    ("fault.autoresume", bool, "the training guard"),
     (REGISTERS, lambda v: v is not None and not v, _registration_refusal),
     ("logger.name", lambda v: v not in (None, "tensorboard"), "the MLflow logger"),
     ("algo.world_model.decoupled_rssm", bool, "the decoupled RSSM"),

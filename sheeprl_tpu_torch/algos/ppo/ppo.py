@@ -47,6 +47,7 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, env_actions, log_prob_and_entropy, prepare_obs, sample_actions, test
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
+from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.precision import train_policy
 from sheeprl_tpu_torch.rollout import PipelinedPlayer, rollout_metrics
 from sheeprl_tpu_torch.utils.env import make_vector_env
@@ -513,6 +514,7 @@ class PPOFamilyLoop:
         self.aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
         self.aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
         self.ckpt_manager = CheckpointManager(Path(self.log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+        self.guard = TrainingGuard(cfg, self.log_dir)
         self.policy_steps_per_iter = int(cfg.env.num_envs * cfg.algo.rollout_steps)
         self.num_updates = max(int(cfg.algo.total_steps) // self.policy_steps_per_iter, 1) if not cfg.dry_run else 1
         self.start_update, self.policy_step, self.last_log, self.last_checkpoint = 1, 0, 0, 0
@@ -532,7 +534,9 @@ class PPOFamilyLoop:
         self.last_checkpoint = state.get("last_checkpoint", 0)
 
     def end_update(self, update: int, agent, opt_state, metrics: Callable[[], Dict[str, float]]) -> None:
-        """Log at the cadence (``metrics()`` adds the timing keys) and checkpoint."""
+        """Log at the cadence (``metrics()`` adds the timing keys), checkpoint, then the
+        training guard's boundary (``fault/guard.py``: chaos faults, and on a preemption
+        the same checkpoint and ``Preempted``)."""
         cfg = self.cfg
         if self.logger is not None and (self.policy_step - self.last_log >= cfg.metric.log_every or update == self.num_updates or cfg.dry_run):
             with self.agg_lock:
@@ -542,9 +546,8 @@ class PPOFamilyLoop:
             out.update(rollout_metrics(self.envs))
             self.monitor.log_metrics(self.logger, out, self.policy_step)
             self.last_log = self.policy_step
-        if (cfg.checkpoint.every > 0 and self.policy_step - self.last_checkpoint >= cfg.checkpoint.every) or (
-            update == self.num_updates and cfg.checkpoint.save_last
-        ):
+
+        def save_ckpt() -> str:
             state = {
                 "params": agent.state_dict(),
                 "opt_state": opt_state,
@@ -556,6 +559,13 @@ class PPOFamilyLoop:
             with self.monitor.phase("checkpoint"):
                 self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
             self.last_checkpoint = self.policy_step
+            return self.last_path
+
+        if (cfg.checkpoint.every > 0 and self.policy_step - self.last_checkpoint >= cfg.checkpoint.every) or (
+            update == self.num_updates and cfg.checkpoint.save_last
+        ):
+            save_ckpt()
+        self.guard.boundary(self.policy_step, save_ckpt)
 
     def close(self) -> None:
         """The monitor, then the vector env (a loop's teardown)."""

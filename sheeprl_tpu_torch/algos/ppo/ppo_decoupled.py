@@ -13,7 +13,8 @@ process, each launching on a CUDA stream of its own (``algos/decoupled.py``); wi
   (``PPOTrainFns.launch_update``), publishes, and only then reads the losses back, so
   the player's next rollout overlaps the host's part of the update. It logs
   ``Time/sps_train``, ``Time/sps_env_interaction``, ``Params/lr`` and
-  ``Sebulba/param_staleness_steps`` and writes the coupled entry's checkpoints.
+  ``Sebulba/param_staleness_steps``, writes the coupled entry's checkpoints and ends
+  each update at the training guard's boundary (``PPOFamilyLoop.end_update``).
 
 Why the player acts on the learner's parameters, which the captured update overwrites
 in place, without a copy: the two roles alternate, and events order them on the card.
@@ -26,8 +27,7 @@ A publication therefore carries no tensors, only its event and stamp.
 Against the reference's coupled entry, the reference's decoupled one computes the same
 update from the same rollout; it differs in where the draws come from (its player's
 own key chain) and in what it logs (``Sebulba/param_staleness_steps``, and no
-``Rollout/*`` counters of an env pool). Not ported: the training guard, flight
-recorder, strict mode and monitor (refused).
+``Rollout/*`` counters of an env pool). Not ported: strict mode (refused).
 """
 
 from __future__ import annotations

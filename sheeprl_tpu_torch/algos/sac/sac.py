@@ -21,6 +21,7 @@ from the host ``ReplayBuffer`` or gathered on the device from a ``DeviceTransiti
 of the reference's scanned host block and its donated ring block
 (``FusedRingDispatcher``). Checkpoints hold the agent, the optimizer states, the ratio,
 the counters and (``buffer.checkpoint``) the buffer; a resume rebuilds the ring from it.
+Each iteration ends at the training guard's boundary (``fault/guard.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import make_transition_replay
+from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.obs import TrainingMonitor, replay_age_metrics
 from sheeprl_tpu_torch.obs.health import StepHealth, health_enabled
 from sheeprl_tpu_torch.rollout import PipelinedPlayer, rollout_metrics
@@ -272,6 +274,7 @@ def run_sac_loop(
         aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
         aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
         ckpt_manager = CheckpointManager(Path(log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+        guard = TrainingGuard(cfg, log_dir)
         ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
 
         policy_steps_per_iter = num_envs
@@ -395,9 +398,8 @@ def run_sac_loop(
                 aggregator.reset()
                 last_log = policy_step
 
-            if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
-                iter_num == num_iters and cfg.checkpoint.save_last
-            ):
+            def save_ckpt() -> str:
+                nonlocal last_path, last_checkpoint
                 state = {
                     "params": agent.state_dict(),
                     "opt_state": opt_states,
@@ -413,6 +415,13 @@ def run_sac_loop(
                         state["rb"] = rb.state_dict()
                     last_path = str(ckpt_manager.save(policy_step, state))
                 last_checkpoint = policy_step
+                return last_path
+
+            if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
+                iter_num == num_iters and cfg.checkpoint.save_last
+            ):
+                save_ckpt()
+            guard.boundary(policy_step, save_ckpt)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:

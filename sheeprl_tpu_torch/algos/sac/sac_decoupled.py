@@ -23,10 +23,11 @@ process, each launching on a CUDA stream of its own (``algos/decoupled.py``); wi
   as a block per item (the coupled entry's update: ``sac.py::sac_parts``), publishes a
   copy of the actor (``publish.publish``: the copy and an event on the learner's stream),
   drains the metrics at the log cadence and writes the checkpoints in the reference's
-  layout, ``rb`` only from the player's snapshot.
+  layout, ``rb`` only from the player's snapshot, then ends the iteration at the training
+  guard's boundary (``fault/guard.py``), whose preemption checkpoint holds everything
+  but ``rb``, as the reference's.
 
-Not ported: the reference's training guard and its emergency save (``fault.autoresume``
-is refused), its flight recorder, strict mode and monitor (refused).
+Not ported: the reference's strict mode (refused).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -55,6 +56,7 @@ from sheeprl_tpu_torch.data.device_buffer import make_transition_dispatcher
 from sheeprl_tpu_torch.distributed.placement import placement_from_cfg
 from sheeprl_tpu_torch.distributed.publish import adopt, evict_and_put, make_stamp, publish, staleness_steps, take_newest_ready
 from sheeprl_tpu_torch.distributed.transport import maybe_digest
+from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.rollout import PipelinedPlayer
 from sheeprl_tpu_torch.utils.env import make_vector_env
 from sheeprl_tpu_torch.obs import TrainingMonitor
@@ -103,6 +105,7 @@ def main(ctx, cfg) -> TrainResult:
         aggregator.keep(set(AGGREGATOR_KEYS) | set(cfg.metric.aggregator.get("metrics", {})))
         agg_lock = threading.Lock()  # the player records episode stats, the learner reads and resets
         ckpt_manager = CheckpointManager(Path(log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+        guard = TrainingGuard(cfg, log_dir)
         ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
 
         num_iters = max(int(cfg.algo.total_steps) // num_envs, 1) if not cfg.dry_run else 1
@@ -254,21 +257,30 @@ def main(ctx, cfg) -> TrainResult:
                     monitor.log_metrics(logger, metrics, policy_step)
                     last_log = policy_step
 
-                if item["ckpt"] is not None:
-                    state: Dict[str, Any] = {
+                def save_ckpt(snapshot: Optional[Dict[str, Any]] = None) -> str:
+                    """The learner's state with the player's ``snapshot`` (``ratio``, and
+                    ``rb`` with ``buffer.checkpoint``). Without one, the preemption's, as the
+                    reference's: the ratio's state is plain numbers, safe to read across the
+                    threads, and ``rb``, which has no coherent snapshot off the player's
+                    thread, is left out (a resume does without)."""
+                    nonlocal last_path, last_checkpoint
+                    state = {
                         "params": agent.state_dict(),
                         "opt_state": opt_states,
-                        "ratio": item["ckpt"]["ratio"],
+                        **(snapshot or {"ratio": ratio.state_dict()}),
                         "iter_num": iter_num,
                         "policy_step": policy_step,
                         "last_log": last_log,
                         "last_checkpoint": policy_step,
                         "cumulative_grad_steps": grad_count,
                     }
-                    if "rb" in item["ckpt"]:
-                        state["rb"] = item["ckpt"]["rb"]
                     last_path = str(ckpt_manager.save(policy_step, state))
                     last_checkpoint = policy_step
+                    return last_path
+
+                if item["ckpt"] is not None:
+                    save_ckpt(item["ckpt"])
+                guard.boundary(policy_step, save_ckpt)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds = time.perf_counter() - run_start

@@ -13,8 +13,13 @@ sheeprl_tpu_torch.registration checkpoint_path=<ckpt>`` registers a checkpoint i
 model registry. The train and eval entries run on ``device`` (``cuda`` unless
 ``device=cpu`` is given). An exception that escapes a train entry dumps the run's flight
 recorder (``<log_dir>/blackbox/``, ``obs/flight_recorder.py``) before it propagates; a
-graceful preemption does not. Not ported: autoresume under the fault policy, the compile
-cache and the race detector.
+graceful preemption does not.
+
+For each job the train entry installs the SIGTERM/SIGINT handlers (the process's own put
+back after it) and the chaos schedule (``fault/``). A preemption ends a run at its loop's boundary with a checkpoint
+and the ``PREEMPTED`` marker and exits 75; with ``fault.autoresume=True`` the job runs
+again from that checkpoint instead, and a retryable crash from the newest valid one
+(``_run_with_autoresume``). Not ported: the compile cache and the race detector.
 """
 
 from __future__ import annotations
@@ -108,8 +113,12 @@ def run_algorithm(cfg: DotDict) -> Any:
         from sheeprl_tpu_torch.algos.p2e import load_exploration_config
 
         load_exploration_config(cfg)
-    ctx = make_run_context(cfg)
+    # the chaos schedule, parsed (and its grammar checked) before the run
+    from sheeprl_tpu_torch.fault import chaos as fault_chaos
     from sheeprl_tpu_torch.fault.preemption import Preempted
+
+    fault_chaos.install(cfg)
+    ctx = make_run_context(cfg)
     from sheeprl_tpu_torch.obs import flight_recorder
     from sheeprl_tpu_torch.obs import perf as obs_perf
 
@@ -169,8 +178,64 @@ def run(args: Optional[List[str]] = None) -> Any:
         check_configs(cfg)
         if os.environ.get("SHEEPRL_TPU_QUIET", "0") != "1":
             print_config(cfg)
-        results.append(run_algorithm(cfg))
+        results.append(_run_with_autoresume(cfg))
     return results if multirun else results[0]
+
+
+def _run_with_autoresume(cfg: DotDict) -> Any:
+    """Run one job under the fault policy (the ``fault`` group), with SIGTERM/SIGINT
+    setting the sticky flag every loop polls at its boundary for the job's duration;
+    returns what the entry returns.
+
+    Without ``fault.autoresume``: a graceful preemption exits with the resumable code 75
+    after a line naming the checkpoint to resume from; any other exception propagates.
+    With it: a preemption resumes at once from its boundary checkpoint, and a retryable
+    crash from the newest valid checkpoint after a bounded exponential backoff, at most
+    ``fault.max_retries`` times; a deterministic failure (``fault/classify.py``)
+    propagates. The in-process counterpart of ``python -m sheeprl_tpu_torch.supervise``,
+    which alone survives SIGKILL and the out-of-memory killer."""
+    import time
+
+    from sheeprl_tpu_torch.fault import classify as fault_classify
+    from sheeprl_tpu_torch.fault import counters as fault_counters
+    from sheeprl_tpu_torch.fault import preemption as fault_preemption
+    from sheeprl_tpu_torch.fault.supervisor import backoff_seconds, fault_cfg, find_resume_checkpoint, run_dir_for
+
+    f_cfg = fault_cfg(cfg)
+    autoresume = bool(f_cfg.get("autoresume", False))
+    max_retries = int(f_cfg.get("max_retries", 3))
+    retries = 0
+    with fault_preemption.signal_handlers(grace_seconds=f_cfg.get("grace_seconds", 0)):
+        while True:
+            try:
+                return run_algorithm(cfg)
+            except fault_preemption.Preempted as p:
+                if not autoresume:
+                    print(f"preempted at step {p.step}; resumable checkpoint: {p.ckpt_path or 'none'} "
+                          f"(exit {fault_preemption.RESUMABLE_EXIT_CODE})", file=sys.stderr)
+                    raise SystemExit(fault_preemption.RESUMABLE_EXIT_CODE)
+                fault_preemption.clear_preemption()
+                fault_counters.bump("Fault/restarts")
+                resume = p.ckpt_path or find_resume_checkpoint(run_dir_for(cfg))
+                print(f"fault.autoresume: preempted at step {p.step}; resuming" + (f" from {resume}" if resume else " from scratch"),
+                      file=sys.stderr)
+            except Exception as exc:
+                if not autoresume:
+                    raise
+                if fault_classify.classify_exception(exc) == fault_classify.FATAL:
+                    print(f"fault.autoresume: {type(exc).__name__} is deterministic; not retrying", file=sys.stderr)
+                    raise
+                retries += 1
+                if retries > max_retries:
+                    print(f"fault.autoresume: exceeded fault.max_retries={max_retries}", file=sys.stderr)
+                    raise
+                fault_counters.bump("Fault/restarts")
+                delay = backoff_seconds(retries, float(f_cfg.get("backoff_s", 2.0)), float(f_cfg.get("backoff_max_s", 60.0)))
+                print(f"fault.autoresume: {type(exc).__name__}; retry {retries}/{max_retries} in {delay:.1f}s", file=sys.stderr)
+                time.sleep(delay)
+                resume = find_resume_checkpoint(run_dir_for(cfg))
+            if resume:
+                cfg.checkpoint.resume_from = str(resume)
 
 
 def eval_algorithm(cfg: DotDict) -> Any:

@@ -31,9 +31,11 @@ refills its replay shard from nothing.
 The learner writes a summary to ``SHEEPRL_TPU_SEBULBA_SUMMARY`` when it ends, also on a
 crash: counts, the gradient-step trace, the channels' lifecycle events, and here also
 the publications' host and send times, the staleness, and each process's kernel launch
-counts and peak device memory. A forwarded SIGTERM ends the learner at its next message
-with a checkpoint and exit 75 (``fault/preemption.py``). Not ported: the reference's
-flight recorder, monitor, fleet exporter and span tracer (``obs.*`` is refused by name).
+counts and peak device memory. The learner ends each message at the training guard's
+boundary (``fault/guard.py``): a forwarded SIGTERM ends it there with a checkpoint, the
+``PREEMPTED`` marker and ``Preempted``, which its train entry turns into exit 75. Not
+ported: the reference's flight recorder, monitor, fleet exporter and span tracer
+(``obs.*`` is refused by name).
 """
 
 from __future__ import annotations
@@ -692,14 +694,14 @@ def _learner_loop(
     from sheeprl_tpu_torch.algos.loop_common import TrainResult
     from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
     from sheeprl_tpu_torch.config.core import save_config
-    from sheeprl_tpu_torch.fault.preemption import RESUMABLE_EXIT_CODE, install_signal_handlers, preemption_requested
+    from sheeprl_tpu_torch.fault.guard import TrainingGuard
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 
-    install_signal_handlers(grace_seconds=(cfg.get("fault") or {}).get("grace_seconds", 0))
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")
     logger = get_logger(cfg, log_dir)
     ckpt_manager = CheckpointManager(Path(log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+    guard = TrainingGuard(cfg, log_dir)
     device = ctx.device
 
     listener = Listener(spec.host, spec.port)
@@ -726,10 +728,9 @@ def _learner_loop(
         return last_path
 
     def boundary():
-        # the signal half of preemption: a forwarded SIGTERM ends the learner with a checkpoint
-        if preemption_requested():
-            save_ckpt()
-            raise SystemExit(RESUMABLE_EXIT_CODE)
+        # the training guard: a forwarded SIGTERM ends the learner with a checkpoint, the
+        # PREEMPTED marker and Preempted, which the train entry turns into exit 75
+        guard.boundary(policy_step, save_ckpt)
 
     error: Optional[Dict[str, Any]] = None
     try:

@@ -43,6 +43,7 @@ counters), ``update``/``iter_num``, ``policy_step``, ``last_log`` and
 
 from __future__ import annotations
 
+import functools
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -63,6 +64,7 @@ from sheeprl_tpu_torch.engine.population import (
 )
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.batched import make_batched_env
+from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.obs import TrainingMonitor
 from sheeprl_tpu_torch.obs.health import health_enabled
 from sheeprl_tpu_torch.utils.graphs import StepGraph
@@ -440,7 +442,8 @@ def coef_table(cfg, clip0: float, ent0: float, num_updates: int, device: Any) ->
 
 class _Run:
     """What the two entries share: the log dir, logger, timer, aggregator, checkpoints,
-    the drained log window and the population's static rows."""
+    the training guard (``fault/guard.py``), the drained log window and the population's
+    static rows."""
 
     def __init__(self, ctx, cfg, aggregator_keys, pop):
         self.ctx, self.cfg, self.pop = ctx, cfg, pop
@@ -452,6 +455,7 @@ class _Run:
         self.aggregator = make_aggregator(cfg.metric.aggregator.get("metrics", {}), disabled=cfg.metric.get("log_level", 1) == 0)
         self.aggregator.keep(set(aggregator_keys) | set(cfg.metric.aggregator.get("metrics", {})))
         self.ckpt_manager = CheckpointManager(Path(self.log_dir) / "checkpoints", keep_last=cfg.checkpoint.keep_last)
+        self.guard = TrainingGuard(cfg, self.log_dir)
         self.futures = AnakinFutures()
         self.policy_step, self.last_log, self.last_checkpoint = 0, 0, 0
         self.last_path: Optional[str] = None
@@ -477,13 +481,14 @@ class _Run:
         self.aggregator.reset()
         self.last_log = self.policy_step
 
-    def save(self, members: Sequence[Any], counters: Dict[str, int], carry_of: Callable[[Any], Dict[str, Any]]) -> None:
+    def save(self, members: Sequence[Any], counters: Dict[str, int], carry_of: Callable[[Any], Dict[str, Any]]) -> str:
         carries = [carry_of(m) for m in members]
         carry = stack_members(carries) if self.pop.enabled else carries[0]
         state = {"carry": carry, **counters, "policy_step": self.policy_step, "last_log": self.last_log, "last_checkpoint": self.policy_step}
         with self.monitor.phase("checkpoint"):
             self.last_path = str(self.ckpt_manager.save(self.policy_step, state))
         self.last_checkpoint = self.policy_step
+        return self.last_path
 
     def load(self) -> Optional[Dict[str, Any]]:
         path = self.cfg.checkpoint.get("resume_from")
@@ -571,10 +576,12 @@ def ppo_anakin(ctx, cfg) -> TrainResult:
             grad_steps += fns.grad_steps_per_update
             if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or update == num_updates or cfg.dry_run):
                 run.log({} if sweeps_lr else {"Params/lr": fns.lr_at(update * fns.grad_steps_per_update)})
+            save_ckpt = functools.partial(run.save, members, {"update": update}, PPOAnakin.carry)
             if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (
                 update == num_updates and cfg.checkpoint.save_last
             ):
-                run.save(members, {"update": update}, PPOAnakin.carry)
+                save_ckpt()
+            run.guard.boundary(run.policy_step, save_ckpt)
         _sync(ctx.device)
     finally:
         run.monitor.close()
@@ -866,15 +873,20 @@ def sac_anakin(ctx, cfg) -> TrainResult:
             iter_num += steps
             grad_steps += steps * gps
 
+        def save_ckpt() -> str:
+            return run.save(members, {"iter_num": iter_num}, lambda mb: mb.carry(with_ring))
+
         def boundary(final: bool) -> None:
             if run.logger is not None and (run.policy_step - run.last_log >= cfg.metric.log_every or final or cfg.dry_run):
                 run.log({"Params/replay_ratio": grad_per_step} if run.policy_step > 0 else {})
             if (cfg.checkpoint.every > 0 and run.policy_step - run.last_checkpoint >= cfg.checkpoint.every) or (final and cfg.checkpoint.save_last):
-                run.save(members, {"iter_num": iter_num}, lambda mb: mb.carry(with_ring))
+                save_ckpt()
+            run.guard.boundary(run.policy_step, save_ckpt)
 
         # the prefill: one dispatch of uniform random actions (a resumed run keeps its policy and skips it)
         if prefill_steps > 0 and iter_num < prefill_steps and not resumed:
             dispatch(prefill_steps - iter_num, False)
+            run.guard.boundary(run.policy_step, save_ckpt)
         while iter_num < num_iters:
             dispatch(min(steps_per_dispatch, num_iters - iter_num), True)
             boundary(iter_num >= num_iters)

@@ -1,5 +1,17 @@
-"""Fault handling (counterpart of ``sheeprl_tpu/fault``): the signal half of graceful
-preemption (``preemption.py``), which the policy server and the Sebulba learner end on,
-the chaos harness's Sebulba actor kill (``chaos.py``) and the supervisor's helpers that
-the Sebulba launcher uses (``supervisor.py``) and the ``Fault/*`` counters that every
-metric flush folds in (``counters.py``)."""
+"""Fault tolerance (counterpart of ``sheeprl_tpu/fault``):
+
+* ``preemption``: SIGTERM/SIGINT set a sticky flag that every training loop polls at its
+  safe boundary; the ``PREEMPTED`` marker and exit code 75;
+* ``guard``: ``TrainingGuard``, the boundary hook each loop calls once per update (chaos
+  faults, then the final checkpoint, the marker and ``Preempted``);
+* ``supervisor``: ``python -m sheeprl_tpu_torch.supervise`` relaunches a crashed or
+  preempted run from the newest valid checkpoint; ``fault.autoresume=True`` does the
+  same in process (``cli.run``);
+* ``classify``: the retry/fatal matrix;
+* ``chaos``: the seeded fault schedule (kill, corrupt, delay at step N; the Sebulba
+  actor kill);
+* ``counters``: the ``Fault/*`` counters that every metric flush folds in.
+
+Not ported: the env pool's worker fault (``chaos.worker_fault_at_step``, refused by
+name) and the serving fleet's supervisor (``serve.fleet.enabled``).
+"""

@@ -103,7 +103,7 @@ def test_composed_anakin_keys_equal_the_reference(exp):
         (["exp=ppo_anakin", *CUTS["ppo_anakin"], "env.jax.env_id=gymnax:CartPole-v1"], "env.jax.env_id"),
         (["exp=ppo", "env=discrete_dummy", "algo.mlp_keys.encoder=[state]", "algo.anakin=True"], "algo.anakin"),
         (["exp=ppo_anakin", *CUTS["ppo_anakin"], "obs.fleet.dir=fleet"], "obs.fleet.dir"),
-        (["exp=sac_anakin", *CUTS["sac_anakin"], "+fault.autoresume=True"], "fault.autoresume"),
+        (["exp=sac_anakin", *CUTS["sac_anakin"], "chaos.worker_fault_at_step=3"], "chaos.worker_fault_at_step"),
     ],
 )
 def test_refusals_name_their_key(tmp_path, overrides, key):

@@ -115,7 +115,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.envs.wrappers",
     "sheeprl_tpu_torch.fault",
     "sheeprl_tpu_torch.fault.chaos",
+    "sheeprl_tpu_torch.fault.classify",
     "sheeprl_tpu_torch.fault.counters",
+    "sheeprl_tpu_torch.fault.guard",
     "sheeprl_tpu_torch.fault.preemption",
     "sheeprl_tpu_torch.fault.supervisor",
     "sheeprl_tpu_torch.models.blocks",
@@ -140,6 +142,7 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.precision.quantize",
     "sheeprl_tpu_torch.registration",
     "sheeprl_tpu_torch.sebulba",
+    "sheeprl_tpu_torch.supervise",
     "sheeprl_tpu_torch.rollout",
     "sheeprl_tpu_torch.rollout.pipeline",
     "sheeprl_tpu_torch.rollout.pool",

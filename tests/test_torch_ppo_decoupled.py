@@ -34,6 +34,7 @@ import torch
 
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from tests.test_torch_sac_decoupled import Recorder, bounded, player_threads
+from tests.torch_fault_common import clean_fault_state  # noqa: F401  (an autouse fixture: no Fault/* counter leaks in)
 
 TINY = ["algo.rollout_steps=8", "algo.per_rank_batch_size=8", "algo.update_epochs=2", "algo.dense_units=8", "algo.mlp_layers=1",
         "algo.total_steps=64", "env.num_envs=2", "env.sync_env=True", "env.capture_video=False", "checkpoint.every=32",
@@ -314,7 +315,7 @@ def test_decoupled_entries_run_with_the_observability_keys(tmp_path, monkeypatch
         ("sac_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("ppo_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("sac_decoupled", "+analysis.strict=True", r"analysis\.strict"),
-        ("ppo_decoupled", "+fault.autoresume=True", r"fault\.autoresume"),
+        ("ppo_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("ppo_decoupled", "buffer.memmap=True", r"buffer\.memmap"),
         ("sac_decoupled", "+mesh.data=2", r"mesh\.data"),
         ("ppo_decoupled", "+mesh.devices=4", r"mesh\.devices"),

@@ -94,7 +94,7 @@ def test_config_checks_match_the_reference(overrides, refused):
         ("sac", "algo.anakin=True", r"algo\.anakin"),
         ("sac", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("sac", "+analysis.strict=True", r"analysis\.strict"),
-        ("sac", "+fault.autoresume=True", r"fault\.autoresume"),
+        ("sac", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("sac", "+mesh.data=2", r"mesh\.data"),
         ("sac", "buffer.store_dtype=bf16", r"buffer\.store_dtype"),
         ("sac", "algo.precision=fp16", r"algo\.precision"),

@@ -25,6 +25,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.decoupled import PlayerThread, StreamFence
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+from tests.torch_fault_common import clean_fault_state  # noqa: F401  (an autouse fixture: no Fault/* counter leaks in)
 
 TINY = ["algo.hidden_size=8", "algo.per_rank_batch_size=4", "algo.learning_starts=8", "algo.total_steps=32", "buffer.size=32",
         "env.num_envs=2", "env.sync_env=True", "env.capture_video=False", "checkpoint.every=16", "metric.log_every=16",
@@ -103,6 +104,17 @@ def ckpt_summary(run_dir, manager=CheckpointManager):
         out[path.name] = {"keys": sorted(state), "rb": sorted(state["rb"]), "ratio": sorted(state["ratio"]),
                           **{k: int(state[k]) for k in ("iter_num", "policy_step", "cumulative_grad_steps", "last_checkpoint")}}
     return out
+
+
+def test_a_reference_fault_counter_left_by_an_earlier_test_is_reset():
+    """What a reference fault test leaves in its worker (its ``Fault/*`` counters are
+    process-global, and the reference's monitor folds them into every flush): the
+    comparison below runs after this test in the same process, and ``clean_fault_state``
+    resets the counter between them."""
+    from sheeprl_tpu.fault.counters import bump, fault_metrics
+
+    bump("Fault/preemptions")
+    assert fault_metrics() == {"Fault/preemptions": 1}
 
 
 def test_counts_checkpoints_and_metric_names_match_the_reference(tmp_path, monkeypatch, port_log):

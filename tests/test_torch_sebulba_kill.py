@@ -7,12 +7,14 @@
   and the run exits 0;
 * with ``distributed.max_actor_respawns=0`` the killed slot is abandoned: the launcher
   tells the learner, which ends cleanly on the other actor's blocks;
-* a SIGTERM to the launcher reaches the learner, which ends with a checkpoint and exit
-  75 (the signal half of preemption), and the launcher exits with its code."""
+* a SIGTERM to the launcher reaches the learner, which ends at the training guard with a
+  checkpoint, the ``PREEMPTED`` marker and exit 75, and the launcher exits with its code."""
 
+import json
 import os
 import signal
 import time
+from pathlib import Path
 
 import pytest
 
@@ -72,5 +74,9 @@ def test_sigterm_ends_the_learner_with_a_checkpoint_and_exit_75(tmp_path):
     rc, out = run.wait(timeout=60)
     assert rc == 75, out[-4000:]
     s = summary(tmp_path / "summary.json")
-    assert s["error"]["type"] == "SystemExit" and s["checkpoint"].endswith(f"ckpt_{s['policy_step']}")
+    # the learner ends at the training guard's boundary (Preempted, which its train entry
+    # turns into exit 75), as the reference's learner does, with the PREEMPTED marker
+    assert s["error"]["type"] == "Preempted" and s["checkpoint"].endswith(f"ckpt_{s['policy_step']}")
     assert os.path.isdir(s["checkpoint"]) and "learner exited rc=75" in out
+    marker = json.loads((Path(s["checkpoint"]).parent.parent / "PREEMPTED").read_text())
+    assert marker["step"] == s["policy_step"] and marker["resume_from"] == s["checkpoint"] and marker["signal"] == "SIGTERM"

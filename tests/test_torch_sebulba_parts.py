@@ -319,9 +319,9 @@ def test_actor_fault_kills_a_real_child_by_sigkill():
 @pytest.mark.parametrize(
     "exp,override,pattern",
     [
-        ("sac_decoupled", "chaos.kill_at_step=3", r"chaos\.kill_at_step=3 asks for the chaos harness's process kill"),
-        ("ppo_decoupled", "chaos.corrupt_ckpt_at_step=3", r"chaos\.corrupt_ckpt_at_step"),
-        ("ppo_dummy", "chaos.delay_at_step=3", r"chaos\.delay_at_step"),
+        ("sac_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step=3 asks for the chaos harness's env-pool worker fault"),
+        ("ppo_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
+        ("ppo_dummy", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("sac", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("ppo_dummy", "distributed.mode=sebulba", r"distributed\.mode='sebulba': the ppo loop has no player/learner split"),
         ("sac", "distributed.mode=sebulba", r"distributed\.mode='sebulba': the sac loop has no player/learner split"),
