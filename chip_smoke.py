@@ -210,12 +210,25 @@ result line:
    ``python -m sheeprl_tpu_torch.supervise`` on a DreamerV3-S run whose newest checkpoint
    is corrupted and whose child is SIGKILLed: rc -9 then 0, the relaunch from the
    checkpoint before the corrupted one, each child's K1 launches (``LAUNCH_HOOK``); the
-   ``[fault-counts]`` line.
+   ``[fault-counts]`` line. The env pool's phases, one in each of the three lightest
+   workers: ``[pool]`` (Sebulba worker), the port's ``EnvPool`` at 1, 4 and 8 workers and
+   the one-process-per-env vector env, each against the in-process ``SyncVectorEnv`` bit
+   for bit over 256 steps of 8 DreamerV3-S dummy envs that cross episode ends
+   (``POOL_ENVS``), their env steps/s and start seconds, and no worker with CUDA
+   initialised; ``[pool-dv3-cli]`` (train-cli worker), ``[train-cli]``'s run on the pool (2
+   workers) with ``rollout.pipeline_depth=1``: train, resume, eval, K1-bwd = 64 x
+   (gradient steps + 2), K1-fwd the plan's plus at least one a policy-driven player step,
+   ``Rollout/*`` as logged; ``[pool-fault]`` (Anakin worker), the chaos worker fault
+   (crash, then hang past a 5 s step timeout) on a pooled dense PPO run
+   (``POOL_FAULT``): one restart each and the schedule's counts, then
+   ``rollout.max_restarts=0`` through ``python -m sheeprl_tpu_torch``: a non-zero exit,
+   ``RolloutAbortError`` and a blackbox holding ``rollout_abort``; the ``[pool-counts]``
+   line.
 
 The K1 rows of phase 2 include DreamerV2's (16, 600) and (800, 600) and DreamerV3-XL's
 (16, 4096) and (1024, 4096). Every path (eval,
-batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, the Anakin phases, rssm-scan) zeroes
-the kernels' launch counters just before it and reads them just after (a Sebulba
+batched, train, train-cli, the DreamerV2, DreamerV1, P2E, PPO- and SAC-family phases, the decoupled entries', every serve tier, the Anakin phases, rssm-scan,
+the pooled runs) zeroes the kernels' launch counters just before it and reads them just after (a Sebulba
 process's counters start at zero with the process: the learner's summary carries its
 own and each actor's); a replayed graph
 adds its capture's counts on every replay (``utils/graphs.py``). The script then prints
@@ -4267,6 +4280,246 @@ def phase_fault_anakin(device: torch.device, workdir: Path) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------- the env pool
+# [pool]: DreamerV3-S's dummy env (rgb 3 x 64 x 64; episodes of 41 steps) x 8, stepped 256 times
+POOL_ENVS = [*TRAIN_OVERRIDES, "env.num_envs=8", "env.wrapper.n_steps=40", "env.capture_video=False"]
+POOL_STEPS = 256
+POOL_WORKERS = (1, 4, 8)
+# [pool-dv3-cli]: [train-cli]'s run on the pool, 2 workers, the player one step ahead
+POOL_DV3_CLI = ["env.pool.enabled=True", "env.pool.num_workers=2", "rollout.pipeline_depth=1"]
+# [pool-fault]: dense PPO on the discrete dummy env, 4 envs on 2 pool workers; 4 updates of
+# 2 epochs x 2 minibatches; worker 1 faults at its 40th step (the second update)
+POOL_FAULT = ["exp=ppo_dummy", "env=discrete_dummy", "env.num_envs=4", "algo.rollout_steps=32", "algo.update_epochs=2",
+              "algo.per_rank_batch_size=64", "algo.total_steps=512", "env.pool.enabled=True", "env.pool.num_workers=2",
+              "chaos.worker_fault_at_step=40", "chaos.worker_index=1", "rollout.restart_backoff_s=0", "checkpoint.every=0",
+              "checkpoint.save_last=True", "algo.run_test=False", "metric.log_every=128"]
+POOL_HANG_TIMEOUT_S = 5  # the hang drill's rollout.step_timeout_s
+
+
+class _CudaProbe:
+    """An env thunk whose env's reset info says whether its process has initialised CUDA
+    and its pid: a pool worker must not touch the card."""
+
+    def __init__(self, thunk):
+        self.thunk = thunk
+
+    def __call__(self):
+        from sheeprl_tpu_torch.envs import core
+
+        class Probe(core.Wrapper):
+            def reset(self, *, seed=None, options=None):
+                obs, info = self.env.reset(seed=seed, options=options)
+                return obs, {**info, "cuda_initialized": torch.cuda.is_initialized(), "pid": os.getpid()}
+
+        return Probe(self.thunk())
+
+
+def _same_vector_info(a: dict, b: dict, path: str = "info") -> None:
+    """Two batched infos equal: keys, masks, values and dtypes, ``final_obs`` observation by
+    observation; the episode statistics' wall time left out."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{path}: keys {sorted(a)} against {sorted(b)}")
+    for k in b:
+        if k in ("t", "_t") and path.endswith("episode"):
+            continue
+        if k == "final_obs":
+            for x, y in zip(a[k], b[k]):
+                if (x is None) != (y is None) or (y is not None and any(not np.array_equal(x[kk], y[kk]) or np.asarray(x[kk]).dtype
+                                                                       != np.asarray(y[kk]).dtype for kk in y)):
+                    raise AssertionError(f"{path}.final_obs differs")
+        elif isinstance(b[k], dict):
+            _same_vector_info(a[k], b[k], f"{path}.{k}")
+        elif np.asarray(a[k]).dtype != np.asarray(b[k]).dtype or not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{path}.{k}: {a[k]} against {b[k]}")
+
+
+def _same_vector_step(a: tuple, b: tuple, what: str) -> None:
+    """Two vector envs' steps (or resets) equal bit for bit."""
+    if sorted(a[0]) != sorted(b[0]) or any(a[0][k].dtype != b[0][k].dtype or not np.array_equal(a[0][k], b[0][k]) for k in b[0]):
+        raise AssertionError(f"{what}: observations differ")
+    for x, y in zip(a[1:-1], b[1:-1]):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: rewards or flags differ")
+    _same_vector_info(a[-1], b[-1], f"{what} info")
+
+
+def _drive_vector_env(envs, actions: np.ndarray, seed: int) -> tuple:
+    """Reset with ``seed`` and step ``actions``; the outputs and the steps' seconds."""
+    outs = [envs.reset(seed=seed)]
+    start = time.perf_counter()
+    for a in actions:
+        o, r, term, trunc, info = envs.step(a)
+        outs.append(({k: v.copy() for k, v in o.items()}, r, term, trunc, info))
+    return outs, time.perf_counter() - start
+
+
+def phase_pool(device: torch.device, workdir: Path) -> dict:
+    """The env pool on the card's host against the in-process vector env: 8 DreamerV3-S
+    dummy envs (rgb 3 x 64 x 64), 256 steps that cross episode ends, with the same
+    actions; the pool at 1, 4 and 8 workers and the one-process-per-env vector env each
+    equal to the sync env bit for bit (observations, rewards, flags, infos). Env steps/s of
+    each, each constructor's seconds (a pool's: its workers spawned and ready; one
+    worker's is a worker's start), and a worker's CUDA state (none may initialise it)."""
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.envs.vector import AsyncVectorEnv, SyncVectorEnv
+    from sheeprl_tpu_torch.rollout.pool import EnvPool
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(overrides=[*POOL_ENVS, f"device={device.type}"])
+    n = int(cfg.env.num_envs)
+    thunks = [make_env(cfg, cfg.seed + i, 0, vector_env_idx=i) for i in range(n)]
+    start = time.perf_counter()
+    sync = SyncVectorEnv(thunks)
+    rows = {"sync": {"start_s": time.perf_counter() - start}}
+    actions = np.random.default_rng(0).integers(0, sync.single_action_space.n, size=(POOL_STEPS, n))
+    ref, rows["sync"]["seconds"] = _drive_vector_env(sync, actions, cfg.seed)
+    sync.close()
+    ends = sum("final_obs" in out[-1] for out in ref[1:])
+    if ends == 0:
+        raise AssertionError("[pool] no episode ended in the sync env's run")
+    makers = {"async": lambda: AsyncVectorEnv(thunks), **{f"pool_{w}": (lambda w=w: EnvPool(thunks, num_workers=w)) for w in POOL_WORKERS}}
+    for name, make in makers.items():
+        start = time.perf_counter()
+        envs = make()
+        rows[name] = {"start_s": time.perf_counter() - start}
+        try:
+            outs, rows[name]["seconds"] = _drive_vector_env(envs, actions, cfg.seed)
+            if name.startswith("pool_"):
+                rows[name]["rollout"] = envs.rollout_metrics()
+        finally:
+            envs.close()
+        for t, (a, b) in enumerate(zip(outs, ref)):
+            _same_vector_step(a, b, f"[pool] {name} step {t}")
+    for row in rows.values():
+        row["env_steps_per_s"] = POOL_STEPS * n / row["seconds"]
+    probe = EnvPool([_CudaProbe(t) for t in thunks[:2]], num_workers=2)
+    try:
+        _, info = probe.reset(seed=0)
+    finally:
+        probe.close()
+    if info["cuda_initialized"].any() or os.getpid() in info["pid"].tolist():
+        raise AssertionError(f"[pool] a worker initialised CUDA or ran in this process: {info}")
+    out = {"envs": n, "steps": POOL_STEPS, "episode_ends": ends, "rows": rows, "worker_cuda_initialized": False,
+           "worker_start_s": rows["pool_1"]["start_s"]}
+    log("[pool] " + json.dumps(out))
+    return out
+
+
+def _logged(module, runner):
+    """``runner()`` with ``module.get_logger`` replaced by a recorder; (its result, what was logged)."""
+    rec, real = _Recorder(), module.get_logger
+    module.get_logger = lambda cfg, log_dir: rec
+    try:
+        return runner(), rec.logged
+    finally:
+        module.get_logger = real
+
+
+def _rollout(logged: list) -> dict:
+    """The last logged ``Rollout/*`` (a test episode's reward is logged after them)."""
+    flushes = [m for _, m in logged if "Rollout/env_steps" in m]
+    return {k: v for k, v in flushes[-1].items() if k.startswith("Rollout/")} if flushes else {}
+
+
+def phase_pool_dv3_cli(device: torch.device, workdir: Path) -> dict:
+    """``[train-cli]``'s run (DreamerV3-S, 2 envs, 256 policy steps) on the env pool (2
+    workers) with the player one step ahead (``rollout.pipeline_depth=1``): train,
+    resume from ``ckpt_64``, eval. K1-bwd = 64 x (gradient steps + 2); K1-fwd the step's
+    plan x (gradient steps + 2) plus at least one a policy-driven player step; the
+    ``Rollout/*`` each run logs."""
+    import sheeprl_tpu_torch.algos.dreamer_loop as dreamer_loop
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.cli import evaluate, run
+    from sheeprl_tpu_torch.config.core import compose
+    from sheeprl_tpu_torch.utils.graphs import WARMUP_STEPS
+
+    set_tf32(True)
+    tag = "[pool-dv3-cli]"
+    overrides = [*TRAIN_OVERRIDES, f"device={device.type}", f"log_root={workdir / 'logs'}", "algo.learning_starts=128",
+                 "algo.total_steps=256", "checkpoint.every=64", "metric.log_every=64", *POOL_DV3_CLI]
+    plan = k1_per_step(compose(overrides=overrides), is_continuous=False)
+    out = {}
+    for name in ("train", "resume"):
+        if name == "resume":
+            mid = next(p for p in CheckpointManager(Path(out["log_dir"]) / "checkpoints").list_checkpoints() if p.name == "ckpt_64")
+            overrides = [*overrides, f"checkpoint.resume_from={mid}"]
+        zero_launches()
+        result, logged = _logged(dreamer_loop, lambda: run(overrides))
+        fwd, bwd = launches()
+        # the player acts with the policy after the prefill (its 64 iterations), and from the first iteration when resumed
+        calls = 256 // 2 - (64 if name == "train" else 32)
+        steps = result.policy_steps - (0 if name == "train" else 64)
+        rollout = _rollout(logged)
+        if (result.grad_steps <= 0 or bwd != plan["bwd"] * (result.grad_steps + WARMUP_STEPS)
+                or fwd - plan["fwd"] * (result.grad_steps + WARMUP_STEPS) < calls or result.checkpoint is None
+                or rollout.get("Rollout/num_workers") != 2.0 or rollout.get("Rollout/worker_restarts") != 0.0
+                or rollout.get("Rollout/env_steps") != steps // 2):
+            raise AssertionError(f"{tag} {name}: {result.grad_steps} gradient steps, launches (fwd, bwd) = {(fwd, bwd)}, "
+                                 f"{calls} player calls, Rollout/* {rollout}, checkpoint {result.checkpoint}")
+        out[name] = {"grad_steps": result.grad_steps, "fwd": fwd, "bwd": bwd, "player_calls": calls,
+                     "player_fwd": fwd - plan["fwd"] * (result.grad_steps + WARMUP_STEPS), "policy_steps_per_s": steps / result.seconds,
+                     "seconds": result.seconds, "train_seconds": result.train_seconds, "env_seconds": result.env_seconds, "rollout": rollout}
+        out["log_dir"] = result.log_dir
+        log(f"{tag} {name}: {steps} policy steps, {result.grad_steps} gradient steps in {result.seconds:.2f} s "
+            f"({steps / result.seconds:.1f} policy steps/s), layernorm_gru launches fwd {fwd} bwd {bwd}; " + json.dumps(rollout))
+        last = result.checkpoint
+    zero_launches()
+    start = time.perf_counter()
+    ev = evaluate([f"checkpoint_path={last}", "env.capture_video=False", f"log_root={workdir / 'logs'}"])
+    fwd, bwd = launches()
+    if fwd != ev.steps or bwd != 0 or not math.isfinite(ev.reward):
+        raise AssertionError(f"{tag} eval: {ev.steps} steps, launches {(fwd, bwd)}, reward {ev.reward}")
+    out["eval"] = {"steps": ev.steps, "fwd": fwd}
+    log(f"{tag} eval of {Path(last).name}: reward {ev.reward}, {ev.steps} player steps in {time.perf_counter() - start:.2f} s, "
+        f"layernorm_gru launches fwd {fwd}")
+    return out
+
+
+def phase_pool_fault(device: torch.device, workdir: Path) -> dict:
+    """The chaos worker fault on a pooled run (``POOL_FAULT``: dense PPO, 4 envs on 2
+    workers): worker 1 crashes (exit code 117), then in another run hangs past a
+    ``rollout.step_timeout_s`` of ``POOL_HANG_TIMEOUT_S``; each run restarts it once, logs
+    ``Rollout/worker_crashes`` or ``Rollout/worker_timeouts`` = 1 and ends at its schedule's
+    policy and gradient steps, with no K1/K2 launch. Then ``python -m sheeprl_tpu_torch``
+    with ``rollout.max_restarts=0`` exits non-zero with ``RolloutAbortError`` and leaves a
+    blackbox holding ``rollout_abort``."""
+    import sheeprl_tpu_torch.algos.ppo.ppo as ppo
+    from sheeprl_tpu_torch.config.core import compose
+
+    set_tf32(True)
+    base = [*POOL_FAULT, f"device={device.type}"]
+    cfg = compose(overrides=base)
+    per_update = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    updates = int(cfg.algo.total_steps) // per_update
+    want_grad = updates * int(cfg.algo.update_epochs) * (per_update // int(cfg.algo.per_rank_batch_size))
+    out = {}
+    for mode, extra in (("crash", []), ("hang", [f"rollout.step_timeout_s={POOL_HANG_TIMEOUT_S}"])):
+        tag = f"[pool-fault] {mode}"
+        overrides = [*base, f"chaos.worker_fault_mode={mode}", *extra, f"log_root={workdir / mode}"]
+        (result, row), logged = _logged(ppo, lambda: _entry_run(overrides, tag))
+        rollout = _rollout(logged)
+        fault = "Rollout/worker_crashes" if mode == "crash" else "Rollout/worker_timeouts"
+        if (result.policy_steps != int(cfg.algo.total_steps) or result.grad_steps != want_grad or rollout.get("Rollout/worker_restarts") != 1.0
+                or rollout.get(fault) != 1.0 or rollout.get("Rollout/env_steps") != int(cfg.algo.total_steps) // int(cfg.env.num_envs)):
+            raise AssertionError(f"{tag}: {result.policy_steps} policy steps, {result.grad_steps} gradient steps (want {want_grad}), "
+                                 f"Rollout/* {rollout}")
+        out[mode] = {**row, "rollout": rollout}
+        log(f"{tag}: Rollout/* " + json.dumps(rollout))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SHEEPRL_TPU_")}
+    env.update(SHEEPRL_TPU_QUIET="1", OMP_NUM_THREADS=str(ENTRY_THREADS))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch", *base, "chaos.worker_fault_mode=crash", "rollout.max_restarts=0",
+                           "metric.log_level=0", f"log_root={workdir / 'abort'}"], cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=300)
+    boxes = list((workdir / "abort").rglob("blackbox/events.jsonl"))
+    kinds = [json.loads(line)["kind"] for line in boxes[0].read_text().splitlines()] if boxes else []
+    if proc.returncode == 0 or "RolloutAbortError" not in proc.stderr or "rollout_abort" not in kinds:
+        raise AssertionError(f"[pool-fault] abort: rc {proc.returncode}, blackbox events {kinds}: {proc.stderr[-3000:]}")
+    out["abort"] = {"rc": proc.returncode, "seconds": time.perf_counter() - start, "events": [k for k in kinds if k.startswith("rollout_")]}
+    log("[pool-fault] abort: " + json.dumps(out["abort"]))
+    return out
+
+
 def _leaf_items(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -4318,6 +4571,9 @@ def entry_phases(device: torch.device) -> dict:
     phases["fault-dv3"] = in_tmp(phase_fault_dv3)
     phases["fault-supervise"] = in_tmp(phase_fault_supervise)
     phases["fault-anakin"] = in_tmp(phase_fault_anakin)
+    phases["pool"] = in_tmp(phase_pool)
+    phases["pool-dv3-cli"] = in_tmp(phase_pool_dv3_cli)
+    phases["pool-fault"] = in_tmp(phase_pool_fault)
     return phases
 
 
@@ -4329,12 +4585,12 @@ def entry_phases(device: torch.device) -> dict:
 ENTRY_GROUPS = (
     ("p2e-dv2-cli", "p2e-dv3-cli", "sac_decoupled_host-cli", "sac_decoupled_device-cli", "ppo_decoupled-cli", "ppo_coupled-cli",
      "fault-dv3", "dv2-train-cli-episode"),
-    ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "sebulba-sac-cli"),
+    ("train-cli", "train-cli-device", "p2e-dv1-cli", "dv2-train-cli-device", "sebulba-sac-cli", "pool-dv3-cli"),
     ("anakin-cli", "fault-anakin", *(f"{case}-cli" for case in SAC_CLI), "ppo-cli-depth0", "ppo-cli-depth1", "a2c-cli",
-     "ppo-recurrent-cli-lstm", "ppo-recurrent-cli-attention", "dv1-train-cli"),
+     "ppo-recurrent-cli-lstm", "ppo-recurrent-cli-attention", "dv1-train-cli", "pool-fault"),
     # the Sebulba phases and the supervisor's drill spawn processes of their own: this worker
     # mostly waits (sebulba-sac-cli runs in another, to keep the workers even)
-    ("sebulba-kill", "sebulba-ppo-cli", "obs", "fault-supervise"),
+    ("sebulba-kill", "sebulba-ppo-cli", "obs", "fault-supervise", "pool"),
 )
 ENTRY_TIMEOUT_S = 600  # all workers; alone they take ~140 s each
 ENTRY_THREADS = 2  # torch's CPU threads in each worker: the workers share the host's cores
@@ -4522,6 +4778,17 @@ def main() -> int:
     ak_cli = entries["anakin-cli"]
     sb_sac, sb_ppo, sb_kill = entries["sebulba-sac-cli"], entries["sebulba-ppo-cli"], entries["sebulba-kill"]
     obs = entries["obs"]
+    pool, pool_cli, pool_fault = entries["pool"], entries["pool-dv3-cli"], entries["pool-fault"]
+    log("[pool-counts] " + json.dumps({
+        "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in pool["rows"].items()},
+        "start_s": {k: r["start_s"] for k, r in pool["rows"].items()}, "worker_start_s": pool["worker_start_s"],
+        # the pooled DreamerV3-S entry at depth 1 beside [train-cli]'s (2 async envs, depth 0)
+        "dv3_policy_steps_per_s": {"pool_depth1": pool_cli["train"]["policy_steps_per_s"], "train_cli": cli["train"]["policy_steps_per_s"]},
+        "dv3_rollout": {k: pool_cli[k]["rollout"] for k in ("train", "resume")},
+        "dv3_k1": {k: {c: pool_cli[k][c] for c in ("grad_steps", "fwd", "bwd", "player_calls", "player_fwd")} for k in ("train", "resume")},
+        "fault_rollout": {k: pool_fault[k]["rollout"] for k in ("crash", "hang")},
+        "fault_seconds": {k: pool_fault[k]["seconds"] for k in ("crash", "hang", "abort")}, "abort_events": pool_fault["abort"]["events"],
+    }))
     log("[obs-counts] " + json.dumps({
         "policy_steps_per_s": {k: obs[k]["policy_steps_per_s"] for k in ("window", "enabled", "disabled")},
         "mfu": {k: obs[k]["mfu"] for k in ("window", "enabled", "disabled")},
@@ -4649,12 +4916,20 @@ def main() -> int:
         **{p: {"fwd": c["layernorm_gru"], "bwd": c["layernorm_gru_bwd"]} for p, c in sebulba_paths.items()},
         # the fault drills: each DreamerV3-S attempt and supervised child, and the Anakin runs (none)
         **fault_k1,
+        # the env pool: DreamerV3-S's entry at depth 1, and the pooled PPO fault runs (none)
+        "pool_dv3_cli": pool_cli["train"], "pool_dv3_cli_resume": pool_cli["resume"],
+        **{f"pool_fault_{m}": {"fwd": pool_fault[m]["k1_k2_launches"]["layernorm_gru"], "bwd": pool_fault[m]["k1_k2_launches"]["layernorm_gru_bwd"]}
+           for m in ("crash", "hang")},
     }
     # K2's: its one path, the scan bench, and the serving paths (none)
     k2_paths = {"rssm_scan": {"fwd": scan["launches"]["rssm_step"], "bwd": scan["launches"]["rssm_step_bwd"]},
                 **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in serve_paths.items()},
                 **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in anakin_paths.items()},
-                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in sebulba_paths.items()}, **fault_k2}
+                **{p: {"fwd": c["rssm_step"], "bwd": c["rssm_step_bwd"]} for p, c in sebulba_paths.items()}, **fault_k2,
+                # the env pool's paths (``launches`` raises where a DreamerV3 path launches K2)
+                "pool_dv3_cli": {"fwd": 0, "bwd": 0}, "pool_dv3_cli_resume": {"fwd": 0, "bwd": 0},
+                **{f"pool_fault_{m}": {"fwd": pool_fault[m]["k1_k2_launches"]["rssm_step"], "bwd": pool_fault[m]["k1_k2_launches"]["rssm_step_bwd"]}
+                   for m in ("crash", "hang")}}
     for name, source, source_line, k, n in (
         ("layernorm_gru_fwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:119", kernels, cli["train"]["fwd"]),
         ("layernorm_gru_bwd", "layernorm_gru.cu", "sheeprl_tpu/ops/gru.py:139", kernels_bwd, cli["train"]["bwd"]),
@@ -4701,7 +4976,9 @@ def main() -> int:
         + "; population env steps/s " + ", ".join(f"{n} {r['env_steps_per_s_total']:.0f}" for n, r in ak_pop.items())
         + f"; Sebulba policy steps/s sac {sb_sac['train']['policy_steps_per_s']:.1f}, ppo {sb_ppo['policy_steps_per_s']:.1f}"
         + "; obs policy steps/s " + ", ".join(f"{k} {obs[k]['policy_steps_per_s']:.1f}" for k in ("window", "enabled", "disabled"))
-        + f"; fault-dv3 kill to the resumed attempt's first gradient step {f_dv3['kill_to_first_grad_s']:.2f} s")
+        + f"; fault-dv3 kill to the resumed attempt's first gradient step {f_dv3['kill_to_first_grad_s']:.2f} s"
+        + "; env steps/s of 8 envs " + ", ".join(f"{k} {r['env_steps_per_s']:.0f}" for k, r in pool["rows"].items())
+        + f"; pool-dv3-cli policy steps/s {pool_cli['train']['policy_steps_per_s']:.1f}")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

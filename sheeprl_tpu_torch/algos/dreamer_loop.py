@@ -8,9 +8,11 @@ player's exploration schedule, ``evaluate_actor`` (the greedy test episode of th
 DreamerV1/V2 and P2E evaluations) and ``capture_step``/``make_captured_step`` (the step over static inputs, captured as a
 CUDA graph on a card by ``utils/graphs.py``, eager on the CPU).
 
-The loop, ``run_loop(ctx, cfg, setup)``: act in the vector env, store the rows, run each
-iteration's gradient steps as one block of the captured step (``utils/blocks.py``) over
-batches gathered on the device from its replay ring (``buffer.device``,
+The loop, ``run_loop(ctx, cfg, setup)``: act in the vector env (the env pool with
+``env.pool``) through the pipelined player (``PlayerActing``; at ``rollout.pipeline_depth``
+for DreamerV3), store the rows, run each iteration's gradient steps as one block of the
+captured step (``utils/blocks.py``) over batches gathered on the device from its replay
+ring (``buffer.device``,
 ``data/device_buffer.py``) or prefetched from the host buffer, log, checkpoint, resume
 and test, and end each iteration at the training guard's boundary (``fault/guard.py``:
 chaos faults, and on a preemption the final checkpoint and ``Preempted``). An algorithm
@@ -43,6 +45,8 @@ from sheeprl_tpu_torch.data.device_buffer import make_device_replay
 from sheeprl_tpu_torch.distributions import Independent, Normal
 from sheeprl_tpu_torch.fault.guard import TrainingGuard
 from sheeprl_tpu_torch.obs import TrainingMonitor, replay_age_metrics
+from sheeprl_tpu_torch.rollout.pipeline import PipelinedPlayer
+from sheeprl_tpu_torch.rollout.pool import rollout_metrics
 from sheeprl_tpu_torch.utils.env import make_env, make_vector_env
 from sheeprl_tpu_torch.utils.graphs import StepGraph, tree_tensors
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -226,6 +230,37 @@ def evaluate_actor(ctx, cfg: Dict[str, Any], ckpt_path: str, build, make_player,
     return result
 
 
+class PlayerActing:
+    """The Dreamer player as ``PipelinedPlayer``'s policy and post-processing: ``policy(obs,
+    is_first, policy_step)`` advances the player state ``state`` by one call of
+    ``player_step`` (with the exploration amount at ``policy_step`` where the algorithm
+    has one) and returns the stored action and each head's action in float32; ``post``
+    turns the fetched arrays into the env's actions (the argmax of each discrete head)
+    and the stored action. The loop swaps ``player_step`` (a P2E task player) and sets
+    ``state``'s action where it acts at random."""
+
+    def __init__(self, player_step, state: PlayerState, cnn_keys, mlp_keys, device: torch.device, generator, actions_dim, is_continuous: bool,
+                 exploration: Optional[Callable[[int], float]] = None):
+        self.player_step, self.state = player_step, state
+        self.cnn_keys, self.mlp_keys, self.device, self.generator = list(cnn_keys), list(mlp_keys), device, generator
+        self.actions_dim, self.is_continuous, self.exploration = list(actions_dim), is_continuous, exploration
+
+    @torch.no_grad()
+    def policy(self, obs: Dict[str, np.ndarray], is_first: np.ndarray, policy_step: int):
+        obs_t = prepare_obs(obs, self.cnn_keys, self.mlp_keys, len(is_first), self.device)
+        expl = {} if self.exploration is None else {"expl_amount": self.exploration(policy_step)}
+        acts, stored, self.state = self.player_step(self.state, obs_t, torch.as_tensor(is_first, device=self.device), self.generator, **expl)
+        return (stored.float(), *(a.float() for a in acts))
+
+    def post(self, fetched):
+        stored_actions, acts = fetched[0], fetched[1:]
+        if self.is_continuous:
+            return acts[0], stored_actions
+        if len(self.actions_dim) == 1:
+            return acts[0].argmax(-1), stored_actions
+        return np.stack([a.argmax(-1) for a in acts], -1), stored_actions
+
+
 class LoopParts(NamedTuple):
     """What an algorithm hands ``run_loop``."""
 
@@ -265,7 +300,8 @@ PHASES = ("player", "buffer_add", "dispatch", "env_step", "checkpoint", "drain")
 
 
 def run_loop(
-    ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS, handled: Sequence[str] = (), phases: Sequence[str] = ()
+    ctx, cfg, setup: Callable[..., LoopParts], aggregator_keys=AGGREGATOR_KEYS, handled: Sequence[str] = (), phases: Sequence[str] = (),
+    merges_rollout: bool = False,
 ) -> TrainResult:
     """The Dreamer training loop: act in the vector env, store the rows, run each
     iteration's gradient steps as one block of the captured step, log, checkpoint,
@@ -273,8 +309,16 @@ def run_loop(
     builds the algorithm's part (``LoopParts``); ``train_gen`` is the generator of the
     step's draws; ``aggregator_keys`` names the metrics the loop logs; ``handled`` the
     keys of ``refuse_unported``'s list that the algorithm reads itself; ``phases`` the
-    ``Time/phase_*`` blocks the reference's loop times (DreamerV3's: ``PHASES``)."""
+    ``Time/phase_*`` blocks the reference's loop times (DreamerV3's: ``PHASES``).
+
+    The player acts through ``rollout/pipeline.py::PipelinedPlayer``: synchronously,
+    unless ``handled`` names ``rollout.pipeline_depth`` (DreamerV3's reference reads it),
+    then at that depth: the player state advances at every policy call, and the loop
+    executes and stores the action of the call ``depth`` calls ago. ``merges_rollout``:
+    each flush logs the vector env's ``Rollout/*`` (DreamerV1's, V2's and V3's references
+    do; P2E's do not)."""
     refuse_unported(cfg, handled)
+    depth = int((cfg.get("rollout") or {}).get("pipeline_depth", 0) or 0) if "rollout.pipeline_depth" in handled else 0
     device = ctx.device
     log_dir = get_log_dir(cfg)
     save_config(cfg, Path(log_dir) / "config.yaml")
@@ -377,13 +421,15 @@ def run_loop(
         return row
 
     obs, _ = envs.reset(seed=cfg.seed)
-    player_state = player_state_init(num_envs)
+    acting = PlayerActing(player_step, player_state_init(num_envs), cnn_keys, mlp_keys, device, player_gen, actions_dim, is_continuous,
+                          parts.exploration)
+    player = PipelinedPlayer(envs, acting.policy, acting.post, depth=depth)
+    is_first_np = np.ones((num_envs, 1), dtype=np.float32)
     step_data = obs_row(obs)
     step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["is_first"] = np.ones((1, num_envs, 1), np.float32)
-    is_first_np = np.ones((num_envs, 1), dtype=np.float32)
     prefill_iters = max(learning_starts - 1, 0)
 
     run_grad_steps, last_path = 0, None
@@ -405,22 +451,9 @@ def run_loop(
                             [np.eye(d, dtype=np.float32)[sampled[:, i]] for i, d in enumerate(actions_dim)], -1
                         )
                         env_actions = sampled.squeeze(-1) if len(actions_dim) == 1 else sampled
-                    player_state = player_state._replace(actions=torch.as_tensor(stored_actions, device=device))
+                    acting.state = acting.state._replace(actions=torch.as_tensor(stored_actions, device=device))
                 else:
-                    with torch.no_grad():
-                        obs_t = prepare_obs(obs, cnn_keys, mlp_keys, num_envs, device)
-                        expl = {} if parts.exploration is None else {"expl_amount": parts.exploration(policy_step)}
-                        acts, stored, player_state = player_step(
-                            player_state, obs_t, torch.as_tensor(is_first_np, device=device), player_gen, **expl
-                        )
-                        acts_np = [a.float().cpu().numpy() for a in acts]
-                        stored_actions = stored.float().cpu().numpy()
-                    if is_continuous:
-                        env_actions = acts_np[0]
-                    elif len(actions_dim) == 1:
-                        env_actions = acts_np[0].argmax(-1)
-                    else:
-                        env_actions = np.stack([a.argmax(-1) for a in acts_np], -1)
+                    env_actions, stored_actions = player.act(obs, is_first_np, policy_step)
                 step_data["actions"] = stored_actions.reshape(1, num_envs, -1)
                 with monitor.phase("buffer_add"):
                     rb_add(step_data, validate_args=cfg.buffer.validate_args)
@@ -429,6 +462,7 @@ def run_loop(
             if iter_num >= learning_starts:
                 if parts.task_player is not None and actor_type != "task":
                     actor_type, player_step = "task", parts.task_player
+                    acting.player_step = player_step
                 grad_steps = ratio((policy_step + policy_steps_per_iter - prefill_iters * policy_steps_per_iter))
                 if grad_steps > 0:
                     train_t0 = time.perf_counter()
@@ -440,7 +474,7 @@ def run_loop(
 
             env_t0 = time.perf_counter()
             with timer("Time/env_interaction_time"), monitor.phase("env_step"):
-                next_obs, reward, terminated, truncated, info = envs.step(env_actions)
+                next_obs, reward, terminated, truncated, info = player.env_step(env_actions)
                 if cfg.env.clip_rewards:
                     reward = parts.clip_reward(reward)
                 done = np.logical_or(terminated, truncated)
@@ -518,6 +552,8 @@ def run_loop(
                 if parts.exploration is not None:
                     metrics["Params/exploration_amount"] = parts.exploration(policy_step)
                 metrics.update(replay_age_metrics(rb))  # its index sampling notes the ages on either path
+                if merges_rollout:
+                    metrics.update(rollout_metrics(envs))
                 monitor.log_metrics(logger, metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step

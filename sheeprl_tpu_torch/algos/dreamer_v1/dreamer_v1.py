@@ -259,4 +259,4 @@ def main(ctx, cfg) -> TrainResult:
             exploration=exploration_schedule(cfg.algo.actor),
         )
 
-    return run_loop(ctx, cfg, setup, AGGREGATOR_KEYS)
+    return run_loop(ctx, cfg, setup, AGGREGATOR_KEYS, merges_rollout=True)

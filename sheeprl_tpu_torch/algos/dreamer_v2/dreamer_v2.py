@@ -344,4 +344,4 @@ def main(ctx, cfg) -> TrainResult:
             exploration=exploration_schedule(cfg.algo.actor),
         )
 
-    return run_loop(ctx, cfg, setup)
+    return run_loop(ctx, cfg, setup, merges_rollout=True)

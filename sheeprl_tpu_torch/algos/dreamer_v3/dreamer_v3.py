@@ -408,4 +408,5 @@ def main(ctx, cfg) -> TrainResult:
             exploration=None,
         )
 
-    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm", REGISTERS), phases=PHASES)
+    return run_loop(ctx, cfg, setup, handled=("algo.world_model.decoupled_rssm", REGISTERS, "rollout.pipeline_depth"), phases=PHASES,
+                    merges_rollout=True)

@@ -3,8 +3,9 @@ PPO family's, ``ppo/ppo.py``, and the SAC family's, ``sac/sac.py``): ``grads`` (
 list), ``update_module`` (one optimizer update, its norms given to the step's health
 probe), ``refuse_unported`` (the reference's loop keys the port does not have; a loop
 names the ones it reads itself: ``REGISTERS`` where its reference registers the run's
-last checkpoint in the model registry), ``register_last_checkpoint`` and
-``TrainResult`` (what a train entry returns)."""
+last checkpoint in the model registry), ``refuse_host_env_keys`` (the env pool's keys on
+a path without a host vector env), ``register_last_checkpoint`` and ``TrainResult``
+(what a train entry returns)."""
 
 from __future__ import annotations
 
@@ -35,18 +36,12 @@ def update_module(probe, name: str, opt, params: List[torch.Tensor], grads: List
 
 def _pipeline_refusal(cfg: Dict[str, Any], value: Any) -> str:
     """A loop that does not name ``rollout.pipeline_depth`` in ``handled`` acts
-    synchronously. Of the reference's loops that the port runs this way, only
-    DreamerV3's reads the key (``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py:523``)."""
+    synchronously, as its reference does: of the reference's loops, only PPO's, SAC's and
+    DreamerV3's read the key."""
     name = (cfg.get("algo") or {}).get("name")
-    if name == "dreamer_v3":
-        return (
-            f"rollout.pipeline_depth={value!r}: the reference's dreamer_v3 loop acts through the pipelined player at "
-            "this depth; the PyTorch port's DreamerV3 loop acts synchronously and does not use the port's "
-            "PipelinedPlayer (rollout/pipeline.py) yet"
-        )
     return (
         f"rollout.pipeline_depth={value!r}: the {name} loop acts synchronously, as the reference's does (it does "
-        "not read the key); only the ppo and sac loops run the pipelined player"
+        "not read the key); only the ppo, sac and dreamer_v3 loops run the pipelined player"
     )
 
 
@@ -103,13 +98,19 @@ def _set(value: Any) -> bool:
     return value is not None
 
 
+def _value(cfg: Dict[str, Any], key: str) -> Any:
+    """The config's value at the dotted ``key``, None where a part is missing."""
+    node: Any = cfg
+    for part in key.split("."):
+        node = node.get(part) if isinstance(node, dict) else None
+    return node
+
+
 # (key, test on its value, what the reference does there that the port does not yet, or
 # a function of the config and the value that words the whole refusal)
 _NOT_PORTED = (
     ("rollout.pipeline_depth", lambda v: int(v or 0) > 0, _pipeline_refusal),
     ("distributed.mode", lambda v: v not in (None, "thread"), _sebulba_refusal),
-    ("env.pool.enabled", bool, "the shared-memory env pool"),
-    ("chaos.worker_fault_at_step", _set, "the chaos harness's env-pool worker fault"),
     ("algo.anakin", bool, _anakin_refusal),
     ("obs.fleet.dir", _set, "the fleet telemetry plane's aggregator (obs/fleet.py)"),
     ("analysis.strict", bool, "strict mode"),
@@ -130,8 +131,8 @@ FLEET_ENV_VAR = "SHEEPRL_TPU_FLEET"
 def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
     """Raise, naming the key, when the config asks for a loop feature of the reference
     that the port does not have: such a key is never silently ignored. ``handled``: keys
-    the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's and the
-    SAC family's ``rollout.pipeline_depth``). A set ``SHEEPRL_TPU_FLEET`` is refused as
+    the loop reads itself (DreamerV3's ``algo.world_model.decoupled_rssm``, PPO's, SAC's and
+    DreamerV3's ``rollout.pipeline_depth``). A set ``SHEEPRL_TPU_FLEET`` is refused as
     well: the reference's processes push their metrics to that fleet aggregator."""
     if os.environ.get(FLEET_ENV_VAR):
         raise NotImplementedError(
@@ -141,13 +142,28 @@ def refuse_unported(cfg: Dict[str, Any], handled: Sequence[str] = ()) -> None:
     for key, asks, what in _NOT_PORTED:
         if key in handled:
             continue
-        node: Any = cfg
-        for part in key.split("."):
-            node = node.get(part) if isinstance(node, dict) else None
+        node = _value(cfg, key)
         if node is not None and asks(node):
             if callable(what):
                 raise NotImplementedError(what(cfg, node))
             raise NotImplementedError(f"{key}={node!r} asks for {what}, which the PyTorch port does not have yet")
+
+
+#: the keys that ask for the host's vector env: the env pool and its chaos worker fault
+HOST_ENV_KEYS = (("env.pool.enabled", bool), ("chaos.worker_fault_at_step", _set))
+
+
+def refuse_host_env_keys(cfg: Dict[str, Any], engine: str) -> None:
+    """A path that steps no host vector env (the Anakin engine's envs step on the device)
+    refuses the keys of the env pool by name: nothing would read them (the reference's
+    engine ignores them)."""
+    for key, asks in HOST_ENV_KEYS:
+        node = _value(cfg, key)
+        if node is not None and asks(node):
+            raise NotImplementedError(
+                f"{key}={node!r} configures the host's env pool, and {engine} steps its envs on the device: "
+                "no pool worker would run"
+            )
 
 
 def register_last_checkpoint(cfg: Dict[str, Any], log_dir: str) -> None:

@@ -485,11 +485,17 @@ def flat_batch(rollout: Dict[str, torch.Tensor], returns: torch.Tensor, advantag
 
 
 def truncation_bootstrap(info: Dict[str, Any], truncated: np.ndarray, obs_keys: Sequence[str], values: Callable) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """``(env indices, V(final obs))`` of the envs whose episode was truncated this step,
-    for ``gamma * V`` to fold into their rewards; ``values(obs dict)`` -> host array."""
+    """``(env indices, V(final obs))`` of the envs whose episode was truncated this step
+    with a final observation, for ``gamma * V`` to fold into their rewards; ``values(obs
+    dict)`` -> host array. An env that the env pool restarted reports ``truncated`` with no
+    final observation (``info["rollout_restart"]``): it gets no bootstrap (the reference
+    indexes its missing final observation and raises when another env's episode ends in
+    the same step)."""
     if not truncated.any() or "final_obs" not in info:
         return None
-    idx = np.nonzero(truncated)[0]
+    idx = np.nonzero(truncated & info["_final_obs"])[0]
+    if idx.size == 0:
+        return None
     final_obs = {k: np.stack([np.asarray(info["final_obs"][i][k]) for i in idx]) for k in obs_keys}
     return idx, values(final_obs)
 
@@ -499,10 +505,13 @@ class PPOFamilyLoop:
     logger, training monitor (``obs/monitor.py``; ``close()`` it before the envs),
     vector env, aggregator, checkpoints and resume, and the logging and checkpoint
     cadences. ``phases``: the monitor's phases, the reference loop's (None: every one
-    the loop names)."""
+    the loop names). ``merges_rollout``: each flush logs the vector env's ``Rollout/*``
+    (PPO's, as the reference's ``ppo.py``; A2C's, recurrent PPO's and ``ppo_decoupled``'s
+    references do not)."""
 
-    def __init__(self, ctx, cfg, aggregator_keys, agg_lock=None, phases: Optional[Sequence[str]] = None):
+    def __init__(self, ctx, cfg, aggregator_keys, agg_lock=None, phases: Optional[Sequence[str]] = None, merges_rollout: bool = False):
         self.ctx, self.cfg = ctx, cfg
+        self.merges_rollout = merges_rollout
         # held around the aggregator's reads where another thread feeds it (ppo_decoupled)
         self.agg_lock = agg_lock if agg_lock is not None else contextlib.nullcontext()
         self.log_dir = get_log_dir(cfg)
@@ -543,7 +552,8 @@ class PPOFamilyLoop:
                 out = self.aggregator.compute()
                 self.aggregator.reset()
             out.update(metrics())
-            out.update(rollout_metrics(self.envs))
+            if self.merges_rollout:
+                out.update(rollout_metrics(self.envs))
             self.monitor.log_metrics(self.logger, out, self.policy_step)
             self.last_log = self.policy_step
 
@@ -672,7 +682,7 @@ def main(ctx, cfg) -> TrainResult:
         return ppo_anakin(ctx, cfg)
     refuse_ppo_unported(cfg, pipelined=True, registers=True)
     device = ctx.device
-    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS)
+    loop = PPOFamilyLoop(ctx, cfg, AGGREGATOR_KEYS, merges_rollout=True)
     envs = loop.envs
     try:
         obs_space, act_space = envs.single_observation_space, envs.single_action_space

@@ -26,7 +26,7 @@ A publication therefore carries no tensors, only its event and stamp.
 
 Against the reference's coupled entry, the reference's decoupled one computes the same
 update from the same rollout; it differs in where the draws come from (its player's
-own key chain) and in what it logs (``Sebulba/param_staleness_steps``, and no
+own key chain) and in what it logs (``Sebulba/param_staleness_steps``; neither logs the
 ``Rollout/*`` counters of an env pool). Not ported: strict mode (refused).
 """
 

@@ -207,9 +207,10 @@ def main(ctx, cfg) -> TrainResult:
                     next_obs, reward, terminated, truncated, info = envs.step(env_actions(act_np, is_continuous, action_dims, act_space))
                     done = np.logical_or(terminated, truncated)
                     reward = np.asarray(reward, dtype=np.float32).reshape(num_envs)
-                    if truncated.any() and "final_obs" in info:
-                        # V(final obs) under the new state, with this step's previous action
-                        idx = np.nonzero(truncated)[0]
+                    # V(final obs) under the new state, with this step's previous action (an env
+                    # that the env pool restarted has no final observation and no bootstrap)
+                    idx = np.nonzero(truncated & info["_final_obs"])[0] if "final_obs" in info else np.zeros(0, np.int64)
+                    if idx.size:
                         final_obs = {k: np.stack([np.asarray(info["final_obs"][i][k]) for i in idx]) for k in obs_keys}
                         sub_state = tuple(s[dev(idx)] for s in state)
                         _, _, v_final, _ = fns.act(prepare_obs(final_obs, cnn_keys, mlp_keys, device), dev(prev_stored[idx]),

@@ -233,14 +233,16 @@ def refuse_precision_override(cfg) -> None:
 
 def run_sac_loop(
     ctx, cfg, setup: Callable[..., SACParts], aggregator_keys=AGGREGATOR_KEYS, pipelined: bool = False, prefill_on_resume: bool = False,
-    registers: bool = False, phases: Sequence[str] = (),
+    registers: bool = False, phases: Sequence[str] = (), merges_rollout: bool = False,
 ) -> TrainResult:
     """The SAC family's train loop. ``setup(ctx, cfg, obs_space, act_space)`` returns the
     algorithm's ``SACParts``. ``prefill_on_resume``: a resumed run acts randomly again
     while ``learning_starts`` lasts (SAC-AE's reference does; SAC's and DroQ's keep the
     policy). ``registers``: the run's last checkpoint is registered at its end with
     ``model_manager.disabled=False`` (SAC's reference does; DroQ's and SAC-AE's do not).
-    ``phases``: the ``Time/phase_*`` blocks the algorithm's reference loop times."""
+    ``phases``: the ``Time/phase_*`` blocks the algorithm's reference loop times.
+    ``merges_rollout``: each flush logs the vector env's ``Rollout/*`` (SAC's and SAC-AE's
+    references do; DroQ's does not)."""
     # only SAC's loop reads rollout.pipeline_depth; DroQ's and SAC-AE's act synchronously, as their references do
     refuse_unported(cfg, handled=(("rollout.pipeline_depth",) if pipelined else ()) + ((REGISTERS,) if registers else ()))
     device = ctx.device
@@ -393,7 +395,8 @@ def run_sac_loop(
                 metrics["Time/sps_env_interaction"] = policy_steps_per_iter / env_time if env_time > 0 else 0.0
                 metrics["Params/replay_ratio"] = grad_count / policy_step if policy_step > 0 else 0.0
                 metrics.update(replay_age_metrics(ring if ring is not None else rb))
-                metrics.update(rollout_metrics(envs))
+                if merges_rollout:
+                    metrics.update(rollout_metrics(envs))
                 monitor.log_metrics(logger, metrics, policy_step)
                 aggregator.reset()
                 last_log = policy_step
@@ -476,4 +479,5 @@ def main(ctx, cfg) -> TrainResult:
 
     if anakin_enabled(cfg):  # the Anakin engine
         return sac_anakin(ctx, cfg)
-    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True, phases=("player", "dispatch", "env_step", "buffer_add", "checkpoint"))
+    return run_sac_loop(ctx, cfg, sac_parts, pipelined=True, registers=True, phases=("player", "dispatch", "env_step", "buffer_add", "checkpoint"),
+                        merges_rollout=True)

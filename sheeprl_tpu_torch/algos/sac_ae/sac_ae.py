@@ -220,4 +220,4 @@ def sac_ae_parts(ctx, cfg, obs_space, act_space) -> SACParts:
 
 @register_algorithm(name="sac_ae")
 def main(ctx, cfg):
-    return run_sac_loop(ctx, cfg, sac_ae_parts, AGGREGATOR_KEYS, prefill_on_resume=True)
+    return run_sac_loop(ctx, cfg, sac_ae_parts, AGGREGATOR_KEYS, prefill_on_resume=True, merges_rollout=True)

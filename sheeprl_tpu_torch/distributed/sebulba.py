@@ -30,8 +30,9 @@ refills its replay shard from nothing.
 
 The learner writes a summary to ``SHEEPRL_TPU_SEBULBA_SUMMARY`` when it ends, also on a
 crash: counts, the gradient-step trace, the channels' lifecycle events, and here also
-the publications' host and send times, the staleness, and each process's kernel launch
-counts and peak device memory. The learner ends each message at the training guard's
+the publications' host and send times, the staleness, each process's kernel launch
+counts and peak device memory, and each actor's ``Rollout/*`` (its env pool's counters,
+``{}`` without one; an actor shards ``env.pool.num_workers`` with ``shard_pool_cfg``). The learner ends each message at the training guard's
 boundary (``fault/guard.py``): a forwarded SIGTERM ends it there with a checkpoint, the
 ``PREEMPTED`` marker and ``Preempted``, which its train entry turns into exit 75. Not
 ported: the reference's flight recorder, monitor, fleet exporter and span tracer
@@ -40,6 +41,7 @@ ported: the reference's flight recorder, monitor, fleet exporter and span tracer
 
 from __future__ import annotations
 
+import bisect
 import collections
 import json
 import os
@@ -55,6 +57,7 @@ import torch
 from sheeprl_tpu_torch.distributed.placement import SUMMARY_ENV_VAR, PlacementSpec
 from sheeprl_tpu_torch.distributed.publish import PARAMS_KIND, ChannelWeightPublisher, host_arrays, staleness_steps
 from sheeprl_tpu_torch.distributed.transport import Channel, ChannelClosed, FramingError, Listener, connect, maybe_digest
+from sheeprl_tpu_torch.rollout.pool import rollout_metrics
 from sheeprl_tpu_torch.rollout.sharding import shard_pool_cfg
 
 HELLO_KIND = "hello"
@@ -73,7 +76,8 @@ class LearnerInbox:
     queue of ``distributed.queue_depth`` blocks. When the learner falls behind, readers
     block on ``put``, the sockets' buffers fill and every actor's ``send`` stalls. A dead
     actor never wedges the learner: its reader ends with ``ChannelClosed`` and queues a
-    ``closed`` item instead of a block."""
+    ``closed`` item of that generation instead of a block, stamped with the time it saw
+    the end of the stream, also when a respawn has replaced the channel by then."""
 
     def __init__(self, listener: Listener, spec: PlacementSpec, on_connect: Optional[Callable[[Channel], None]] = None):
         self._listener = listener
@@ -101,18 +105,21 @@ class LearnerInbox:
         with self._lock:
             return self._bytes_drained + sum(ch.bytes_received for ch in self._channels.values())
 
-    def record(self, actor_id: int, generation: int, event: str) -> None:
+    def record(self, actor_id: int, generation: int, event: str, t: Optional[float] = None) -> None:
+        """Add an event at monotonic time ``t`` (now by default), the list kept in time
+        order."""
         with self._lock:
-            self.events.append([time.monotonic(), int(actor_id), int(generation), event])
+            bisect.insort(self.events, [time.monotonic() if t is None else float(t), int(actor_id), int(generation), event],
+                          key=lambda e: e[0])
 
     def get(self, timeout: Optional[float] = None) -> Tuple[str, int, Dict[str, Any], Any]:
-        """The next item. A ``closed`` item is recorded as an event here, when the learner
-        takes it, after every block its actor queued before it (the reference records it
-        when the reader sees the end of the stream, which a queued block of the dead actor
-        can follow)."""
+        """The next item. A ``closed`` item stays queued after every block its actor sent
+        before it; when the learner takes it, it is recorded as an event at the time its
+        reader saw the end of the stream (``_eof_t``, taken out of the item's meta), as
+        the reference records it."""
         item = self._q.get(timeout=timeout)
         if item[0] == "closed":
-            self.record(item[1], item[2]["generation"], "closed")
+            self.record(item[1], item[2]["generation"], "closed", t=item[2].pop("_eof_t"))
         return item
 
     def _accept_loop(self) -> None:
@@ -160,17 +167,18 @@ class LearnerInbox:
         except (ChannelClosed, FramingError, TimeoutError):
             pass
         finally:
-            was_current = False
+            eof_t = time.monotonic()
             if actor_id is not None:
                 with self._lock:
                     if self._channels.get(actor_id) is ch:
                         del self._channels[actor_id]
-                        was_current = True
             with self._lock:
                 self._bytes_drained += ch.bytes_received
             ch.close()
-            if was_current and not done and not self._stop.is_set():
-                self._q.put(("closed", actor_id, {"generation": generation}, None))
+            # the end of this generation's stream, also where a respawn replaced the channel
+            # before this reader saw it end
+            if actor_id is not None and not done and not self._stop.is_set():
+                self._q.put(("closed", actor_id, {"generation": generation, "_eof_t": eof_t}, None))
 
     def close(self) -> None:
         self._stop.set()
@@ -307,17 +315,20 @@ def _exc_summary(exc: BaseException) -> Dict[str, Any]:
 class _SlotAccounting:
     """A global env-step count that never goes back across actor generations: each slot
     reports its own cumulative steps, and a closed slot's latest count folds into a base
-    offset before its respawn starts again from zero."""
+    offset; its respawn counts again from zero. Counts are kept per (slot, generation),
+    so a closed generation whose end the learner takes after its respawn's first blocks
+    folds its own count only."""
 
     def __init__(self) -> None:
-        self._latest: Dict[int, int] = {}
+        self._latest: Dict[Tuple[int, int], int] = {}
         self._offset = 0
 
-    def report(self, actor_id: int, env_steps: int) -> None:
-        self._latest[actor_id] = max(self._latest.get(actor_id, 0), int(env_steps))
+    def report(self, actor_id: int, env_steps: int, generation: int = 0) -> None:
+        key = (actor_id, generation)
+        self._latest[key] = max(self._latest.get(key, 0), int(env_steps))
 
-    def fold(self, actor_id: int) -> None:
-        self._offset += self._latest.pop(actor_id, 0)
+    def fold(self, actor_id: int, generation: int = 0) -> None:
+        self._offset += self._latest.pop((actor_id, generation), 0)
 
     @property
     def total(self) -> int:
@@ -447,7 +458,7 @@ def _run_sac_actor(ctx, cfg, spec: PlacementSpec) -> None:
             ch.send(BLOCK_KIND, {"batches": batches}, iter_num=iter_num, grad_steps=grad_steps, policy_step=policy_step,
                     env_time=env_time, env_steps=iter_num * num_envs, staleness=staleness_steps(stamp, policy_step),
                     stats=stats.drain())
-        ch.send(DONE_KIND, None, env_steps=num_iters * num_envs, **_process_stats(device))
+        ch.send(DONE_KIND, None, env_steps=num_iters * num_envs, rollout=rollout_metrics(envs), **_process_stats(device))
         inbox.wait_closed(spec.connect_timeout_s)
     finally:
         _actor_obs_teardown(tracer, log_dir)
@@ -564,7 +575,7 @@ def _run_ppo_actor(ctx, cfg, spec: PlacementSpec) -> None:
             payload, stamp = _await_params(inbox, last_seq, spec.connect_timeout_s)
             last_seq = int(stamp.get("seq", last_seq + 1))
             _adopt(own, payload)
-        ch.send(DONE_KIND, None, env_steps=num_updates * rollout_steps * num_envs, **_process_stats(device))
+        ch.send(DONE_KIND, None, env_steps=num_updates * rollout_steps * num_envs, rollout=rollout_metrics(envs), **_process_stats(device))
         inbox.wait_closed(spec.connect_timeout_s)
     finally:
         _actor_obs_teardown(tracer, log_dir)
@@ -748,14 +759,14 @@ def _learner_loop(
             last_progress = time.monotonic()
             if kind == DONE_KIND:
                 done_slots.add(actor_id)
-                slots.report(actor_id, int(meta.get("env_steps", 0)))
+                slots.report(actor_id, int(meta.get("env_steps", 0)), int(meta.get("_generation", 0)))
                 inbox.record(actor_id, int(meta.get("_generation", 0)), "done")
                 actor_stats[f"{actor_id}_g{int(meta.get('_generation', 0))}"] = {
-                    k: meta.get(k) for k in ("env_steps", "launches", "peak_bytes")}
+                    k: meta.get(k) for k in ("env_steps", "launches", "peak_bytes", "rollout")}
                 continue
             if kind == "closed":
                 if actor_id not in done_slots:
-                    slots.fold(actor_id)
+                    slots.fold(actor_id, int(meta["generation"]))
                 boundary()
                 continue
             if kind == ABANDON_KIND:
@@ -770,7 +781,7 @@ def _learner_loop(
             monitor.advance()
             blocks += 1
             policy_step = max(policy_step, int(meta.get("policy_step", 0)))
-            slots.report(actor_id, int(meta.get("env_steps", 0)))
+            slots.report(actor_id, int(meta.get("env_steps", 0)), int(meta.get("_generation", 0)))
             with monitor.phase("dispatch"):
                 grad_steps, train_time = train_block(meta, payload, cumulative_grad_steps)
             cumulative_grad_steps += grad_steps

@@ -51,7 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.loop_common import TrainResult, refuse_unported
+from sheeprl_tpu_torch.algos.loop_common import TrainResult, refuse_host_env_keys, refuse_unported
 from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
 from sheeprl_tpu_torch.config.core import save_config
 from sheeprl_tpu_torch.engine.population import (
@@ -545,6 +545,7 @@ def ppo_anakin(ctx, cfg) -> TrainResult:
     from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, test
 
     refuse_unported(cfg, handled=("algo.anakin",))
+    refuse_host_env_keys(cfg, "the Anakin engine")
     env, env_params = anakin_env(cfg)
     obs_key = anakin_mlp_key(cfg)
     pop = population_spec(cfg, "ppo")
@@ -833,6 +834,7 @@ def sac_anakin(ctx, cfg) -> TrainResult:
     from sheeprl_tpu_torch.algos.sac.utils import AGGREGATOR_KEYS, test, vector_rows
 
     refuse_unported(cfg, handled=("algo.anakin",))
+    refuse_host_env_keys(cfg, "the Anakin engine")
     env, env_params = anakin_env(cfg)
     obs_key = anakin_mlp_key(cfg)
     pop = population_spec(cfg, "sac")

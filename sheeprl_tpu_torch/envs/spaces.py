@@ -5,6 +5,8 @@ constructor arguments and attributes.
 The port carries its own because the hosts it targets need not have gymnasium: the
 card's host has PyTorch, numpy and the CUDA toolkit, and the dummy-env evaluation path
 needs nothing more. Spaces sample from their own ``numpy`` generator (``seed``).
+``create_empty_array`` and ``batch_space`` give a space's layout over ``n`` envs, as
+gymnasium's ``vector.utils`` do (the env pool's shared slabs and batched spaces).
 """
 
 from __future__ import annotations
@@ -160,3 +162,32 @@ class Dict(Space, Mapping):
 
     def __eq__(self, other: Any) -> bool:
         return isinstance(other, Dict) and self.spaces == other.spaces
+
+
+def create_empty_array(space: Space, n: int) -> Any:
+    """Zeros for ``n`` stacked samples of ``space``, as gymnasium's
+    ``vector.utils.create_empty_array(space, n, fn=np.zeros)``: ``[n, *shape]`` in the
+    space's dtype (``[n]`` int64 for ``Discrete``), a dict of them for ``Dict``."""
+    if isinstance(space, Dict):
+        return {k: create_empty_array(s, n) for k, s in space.spaces.items()}
+    if isinstance(space, (Box, Discrete, MultiDiscrete)):
+        return np.zeros((n, *space.shape), dtype=space.dtype)
+    raise TypeError(f"no batched layout for {space!r}: Box, Discrete, MultiDiscrete and Dict have one")
+
+
+def batch_space(space: Space, n: int) -> Space:
+    """The space of ``n`` stacked samples of ``space``, as gymnasium's
+    ``vector.utils.batch_space``: a ``Box`` repeats its bounds, ``Discrete(k)`` becomes
+    ``MultiDiscrete([k] * n)``, ``MultiDiscrete`` a ``Box`` of ``[0, nvec - 1]``, ``Dict``
+    batches each entry."""
+    if isinstance(space, Dict):
+        return Dict({k: batch_space(s, n) for k, s in space.spaces.items()})
+    if isinstance(space, Box):
+        return Box(np.stack([space.low] * n), np.stack([space.high] * n), dtype=space.dtype)
+    if isinstance(space, Discrete):
+        if space.start != 0:
+            raise TypeError(f"no batched space for {space!r} with start {space.start}: the port's MultiDiscrete starts at 0")
+        return MultiDiscrete(np.full((n,), space.n, dtype=space.dtype), dtype=space.dtype)
+    if isinstance(space, MultiDiscrete):
+        return Box(np.zeros((n, *space.shape), space.dtype), np.stack([space.nvec - 1] * n), dtype=space.dtype)
+    raise TypeError(f"no batched space for {space!r}: Box, Discrete, MultiDiscrete and Dict have one")

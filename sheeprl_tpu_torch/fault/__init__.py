@@ -9,9 +9,8 @@
   same in process (``cli.run``);
 * ``classify``: the retry/fatal matrix;
 * ``chaos``: the seeded fault schedule (kill, corrupt, delay at step N; the Sebulba
-  actor kill);
+  actor kill; the env pool's worker crash or hang);
 * ``counters``: the ``Fault/*`` counters that every metric flush folds in.
 
-Not ported: the env pool's worker fault (``chaos.worker_fault_at_step``, refused by
-name) and the serving fleet's supervisor (``serve.fleet.enabled``).
+Not ported: the serving fleet's supervisor (``serve.fleet.enabled``).
 """

@@ -10,19 +10,26 @@ chaos run is reproducible.
   the newest published checkpoint (a seeded byte of its largest ``.pt`` entry), so that a
   resume must fall back to the checkpoint before it.
 * ``chaos.delay_at_step=N`` with ``chaos.delay_ms``: stall one loop boundary.
+* ``chaos.worker_fault_at_step=N`` with ``chaos.worker_fault_mode=crash|hang`` and
+  ``chaos.worker_index=i``: env-pool worker ``i`` crashes (``os._exit`` with
+  :data:`WORKER_CRASH_EXIT_CODE`) or hangs (sleeps ``chaos.worker_hang_s``, past the step
+  timeout) at its ``N``-th step command, to drill the pool's restarts
+  (``rollout/worker.py`` polls :func:`maybe_worker_fault`); only generation 0 fires, so
+  the replacement runs clean.
 * ``chaos.kill_actor_at_step=N`` with ``chaos.kill_actor_index=i``: SIGKILL Sebulba
   actor process ``i`` at its ``N``-th iteration (``distributed/sebulba.py`` polls
   :func:`maybe_actor_fault`); only generation 0 fires, so the respawn runs clean.
 
 The step faults are edge triggers: one fires when the step crosses its threshold, and a
 run resumed past the threshold never fires it again: that is what makes kill at step N
-with ``fault.autoresume=True`` end. ``chaos.worker_fault_at_step`` belongs to the env
-pool, which the port does not have: every loop refuses it by name
-(``algos/loop_common.py``); ``install`` validates its grammar all the same.
+with ``fault.autoresume=True`` end.
 
-Deviation: the port's checkpoint entries are ``<name>.pt`` files, so the corruption
+Deviations: the port's checkpoint entries are ``<name>.pt`` files, so the corruption
 targets the largest ``.pt`` (the reference's its largest ``.msgpack``, else its largest
-file). Standard library only.
+file). The reference's worker-fault spec reaches a pool worker through ``fork``; the
+port's workers are spawned, so the pool reads the spec (:func:`worker_fault_spec`) and
+hands it to each worker as an argument, which installs it (:func:`install_worker_fault`)
+before its first step. Standard library only: the pool's workers import this module.
 """
 
 from __future__ import annotations
@@ -41,8 +48,14 @@ _KILL_SIGNALS = {"SIGTERM": signal.SIGTERM, "SIGINT": signal.SIGINT, "SIGKILL": 
 _CORRUPT_MODES = ("bitflip", "truncate")
 _WORKER_MODES = ("crash", "hang")
 
+#: the exit code of an env-pool worker that the chaos schedule crashed
+WORKER_CRASH_EXIT_CODE = 117
+
 # the actor-kill spec, parsed by ``install`` from this process's own config
 _actor_fault: Optional[Dict[str, Any]] = None
+# the env-pool worker fault: parsed by ``install`` in the training process, handed to each
+# pool worker as an argument and installed there by ``install_worker_fault``
+_worker_fault: Optional[Dict[str, Any]] = None
 
 
 def _record(kind: str, **payload: Any) -> None:
@@ -60,12 +73,13 @@ def _chaos_cfg(cfg: Any) -> Dict[str, Any]:
 
 
 def install(cfg: Any) -> None:
-    """Parse the process-level part of the schedule (the actor kill) into module state and
-    validate the grammar of the rest loudly (``cli.run_algorithm`` calls it before every
-    run, a Sebulba child before its loop)."""
-    global _actor_fault
+    """Parse the process-level part of the schedule (the actor kill, the pool worker's
+    fault) into module state and validate the grammar of the rest loudly
+    (``cli.run_algorithm`` calls it before every run, a Sebulba child before its loop)."""
+    global _actor_fault, _worker_fault
     chaos = _chaos_cfg(cfg)
     _actor_fault = None
+    _worker_fault = None
     if not chaos:
         return
     if chaos.get("kill_actor_at_step") is not None:
@@ -80,6 +94,38 @@ def install(cfg: Any) -> None:
         wmode = str(chaos.get("worker_fault_mode", "crash"))
         if wmode not in _WORKER_MODES:
             raise ValueError(f"chaos.worker_fault_mode must be one of {_WORKER_MODES}; got {wmode!r}")
+        _worker_fault = {
+            "at_step": int(chaos["worker_fault_at_step"]),
+            "mode": wmode,
+            "worker": int(chaos.get("worker_index", 0) or 0),
+            "hang_s": float(chaos.get("worker_hang_s", 3600.0)),
+        }
+
+
+def worker_fault_spec() -> Optional[Dict[str, Any]]:
+    """The installed worker-fault spec (None without one), for the pool to hand over."""
+    return None if _worker_fault is None else dict(_worker_fault)
+
+
+def install_worker_fault(spec: Optional[Dict[str, Any]]) -> None:
+    """Install a worker-fault spec handed to a pool worker (``rollout/worker.py``)."""
+    global _worker_fault
+    _worker_fault = None if spec is None else dict(spec)
+
+
+def maybe_worker_fault(worker_idx: int, generation: int, step_count: int) -> None:
+    """Polled by the pool's worker once per step command: worker ``worker_idx`` of
+    generation 0 crashes or hangs at its ``at_step``-th step. The event goes to this
+    process's flight recorder where it has one (a spawned worker has none: the parent
+    records the crash or the timeout as ``rollout_crash`` or ``rollout_timeout``)."""
+    spec = _worker_fault
+    if spec is None or generation != 0 or worker_idx != spec["worker"]:
+        return
+    if step_count == spec["at_step"]:
+        _record("chaos_worker_fault", step=step_count, worker=worker_idx, mode=spec["mode"])
+        if spec["mode"] == "crash":
+            os._exit(WORKER_CRASH_EXIT_CODE)
+        time.sleep(spec["hang_s"])  # hang: the parent's step timeout reaps this process
 
 
 def maybe_actor_fault(actor_id: int, generation: int, step_count: int) -> None:

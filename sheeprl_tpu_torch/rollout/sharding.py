@@ -4,9 +4,9 @@
 A thread-decoupled run owns the whole host, so ``env.pool.num_workers`` (or its
 cpu-count default) is a budget per host. Under Sebulba ``num_actors`` processes run that
 config on one host, so each actor takes a disjoint ``1/num_actors`` slice of the budget,
-the remainder going to the lowest actor ids. The port refuses ``env.pool.enabled``, so
-``shard_pool_cfg`` changes nothing here, as it changes nothing in the reference when the
-pool is off; an actor calls it where the reference's does.
+the remainder going to the lowest actor ids. An actor calls ``shard_pool_cfg`` before it
+builds its vector env (``distributed/sebulba.py``), where the reference's does; it
+changes nothing when the pool is off.
 """
 
 from __future__ import annotations

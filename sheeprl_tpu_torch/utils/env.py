@@ -224,13 +224,27 @@ def _build_env(cfg, seed, rank, run_name, prefix, vector_env_idx) -> gym.Env:
 
 def make_vector_env(cfg: Dict[str, Any], seed: int, rank: int, run_name: Optional[str] = None, prefix: str = ""):
     """The vector env of the training loops: ``env.num_envs`` envs, env ``i`` seeded
-    ``seed + rank * num_envs + i``, with same-step autoreset. ``env.sync_env`` picks
-    the in-process vector env; otherwise each env runs in a worker process started with
-    ``spawn``. The reference's shared-memory env pool (``env.pool``) is not ported."""
+    ``seed + rank * num_envs + i``, with same-step autoreset. ``env.pool.enabled`` picks the
+    shared-memory env pool (``rollout/pool.py``: worker processes over env groups, the step
+    timeout, heartbeat and restarts of the ``rollout`` group); otherwise ``env.sync_env``
+    picks the in-process vector env, else one worker process per env, started with
+    ``spawn``."""
     from sheeprl_tpu_torch.envs.vector import AsyncVectorEnv, SyncVectorEnv
 
-    if (cfg.env.get("pool") or {}).get("enabled", False):
-        raise NotImplementedError("env.pool.enabled=True (the shared-memory env pool) is not ported yet")
     n_envs = cfg.env.num_envs
     thunks = [make_env(cfg, seed + rank * n_envs + i, rank, run_name, prefix=prefix, vector_env_idx=i) for i in range(n_envs)]
+    pool_cfg = cfg.env.get("pool") or {}
+    if pool_cfg.get("enabled", False):
+        from sheeprl_tpu_torch.rollout.pool import EnvPool
+
+        rollout_cfg = cfg.get("rollout") or {}
+        return EnvPool(
+            thunks,
+            num_workers=pool_cfg.get("num_workers"),
+            step_timeout_s=rollout_cfg.get("step_timeout_s", 60.0),
+            heartbeat_interval_s=rollout_cfg.get("heartbeat_interval_s", 2.0),
+            max_restarts=rollout_cfg.get("max_restarts", 3),
+            restart_backoff_s=rollout_cfg.get("restart_backoff_s", 0.5),
+            start_method=rollout_cfg.get("start_method"),
+        )
     return (SyncVectorEnv if cfg.env.sync_env else AsyncVectorEnv)(thunks)

@@ -74,7 +74,6 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch, caplog, buffer)
 @pytest.mark.parametrize(
     "override,word",
     [
-        ("chaos.worker_fault_at_step=3", "chaos.worker_fault_at_step"),
         ("+rollout.pipeline_depth=2", "rollout.pipeline_depth"),
         ("obs.fleet.dir=fleet", "obs.fleet.dir"),
         ("+mesh.data=2", "mesh.data"),

@@ -146,7 +146,9 @@ SLICE_MODULES = [
     "sheeprl_tpu_torch.rollout",
     "sheeprl_tpu_torch.rollout.pipeline",
     "sheeprl_tpu_torch.rollout.pool",
+    "sheeprl_tpu_torch.rollout.shared",
     "sheeprl_tpu_torch.rollout.sharding",
+    "sheeprl_tpu_torch.rollout.worker",
     "sheeprl_tpu_torch.serve",
     "sheeprl_tpu_torch.serve.__main__",
     "sheeprl_tpu_torch.serve.batching",

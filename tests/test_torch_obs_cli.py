@@ -162,6 +162,6 @@ def test_line_dummy_composes_as_the_reference_and_steps(tmp_path):
     cfg = compose(overrides=["exp=dreamer_v3_dummy", "env=line_dummy", "device=cpu"])
     ref = jax_compose(overrides=["exp=dreamer_v3_dummy", "env=line_dummy"])
     assert cfg.env.wrapper._target_ == "sheeprl_tpu_torch.envs.dummy.LineWalkDummyEnv"
-    assert {k: v for k, v in cfg.env.items() if k != "wrapper"} == {k: v for k, v in ref.env.items() if k not in ("wrapper", "pool")}
+    assert {k: v for k, v in cfg.env.items() if k != "wrapper"} == {k: v for k, v in ref.env.items() if k != "wrapper"}
     result = run([*[o for o in RUN if not o.startswith("env=")], "env=line_dummy", "algo.total_steps=20", f"log_root={tmp_path}"])
     assert result.policy_steps == 20 and result.grad_steps >= 1

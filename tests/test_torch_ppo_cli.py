@@ -58,10 +58,8 @@ def test_train_checkpoint_resume_evaluate(tmp_path, monkeypatch, name):
     "exp,override,key",
     [
         ("ppo_dummy", "algo.anakin=True", "algo.anakin"),
-        ("ppo_dummy", "+env.pool.enabled=True", "env.pool.enabled"),
         ("ppo_dummy", "obs.fleet.dir=fleet", "obs.fleet.dir"),
         ("ppo_dummy", "+analysis.strict=True", "analysis.strict"),
-        ("ppo_dummy", "chaos.worker_fault_at_step=3", "chaos.worker_fault_at_step"),
         ("ppo_dummy", "+mesh.sequence=2", "mesh.sequence"),
         ("ppo_dummy", "buffer.memmap=True", "buffer.memmap"),
         ("ppo_dummy", "algo.precision=fp16", "algo.precision"),

@@ -315,7 +315,6 @@ def test_decoupled_entries_run_with_the_observability_keys(tmp_path, monkeypatch
         ("sac_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("ppo_decoupled", "obs.fleet.dir=fleet", r"obs\.fleet\.dir"),
         ("sac_decoupled", "+analysis.strict=True", r"analysis\.strict"),
-        ("ppo_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("ppo_decoupled", "buffer.memmap=True", r"buffer\.memmap"),
         ("sac_decoupled", "+mesh.data=2", r"mesh\.data"),
         ("ppo_decoupled", "+mesh.devices=4", r"mesh\.devices"),

@@ -16,9 +16,9 @@ process on the CPU:
   alike);
 * ``maybe_actor_fault`` kills only actor ``i`` of generation 0 from its step on, as the
   reference's; a real child dies by SIGKILL;
-* the other chaos keys are refused by name on every loop, ``distributed.mode=sebulba``
-  on a loop without a player/learner split, and a mode other than ``thread`` or
-  ``sebulba`` on the decoupled entries;
+* ``distributed.mode=sebulba`` is refused by name on a loop without a player/learner
+  split, and a mode other than ``thread`` or ``sebulba`` on the decoupled entries (the
+  chaos worker fault runs since the env pool is ported: ``tests/test_torch_rollout_*``);
 * the launcher's entry imports no torch (so it never initialises CUDA)."""
 
 import subprocess
@@ -319,10 +319,6 @@ def test_actor_fault_kills_a_real_child_by_sigkill():
 @pytest.mark.parametrize(
     "exp,override,pattern",
     [
-        ("sac_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step=3 asks for the chaos harness's env-pool worker fault"),
-        ("ppo_decoupled", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
-        ("ppo_dummy", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
-        ("sac", "chaos.worker_fault_at_step=3", r"chaos\.worker_fault_at_step"),
         ("ppo_dummy", "distributed.mode=sebulba", r"distributed\.mode='sebulba': the ppo loop has no player/learner split"),
         ("sac", "distributed.mode=sebulba", r"distributed\.mode='sebulba': the sac loop has no player/learner split"),
         ("sac_decoupled", "distributed.mode=mesh", r"distributed\.mode='mesh': the sac_decoupled loop runs .* there is no other mode"),
